@@ -1,0 +1,548 @@
+"""Smoke run of the PyTorch/CUDA port (`ed25519_consensus_tpu_torch`) on one
+NVIDIA GPU: builds the CUDA kernels from `csrc/`, holds each against its
+plain PyTorch version on the card, drives the main path — batch verification
+of a 10,000-signature Zcash block-sync batch through `Verifier.verify_gpu()`,
+a tampered copy, the adversarial ZIP215 batch, and one stacked B = 8 device
+call — and times the kernels.
+
+    python3 chip_smoke.py
+
+Exits nonzero, and prints no result, without a CUDA device, outside a
+checkout of the repository, or when any phase fails.  Its last line is
+`{"ok": true, "device": {...}}`; the line before it is the card's name and
+power limit, and the one before that the per-kernel JSON record (launch
+counts on the main path, errors against the plain versions, times and
+bounds)."""
+
+import json
+import random
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# The card's peak rates, for each kernel's bound: HBM3 at 3.35 TB/s, and
+# int32 operations at the SM's issue limit, 128 lanes per clock (four
+# schedulers, one 32-lane instruction each: IMAD on the FMA pipe, adds,
+# shifts and logic on the INT32 pipe), the rate behind the 67 TFLOP/s
+# float32 peak with a multiply-add counted once: 128 x 132 SMs x the
+# 1.98 GHz boost clock (H100 SXM data sheet) = 33.5e12 int32 ops/s.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 128 * 132 * 1.98e9
+
+# int32 instructions per field operation, from csrc/fe25519.cuh, a
+# multiply-add counting as one.  A carry step is 4 per limb (add the
+# rounding offset, shift, multiply-subtract, add the carry in) plus the
+# 608 fold.  fe_mul: 400 products, 2 wide steps over 41 columns, 21 fold
+# multiply-adds, 5 steps over 20 limbs; fe_sq: 210 products (20 squares,
+# 190 doubled cross products) and 19 doublings, then the same carries;
+# add / sub / mul_small: 20 ops and one step; a negation: 20.  A complete
+# addition is 9 multiplies and 9 adds.
+OPS_CARRY = 4 * 20 + 1
+OPS_MUL_TAIL = 2 * 4 * 41 + 21 + 5 * OPS_CARRY
+OPS_FE_MUL = 400 + OPS_MUL_TAIL
+OPS_FE_SQ = 210 + 19 + OPS_MUL_TAIL
+OPS_FE_ADD = 20 + OPS_CARRY
+OPS_FE_NEG = 20
+OPS_GE_ADD = 9 * OPS_FE_MUL + 9 * OPS_FE_ADD
+# K1 per lane (csrc/expand_compressed.cu): squarings y^2, v^2, (v^3)^2 and
+# the 251 of the pow22523 ladder; multiplies d*y^2, v^2*v, v^6*v, u*v^7,
+# the ladder's 11, u*v^3, *t1 and x*y; plus u and v.  The flip multiply
+# and the neg subtraction are counted per lane from the hints.
+K1_SQS_PER_LANE = 3 + 251
+K1_MULS_PER_LANE = 4 + 11 + 3
+K1_ADDS_PER_LANE = 2
+
+ZCASH_SIGS, ZCASH_KEYS = 10_000, 64
+STACK_B, STACK_N = 8, 12_288
+DEV = "cuda"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync() -> None:
+    import torch
+
+    if torch.device(DEV).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of `fn` on the card over `reps` runs (CUDA
+    events), after one warm-up run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, ops: float) -> "tuple[float, str]":
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def random_wire(n: int, rng):
+    """(33, n) uint8 compressed wire: the 14 ZIP215 matrix encodings
+    (8 torsion points, 6 non-canonical low-order encodings), the other 20
+    non-canonical encodings, then random curve points with random sign
+    bits; plus the host points they decompress to."""
+    import numpy as np
+
+    from ed25519_consensus_tpu_torch.ops import edwards
+    from ed25519_consensus_tpu_torch.utils import fixtures
+
+    encs = [p.compress() for p in edwards.eight_torsion()]
+    encs += fixtures.non_canonical_point_encodings()
+    out, pts = [], []
+    for e in encs:
+        pt, h = edwards.decompress_with_hint(e)
+        out.append((e, h))
+        pts.append(pt)
+    while len(out) < n:
+        e = rng.getrandbits(256).to_bytes(32, "little")
+        res = edwards.decompress_with_hint(e)
+        if res is not None:
+            out.append((e, res[1]))
+            pts.append(res[0])
+    w = np.zeros((33, n), dtype=np.uint8)
+    for i, (e, h) in enumerate(out[:n]):
+        w[:32, i] = np.frombuffer(e, dtype=np.uint8)
+        w[32, i] = h
+    return w, pts[:n]
+
+
+def adversarial_digits(B: int, N: int, seed: int):
+    """(B, 33, N) int8 digit planes: runs of all -8, all +7 and all 0,
+    then uniform digits in [-8, 7]."""
+    import numpy as np
+
+    d = np.random.default_rng(seed).integers(
+        -8, 8, size=(B, 33, N)).astype(np.int8)
+    q = N // 8
+    d[:, :, :q] = -8
+    d[:, :, q:2 * q] = 7
+    d[:, :, 2 * q:3 * q] = 0
+    return d
+
+
+def phase_kernels(report: dict) -> None:
+    """Each kernel against its plain PyTorch version on the card."""
+    import numpy as np
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import edwards, limbs, msm
+    from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+
+    rng = random.Random(0xC41)
+    dev = torch.device(DEV)
+
+    # K1 on 4,096 lanes (B = 2, N = 2,048): exact int16 equality.
+    w, pts = random_wire(4096, rng)
+    wire = torch.from_numpy(
+        np.ascontiguousarray(w.reshape(33, 2, 2048).transpose(1, 0, 2))
+    ).to(dev)
+    k1 = TD.expand_compressed_points(wire)
+    p1 = TD.expand_compressed_points_plain(wire)
+    sync()
+    err = int((k1.int() - p1.int()).abs().max())
+    host = k1.permute(1, 2, 0, 3).reshape(4, limbs.NLIMBS, 4096).cpu()
+    bad = [i for i in range(0, 4096, 7) if limbs.unpack_point(
+        host[..., i].numpy()) != pts[i]]
+    log(f"K1 expand_compressed vs plain: 4096 lanes, max |diff| = {err}; "
+        f"vs host decompression on {len(range(0, 4096, 7))} lanes: "
+        f"{len(bad)} differ")
+    if err or bad:
+        raise AssertionError("K1 disagrees with its plain version or host")
+    report["expand_compressed"]["max_abs_err"] = err
+
+    # K2 + K3 at B = 2, N = 8,192 with adversarial digits, packed and
+    # plain: exact limb equality with the plain versions, every window
+    # equal to the plain window sum as a point, and batch 0's MSM equal to
+    # the exact host MSM.
+    B, N = 2, 8192
+    d = adversarial_digits(B, N, seed=7)
+    packed = np.stack([limbs.pack_digit_planes(x) for x in d])
+    base = k1.permute(1, 2, 0, 3).reshape(4, limbs.NLIMBS, 4096)
+    points = base.repeat(1, 1, B * N // 4096).reshape(
+        4, limbs.NLIMBS, B, N).permute(2, 0, 1, 3).contiguous()
+    dig_p = torch.from_numpy(packed).to(dev)
+    dig_i = torch.from_numpy(d).to(dev)
+    k2 = msm.window_partials(dig_p, points)
+    k2i = msm.window_partials(dig_i, points)
+    p2 = msm.window_partials_plain(dig_p, points)
+    k3 = msm.fold_partials(k2)
+    p3 = msm.fold_partials_plain(p2)
+    sync()
+    err2 = max(int((k2 - p2).abs().max()), int((k2i - p2).abs().max()))
+    err3 = int((k3 - p3).abs().max())
+    ws_k, ws_p = k3.cpu().numpy(), p3.cpu().numpy()
+    n_bad = sum(limbs.unpack_point(ws_k[b, ..., w]) !=
+                limbs.unpack_point(ws_p[b, ..., w])
+                for b in range(B) for w in range(33))
+    # host MSM for batch 0: scalar_i = Σ_w d_{i,w} 16^(32-w), reduced mod
+    # the full group order 8ℓ (torsion points are in the mix)
+    from ed25519_consensus_tpu_torch.ops.scalar import L
+
+    wts = [16 ** (32 - w) for w in range(33)]
+    scal = [sum(int(d[0, w, i]) * wts[w] for w in range(33)) % (8 * L)
+            for i in range(N)]
+    host_pts = [pts[i % 4096] for i in range(N)]
+    host_ok = msm.combine_window_sums(ws_k[:1]) == \
+        edwards.multiscalar_mul(scal, host_pts)
+    log(f"K2 window_sums vs plain (B={B}, N={N}, packed and plain "
+        f"digits): max |diff| = {err2}; K3 fold_partials vs plain: "
+        f"max |diff| = {err3}; windows unequal as points: {n_bad}/66; "
+        f"batch-0 MSM equals host MSM: {host_ok}")
+    if err2 or err3 or n_bad or not host_ok:
+        raise AssertionError("K2/K3 disagree with their plain versions")
+    report["window_sums"]["max_abs_err"] = err2
+    report["fold_partials"]["max_abs_err"] = err3
+
+
+def zcash10k(rng):
+    """The bench.py `zcash10k` deployment: 10,000 signatures over 64 keys
+    (BASELINE.json config "Zcash block-sync replay"), as (vk, sig, msg)
+    tuples."""
+    from ed25519_consensus_tpu_torch import SigningKey
+
+    keys = [SigningKey.new(rng) for _ in range(ZCASH_KEYS)]
+    out = []
+    for i in range(ZCASH_SIGS):
+        sk = keys[i % ZCASH_KEYS]
+        msg = b"zcash-tx-%d" % i
+        out.append((sk.verification_key_bytes(), sk.sign(msg), msg))
+    return out
+
+
+def adversarial(rng):
+    """The bench.py `adversarial` batch: the 196-case ZIP215 small-order
+    x non-canonical matrix plus 196 random signatures."""
+    from ed25519_consensus_tpu_torch import Signature, SigningKey, batch
+    from ed25519_consensus_tpu_torch.ops import edwards
+    from ed25519_consensus_tpu_torch.utils import fixtures
+
+    bv = batch.Verifier()
+    encs = [p.compress() for p in edwards.eight_torsion()]
+    encs += fixtures.non_canonical_point_encodings()[:6]
+    for A in encs:
+        for R in encs:
+            bv.queue((A, Signature(R, b"\x00" * 32), b"Zcash"))
+    for i in range(196):
+        sk = SigningKey.new(rng)
+        msg = b"adv-%d" % i
+        bv.queue((sk.verification_key_bytes(), sk.sign(msg), msg))
+    return bv
+
+
+def phase_main_path(report: dict, state: dict) -> None:
+    """The main path, with the launch counts read around it."""
+    import numpy as np
+
+    from ed25519_consensus_tpu_torch import InvalidSignature, batch
+    from ed25519_consensus_tpu_torch.ops import _cuda, msm
+
+    rng = random.Random(0x5EED)
+    t = time.perf_counter()
+    entries = zcash10k(rng)
+    bv = batch.Verifier()
+    bv.queue_bulk(entries)
+    bad = list(entries)
+    vk, sig, _ = bad[len(bad) // 2]
+    bad[len(bad) // 2] = (vk, sig, b"zcash-tx-tampered")
+    tampered = batch.Verifier()
+    tampered.queue_bulk(bad)
+    adv = adversarial(rng)
+    host_verdict = True
+    try:
+        adv.verify(rng=random.Random(3), backend="host")
+    except InvalidSignature:
+        host_verdict = False
+    log(f"built zcash10k ({ZCASH_SIGS} sigs, {ZCASH_KEYS} keys), its "
+        f"tampered copy and the adversarial batch (host verdict "
+        f"{host_verdict}) in {time.perf_counter() - t:.1f} s")
+
+    _cuda.reset_launch_counts()
+    runs = []
+    for i in range(2):
+        timings = {}
+        t = time.perf_counter()
+        bv.verify_gpu(rng=random.Random(100 + i), timings=timings)
+        runs.append((time.perf_counter() - t, timings))
+    total, timings = runs[-1]
+    log(f"zcash10k verify_gpu: accepted; end to end {total:.3f} s = "
+        f"{ZCASH_SIGS / total:.0f} sigs/s (second run; first "
+        f"{runs[0][0]:.3f} s); host staging {timings['stage_host']:.3f} s, "
+        f"device {timings['device']:.3f} s, host combine "
+        f"{timings['combine']:.3f} s")
+    state["e2e"] = {"seconds": total, "sigs_per_s": ZCASH_SIGS / total,
+                    **timings}
+    try:
+        tampered.verify_gpu(rng=random.Random(4))
+    except InvalidSignature:
+        log("tampered zcash10k verify_gpu: rejected (InvalidSignature)")
+    else:
+        raise AssertionError("tampered batch accepted")
+    dev_verdict = True
+    try:
+        adv.verify_gpu(rng=random.Random(5))
+    except InvalidSignature:
+        dev_verdict = False
+    log(f"adversarial batch ({adv.batch_size} sigs): device verdict "
+        f"{dev_verdict}, host verdict {host_verdict}")
+    if dev_verdict != host_verdict:
+        raise AssertionError("adversarial device verdict != host verdict")
+
+    t = time.perf_counter()
+    ops = [bv._stage(random.Random(200 + b)).device_operands(
+        lambda n: STACK_N) for b in range(STACK_B)]
+    digits = np.stack([o[0] for o in ops])
+    wire = np.stack([o[1] for o in ops])
+    t_stage = time.perf_counter() - t
+    t = time.perf_counter()
+    ws = msm.dispatch_window_sums_many(digits, wire, DEV).cpu().numpy()
+    t_dev = time.perf_counter() - t
+    oks = [msm.combine_window_sums(ws[b:b + 1]).mul_by_cofactor()
+           .is_identity() for b in range(STACK_B)]
+    log(f"stacked dispatch_window_sums_many B={STACK_B}, N={STACK_N}: "
+        f"accepts {oks}; staging {t_stage:.2f} s, device call "
+        f"{t_dev:.3f} s")
+    if not all(oks):
+        raise AssertionError("a stacked zcash10k batch was rejected")
+    counts = _cuda.launch_counts()
+    log(f"main-path launches: {counts}")
+    for name, n in counts.items():
+        report[name]["launches"] = n
+        if n == 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"main path")
+    state["stack"] = (digits, wire)
+    state["verifier"] = bv
+    state["adv"] = adv
+
+
+def kernel_work(d, w, parts):
+    """(bytes, int32 ops) each kernel must move and do on these inputs:
+    digits d (B, 17, N) uint8, wire w (B, 33, N) uint8, K2's partials.
+    Counted from the data: K1 expands every lane (flip and neg from the
+    hints); K2 builds a lane's table only up to its largest |digit| and adds
+    only the nonzero digits of a (chunk, window), negating the negative
+    ones; K3 takes nchunk - 1 additions per (b, window)."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import msm
+
+    B, _, N = d.shape
+    nchunk = parts.shape[1]
+    hints = w[:, 32].int()
+    flips = int((hints & 1).sum())
+    negs = int(((hints >> 1) & 1).sum())
+    k1 = (B * N * (33 + 160),
+          B * N * (K1_SQS_PER_LANE * OPS_FE_SQ + K1_MULS_PER_LANE * OPS_FE_MUL
+                   + K1_ADDS_PER_LANE * OPS_FE_ADD)
+          + flips * OPS_FE_MUL + negs * OPS_FE_ADD)
+    dig = msm.expand_digits(d).int()  # (B, 33, N)
+    table_adds = int((dig.abs().amax(dim=1) - 1).clamp(min=0).sum())
+    pad = nchunk * msm.CHUNK - N
+    nnz = torch.nn.functional.pad((dig != 0).int(), (0, pad)).reshape(
+        B, msm.NWINDOWS, nchunk, msm.CHUNK).sum(dim=-1)
+    window_adds = int((nnz - 1).clamp(min=0).sum())
+    neg_digits = int((dig < 0).sum())
+    k2 = (B * N * (17 + 160) + B * nchunk * 33 * 320,
+          (table_adds + window_adds) * OPS_GE_ADD
+          + neg_digits * 2 * OPS_FE_NEG)
+    k3 = (B * nchunk * 33 * 320 + B * 33 * 320,
+          B * 33 * max(nchunk - 1, 0) * OPS_GE_ADD)
+    return {"expand_compressed": k1, "window_sums": k2,
+            "fold_partials": k3}
+
+
+def hold_and_time(report: dict, label: str, digits, wire,
+                  timed: bool) -> None:
+    """K1, K2 and K3 on the card against their plain versions on the same
+    operands, which must agree exactly; then, if `timed`, both timed
+    (median of 5, CUDA events) beside each kernel's bound."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import msm
+    from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+
+    d = torch.from_numpy(digits).to(DEV)
+    w = torch.from_numpy(wire).to(DEV)
+    B, _, N = d.shape
+    pts = TD.expand_compressed_points(w)
+    parts = msm.window_partials(d, pts)
+    work = kernel_work(d, w, parts)
+    cases = {
+        "expand_compressed": (
+            lambda: TD.expand_compressed_points(w),
+            lambda: TD.expand_compressed_points_plain(w)),
+        "window_sums": (
+            lambda: msm.window_partials(d, pts),
+            lambda: msm.window_partials_plain(d, pts)),
+        "fold_partials": (
+            lambda: msm.fold_partials(parts),
+            lambda: msm.fold_partials_plain(parts)),
+    }
+    for name, (kern, plain) in cases.items():
+        got, want = kern(), plain()
+        sync()
+        err = int((got.int() - want.int()).abs().max())
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on {label} (B={B}, N={N}): {err}")
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+        if not timed:
+            continue
+        nbytes, ops = work[name]
+        ms = cuda_ms(kern)
+        pms = cuda_ms(plain)
+        bms, by = bound_ms(nbytes, ops)
+        log(f"  {label} B={B} N={N} {name:18s} kernel {ms:10.3f}  plain "
+            f"{pms:10.3f}  bound {bms:8.4f} ({by}, {ops:.4e} int32 ops, "
+            f"{nbytes:.4e} B)")
+        if B == STACK_B:
+            report[name].update(ms=ms, plain_ms=pms, bound_ms=bms,
+                                bound_by=by)
+    log(f"  {label} B={B} N={N}: K1, K2, K3 equal their plain versions "
+        f"(max |diff| 0)")
+
+
+def phase_times(report: dict, state: dict) -> None:
+    """Each kernel against its plain version at every shape the main path
+    gave it, on the operands it was given: zcash10k and the adversarial
+    batch as `verify_gpu` stages them (B = 1, N = pad_lanes(terms)), and
+    the stacked B = 8, N = 12,288 call.  Timed at the zcash10k
+    `verify_gpu` shape and at B = 8."""
+    from ed25519_consensus_tpu_torch.ops import msm
+
+    log("kernels vs plain versions at the main path's shapes (exact), "
+        "then times (median of 5, CUDA events), ms:")
+    # The operands of the second zcash10k verify_gpu and of the
+    # adversarial verify_gpu: the same staging, the same seeds.
+    for label, verifier, seed, timed in (
+            ("zcash10k verify_gpu", state["verifier"], 101, True),
+            ("adversarial verify_gpu", state["adv"], 5, False)):
+        digits, wire = verifier._stage(random.Random(seed)).device_operands(
+            msm.pad_lanes)
+        hold_and_time(report, label, digits[None], wire[None], timed)
+    digits, wire = state["stack"]
+    hold_and_time(report, "stacked zcash10k", digits[:1], wire[:1], True)
+    hold_and_time(report, "stacked zcash10k", digits, wire, True)
+
+
+def phase_profile(state: dict) -> None:
+    """One more zcash10k `verify_gpu` under torch.profiler: the device time
+    of each kernel and copy inside the call, and the card's idle share of
+    the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bv = state["verifier"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        bv.verify_gpu(rng=random.Random(300))
+        wall = time.perf_counter() - t
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us, ev.key, ev.count))
+    busy = sum(us for us, _, _ in rows) / 1e6
+    if not rows:
+        log("profiled verify_gpu: the profiler captured no device time "
+            "(device busy share not measured)")
+        return
+    log(f"profiled verify_gpu: wall {wall:.3f} s, device busy "
+        f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.5f}")
+    for us, key, count in sorted(rows, reverse=True)[:8]:
+        log(f"  {us / 1e3:9.3f} ms  x{count}  {key[:70]}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "ed25519_consensus_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from ed25519_consensus_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    smi = smi_line()
+    log(f"device: {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
+        f"{torch.cuda.device_count()} visible")
+
+    t = time.perf_counter()
+    built = _cuda.build_all()
+    times = ", ".join(f"{k} {r['seconds']:.1f} s" for k, r in built.items())
+    log(f"build: {time.perf_counter() - t:.1f} s wall for {len(built)} "
+        f"sources, one nvcc each, in parallel ({times})")
+    for name, r in built.items():
+        for line in r["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    sources = {k.name: f"ed25519_consensus_tpu_torch/csrc/{k.source}"
+               for k in _cuda.KERNELS.values()}
+    replaces = {
+        "expand_compressed":
+            "ed25519_consensus_tpu/ops/jnp_decompress.py:151",
+        "window_sums": "ed25519_consensus_tpu/ops/pallas_msm.py:320",
+        "fold_partials": "ed25519_consensus_tpu/ops/pallas_msm.py:424",
+    }
+    report = {name: {"name": name, "route": "cuda", "source": sources[name],
+                     "replaces": replaces[name], "library_ms": None}
+              for name in sources}
+    state = {}
+    phase_kernels(report)
+    phase_main_path(report, state)
+    phase_times(report, state)
+    phase_profile(state)
+
+    keys = ["name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"]
+    log(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": [{k: report[n][k] for k in keys}
+                                  for n in sources]}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,208 @@
+// K2 window_sums: per-chunk MSM window sums.  For every batch b, lane chunk
+// c (CHUNK = 64 lanes) and window w, the complete-addition sum over the
+// chunk's lanes of sign(d) * T[|d|], T = [0..8]P the lane's multiples table.
+// Output: (B, nchunk, 33, 4, 20) int32 partials, folded over chunks by K3
+// (fold_partials.cu).
+//
+// Replaces: ed25519_consensus_tpu/ops/pallas_msm.py:_compiled_pallas_kernel_rolled
+// (the pl.pallas_call at pallas_msm.py:320), with the nibble unpack of
+// ops/msm.py:expand_digits fused into the digit load.  Plain PyTorch
+// version: ops/msm.py window_partials_plain, which takes the same additions
+// in the same order, so the two agree limb for limb.
+//
+// Bound: int32 multiply-adds.  Per chunk: 7 x 64 table additions and
+// 33 x 63 window additions, ~9.4e3 int32 operations each, against ~2.3 KB
+// read and 10.6 KB written.
+//
+// Design (not a block-by-block copy of the Pallas kernel):
+//  * The Pallas block keeps a 5.9 MB table per 4,096 lanes in VMEM; a
+//    Hopper block gets at most 227 KB of shared memory.  One block owns one
+//    64-lane chunk of one batch: its tables, entries 1..8 as int16 (exact:
+//    limbs stay inside |limb| <= 8191), take 80 KB, so two blocks fit an SM.
+//    Entry 0, the identity, is never stored.
+//  * Blocks run in parallel and in no order, so nothing carries between
+//    them: each writes its own partials and K3 folds them.
+//  * Phase 1: thread t < 64 builds lane t's table, T1 = P, Tk = T(k-1) + P.
+//  * Phase 2: 66 threads, thread j = 2w + h sums window w over chunk half h
+//    (32 lanes, sequentially, starting from the first lane's selected
+//    entry), so all threads stay busy without a 6-level tree per window;
+//    the two halves then meet in one more addition.
+//  * Digits are decoded in the load: packed row w >> 1, low nibble for even
+//    w, high nibble for odd w, sign-extended as ((x & 0xF) ^ 8) - 8.  The
+//    33rd plane rides alone in the low nibble of packed row 16.
+//  * The ragged lane edge is masked: lanes >= N load the identity point and
+//    digit 0.
+//  * The table's entry stride is padded by one 32-bit word: at one step a
+//    warp reads up to 16 distinct words (8 entries x 2 chunk halves),
+//    which then fall in distinct banks.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fe25519.cuh"
+
+namespace {
+
+constexpr int CHUNK = 64;
+constexpr int HALF = CHUNK / 2;
+constexpr int NWIN = 33;
+constexpr int PACKED_ROWS = 17;
+constexpr int NENT = 8;                      // stored entries [1..8]P
+constexpr int COORDS = 4 * FE_NLIMBS;        // 80 limbs per point
+constexpr int ENT_STRIDE = COORDS * CHUNK + 2;  // int16 units, +1 word pad
+constexpr int THREADS = 2 * NWIN;            // 66
+constexpr size_t TABLE_BYTES = (size_t)NENT * ENT_STRIDE * sizeof(int16_t);
+constexpr size_t DIGIT_BYTES = (size_t)NWIN * CHUNK;
+constexpr size_t XCHG_BYTES = (size_t)NWIN * COORDS * sizeof(int32_t);
+constexpr size_t SMEM_BYTES = TABLE_BYTES + DIGIT_BYTES + XCHG_BYTES;
+
+__device__ __forceinline__ void store_entry(int16_t* tbl, int e, int lane,
+                                            const ge& p) {
+  int16_t* base = tbl + (size_t)(e - 1) * ENT_STRIDE + lane;
+#pragma unroll
+  for (int i = 0; i < FE_NLIMBS; ++i) {
+    base[(0 * FE_NLIMBS + i) * CHUNK] = (int16_t)p.X.v[i];
+    base[(1 * FE_NLIMBS + i) * CHUNK] = (int16_t)p.Y.v[i];
+    base[(2 * FE_NLIMBS + i) * CHUNK] = (int16_t)p.Z.v[i];
+    base[(3 * FE_NLIMBS + i) * CHUNK] = (int16_t)p.T.v[i];
+  }
+}
+
+// sign(d) * T[|d|] for one lane: the identity for d = 0, X and T negated for
+// d < 0 (negation is free on balanced limbs).
+__device__ __forceinline__ ge select_entry(const int16_t* tbl, int lane,
+                                           int d) {
+  const int m = d < 0 ? -d : d;
+  if (m == 0) return ge_identity();
+  const int16_t* base = tbl + (size_t)(m - 1) * ENT_STRIDE + lane;
+  ge p;
+#pragma unroll
+  for (int i = 0; i < FE_NLIMBS; ++i) {
+    p.X.v[i] = base[(0 * FE_NLIMBS + i) * CHUNK];
+    p.Y.v[i] = base[(1 * FE_NLIMBS + i) * CHUNK];
+    p.Z.v[i] = base[(2 * FE_NLIMBS + i) * CHUNK];
+    p.T.v[i] = base[(3 * FE_NLIMBS + i) * CHUNK];
+  }
+  if (d < 0) {
+    p.X = fe_neg(p.X);
+    p.T = fe_neg(p.T);
+  }
+  return p;
+}
+
+__device__ __forceinline__ void store_point_i32(int32_t* dst, const ge& p) {
+#pragma unroll
+  for (int i = 0; i < FE_NLIMBS; ++i) {
+    dst[0 * FE_NLIMBS + i] = p.X.v[i];
+    dst[1 * FE_NLIMBS + i] = p.Y.v[i];
+    dst[2 * FE_NLIMBS + i] = p.Z.v[i];
+    dst[3 * FE_NLIMBS + i] = p.T.v[i];
+  }
+}
+
+__device__ __forceinline__ ge load_point_i32(const int32_t* src) {
+  ge p;
+#pragma unroll
+  for (int i = 0; i < FE_NLIMBS; ++i) {
+    p.X.v[i] = src[0 * FE_NLIMBS + i];
+    p.Y.v[i] = src[1 * FE_NLIMBS + i];
+    p.Z.v[i] = src[2 * FE_NLIMBS + i];
+    p.T.v[i] = src[3 * FE_NLIMBS + i];
+  }
+  return p;
+}
+
+// digits: (B, 17, N) uint8 nibble-packed when `packed`, else (B, 33, N) int8.
+// points: (B, 4, 20, N) int16.  partials: (B, nchunk, 33, 4, 20) int32.
+__global__ void __launch_bounds__(THREADS)
+window_sums_kernel(const uint8_t* __restrict__ digits, int packed,
+                   const int16_t* __restrict__ points,
+                   int32_t* __restrict__ partials, int N, int nchunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* tbl = (int16_t*)smem;
+  int8_t* dig = (int8_t*)(smem + TABLE_BYTES);
+  int32_t* xchg = (int32_t*)(smem + TABLE_BYTES + DIGIT_BYTES);
+
+  const int chunk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane0 = chunk * CHUNK;
+
+  // Digits of the chunk, decoded from either wire.
+  for (int idx = tid; idx < NWIN * CHUNK; idx += THREADS) {
+    const int w = idx / CHUNK;
+    const int l = idx % CHUNK;
+    const int n = lane0 + l;
+    int d = 0;
+    if (n < N) {
+      if (packed) {
+        const int x = digits[((size_t)b * PACKED_ROWS + (w >> 1)) * N + n];
+        const int nib = (w & 1) ? (x >> 4) & 0xF : x & 0xF;
+        d = (nib ^ 8) - 8;
+      } else {
+        d = (int8_t)digits[((size_t)b * NWIN + w) * N + n];
+      }
+    }
+    dig[w * CHUNK + l] = (int8_t)d;
+  }
+
+  // Phase 1: lane tid's multiples table.
+  if (tid < CHUNK) {
+    const int n = lane0 + tid;
+    ge P;
+    if (n < N) {
+      const int16_t* src = points + (size_t)b * COORDS * N + n;
+#pragma unroll
+      for (int i = 0; i < FE_NLIMBS; ++i) {
+        P.X.v[i] = src[(size_t)(0 * FE_NLIMBS + i) * N];
+        P.Y.v[i] = src[(size_t)(1 * FE_NLIMBS + i) * N];
+        P.Z.v[i] = src[(size_t)(2 * FE_NLIMBS + i) * N];
+        P.T.v[i] = src[(size_t)(3 * FE_NLIMBS + i) * N];
+      }
+    } else {
+      P = ge_identity();
+    }
+    store_entry(tbl, 1, tid, P);
+    ge cur = P;
+#pragma unroll 1
+    for (int e = 2; e <= NENT; ++e) {
+      cur = ge_add(cur, P);
+      store_entry(tbl, e, tid, cur);
+    }
+  }
+  __syncthreads();
+
+  // Phase 2: thread (w, h) sums window w over lanes [32h, 32h + 32).
+  const int w = tid >> 1;
+  const int h = tid & 1;
+  const int8_t* drow = dig + w * CHUNK + h * HALF;
+  ge acc = select_entry(tbl, h * HALF, drow[0]);
+#pragma unroll 1
+  for (int l = 1; l < HALF; ++l)
+    acc = ge_add(acc, select_entry(tbl, h * HALF + l, drow[l]));
+  if (h == 1) store_point_i32(xchg + w * COORDS, acc);
+  __syncthreads();
+  if (h == 0) {
+    acc = ge_add(acc, load_point_i32(xchg + w * COORDS));
+    store_point_i32(partials + (((size_t)b * nchunk + chunk) * NWIN + w) *
+                                   COORDS,
+                    acc);
+  }
+}
+
+}  // namespace
+
+extern "C" int window_sums_launch(const void* digits, int packed,
+                                  const void* points, void* partials, int B,
+                                  int N, void* stream) {
+  // Set on every launch: the attribute is per device, and the call is cheap.
+  cudaError_t err = cudaFuncSetAttribute(
+      window_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int nchunk = (N + CHUNK - 1) / CHUNK;
+  dim3 grid(nchunk, B);
+  window_sums_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const uint8_t*)digits, packed, (const int16_t*)points,
+      (int32_t*)partials, N, nchunk);
+  return (int)cudaGetLastError();
+}

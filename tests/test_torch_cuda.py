@@ -1,0 +1,103 @@
+"""The port's CUDA kernels on the card, each against its plain PyTorch
+version, at small and ragged shapes.  CUDA kernels have no CPU mode, so
+every test here needs an NVIDIA GPU (sm_90a) and `nvcc`; without one they
+skip.  On the card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+(`--noconftest`: the suite's conftest imports JAX, which the port does
+not need and a GPU host may not have).  Tolerance: exact equality; K2 and
+K3 take the plain versions' additions in the same order."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from ed25519_consensus_tpu_torch import InvalidSignature, SigningKey, batch
+from ed25519_consensus_tpu_torch.ops import _cuda, edwards, limbs, msm
+from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
+                    "mode (run this file on the card)")
+    return torch.device("cuda")
+
+
+def _wire(n, seed):
+    """(33, n) compressed wire: torsion points, then random points."""
+    rng = random.Random(seed)
+    encs = [p.compress() for p in edwards.eight_torsion()]
+    while len(encs) < n:
+        e = rng.getrandbits(256).to_bytes(32, "little")
+        if edwards.decompress(e) is not None:
+            encs.append(e)
+    w = np.zeros((33, n), dtype=np.uint8)
+    for i, e in enumerate(encs[:n]):
+        w[:32, i] = np.frombuffer(e, dtype=np.uint8)
+        w[32, i] = edwards.decompress_with_hint(e)[1]
+    return w
+
+
+def test_expand_compressed_matches_plain(dev):
+    w = np.stack([_wire(300, 1), _wire(300, 2)])
+    wire = torch.from_numpy(w).to(dev)
+    before = _cuda.KERNELS["expand_compressed"].launches
+    got = TD.expand_compressed_points(wire)
+    want = TD.expand_compressed_points_plain(wire)
+    torch.cuda.synchronize()
+    assert _cuda.KERNELS["expand_compressed"].launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_window_sums_and_fold_match_plain(dev, packed):
+    B, N = 2, 200
+    d = np.random.default_rng(3).integers(
+        -8, 8, size=(B, limbs.NWINDOWS, N)).astype(np.int8)
+    d[:, :, :20] = -8
+    d[:, :, 20:40] = 7
+    if packed:
+        d = np.stack([limbs.pack_digit_planes(x) for x in d])
+    digits = torch.from_numpy(d).to(dev)
+    points = TD.expand_compressed_points(
+        torch.from_numpy(np.stack([_wire(N, 4), _wire(N, 5)])).to(dev))
+    parts = msm.window_partials(digits, points)
+    want_parts = msm.window_partials_plain(digits, points)
+    assert torch.equal(parts, want_parts)
+    assert torch.equal(msm.fold_partials(parts),
+                       msm.fold_partials_plain(want_parts))
+
+
+def test_verify_gpu_accepts_and_rejects(dev):
+    rng = random.Random(6)
+    keys = [SigningKey.new(rng) for _ in range(5)]
+    entries = []
+    for i in range(150):
+        m = b"card-%d" % i
+        entries.append((keys[i % 5].verification_key_bytes(),
+                        keys[i % 5].sign(m), m))
+    _cuda.reset_launch_counts()
+    good = batch.Verifier()
+    good.queue_bulk(entries)
+    good.verify_gpu(rng=random.Random(7))
+    assert all(n == 1 for n in _cuda.launch_counts().values())
+    entries[9] = (entries[9][0], entries[9][1], b"altered")
+    bad = batch.Verifier()
+    bad.queue_bulk(entries)
+    with pytest.raises(InvalidSignature):
+        bad.verify_gpu(rng=random.Random(8))
+
+
+def test_mixed_devices_raise(dev):
+    digits = torch.zeros((1, limbs.PACKED_WINDOWS, 64), dtype=torch.uint8)
+    points = torch.zeros((1, 4, limbs.NLIMBS, 64), dtype=torch.int16,
+                         device=dev)
+    with pytest.raises(ValueError):
+        msm.window_partials(digits, points)

@@ -1,0 +1,180 @@
+"""The port stands alone: `ed25519_consensus_tpu_torch` and `chip_smoke.py`
+import neither `jax` nor anything of the JAX package `ed25519_consensus_tpu`
+(the port keeps its own copies of the host modules), and its device entry
+points never fall back to the CPU unasked.
+
+Careful with names: `ed25519_consensus_tpu_torch` starts with
+`ed25519_consensus_tpu`, so a blocked name is matched exactly or as a
+prefix followed by a dot, never as a bare prefix."""
+
+import ast
+import os
+import random
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "ed25519_consensus_tpu_torch"
+BLOCKED = ("jax", "ed25519_consensus_tpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small torch ops.  With several test
+    workers on one host, torch's intra-op thread pools oversubscribe the
+    cores (a 3 s case took minutes); one thread per worker is about as fast
+    alone and keeps the workers out of each other's way."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _blocked(name: str) -> bool:
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
+def test_name_matcher_is_exact():
+    assert _blocked("jax") and _blocked("jax.numpy")
+    assert _blocked("ed25519_consensus_tpu")
+    assert _blocked("ed25519_consensus_tpu.ops.msm")
+    assert not _blocked("ed25519_consensus_tpu_torch")
+    assert not _blocked("ed25519_consensus_tpu_torch.ops.msm")
+    assert not _blocked("jaxlib_like") and not _blocked("numpy")
+
+
+_SCRIPT = r"""
+import sys
+
+BLOCKED = ("jax", "ed25519_consensus_tpu")
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(name + " is blocked for this test")
+
+
+sys.meta_path.insert(0, Block())
+
+import random
+
+import ed25519_consensus_tpu_torch as T
+from ed25519_consensus_tpu_torch import batch
+
+rng = random.Random(7)
+sk = T.SigningKey.new(rng)
+sig = sk.sign(b"port without jax")
+sk.verification_key().verify(sig, b"port without jax")
+bv = batch.Verifier()
+entries = []
+for i in range(12):
+    s = T.SigningKey.new(rng)
+    m = b"msg %d" % i
+    entries.append((s.verification_key_bytes(), s.sign(m), m))
+bv.queue_bulk(entries)
+bv.verify(rng=rng, backend="device", device="cpu")
+bv.verify(rng=rng, backend="host")
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_port_runs_with_jax_and_reference_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=str(ROOT),
+                       env=env, capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().endswith("OK")
+
+
+def _imported_names(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                node.args[0].value, str):
+            fn = node.func
+            name = getattr(fn, "attr", getattr(fn, "id", ""))
+            if name in ("import_module", "__import__"):
+                yield node.args[0].value
+
+
+def _port_sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    return files
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_blocked_imports_in_source(path):
+    bad = [n for n in _imported_names(path) if _blocked(n)]
+    assert not bad, (path, bad)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    """With no CUDA device, the device entry points raise unless the
+    caller asked for the CPU: no silent fallback."""
+    from ed25519_consensus_tpu_torch import SigningKey, batch, carry
+    from ed25519_consensus_tpu_torch.ops import limbs, msm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    digits = np.zeros((limbs.PACKED_WINDOWS, 64), dtype=np.uint8)
+    wire = limbs.identity_wire_batch(64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        msm.dispatch_window_sums(digits, wire)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        msm.dispatch_window_sums_many(digits[None], wire[None])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        carry.operands_to_device(digits, wire)
+    sk = SigningKey.new(random.Random(1))
+    bv = batch.Verifier()
+    bv.queue((sk.verification_key_bytes(), sk.sign(b"m"), b"m"))
+    for call in (bv.verify_gpu, lambda: bv.verify(backend="device"),
+                 lambda: bv.verify_async()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # asked for the CPU, the same batch verifies
+    bv.verify(backend="device", device="cpu")
+    assert msm.dispatch_window_sums(digits, wire, device="cpu").shape == \
+        (1, 4, limbs.NLIMBS, limbs.NWINDOWS)
+
+
+def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():
+    """A wrapper takes the plain version only for tensors on the CPU; any
+    other device launches the kernel (CUDA) or raises."""
+    from ed25519_consensus_tpu_torch.ops import limbs, msm
+    from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+
+    meta = torch.device("meta")
+    with pytest.raises(ValueError):
+        TD.expand_compressed_points(
+            torch.zeros((1, 33, 64), dtype=torch.uint8, device=meta))
+    with pytest.raises(ValueError):
+        msm.window_partials(
+            torch.zeros((1, 17, 64), dtype=torch.uint8, device=meta),
+            torch.zeros((1, 4, limbs.NLIMBS, 64), dtype=torch.int16,
+                        device=meta))
+    with pytest.raises(ValueError):
+        msm.window_partials(
+            torch.zeros((1, 17, 64), dtype=torch.uint8),
+            torch.zeros((1, 4, limbs.NLIMBS, 64), dtype=torch.int16,
+                        device=meta))
+    with pytest.raises(ValueError):
+        msm.fold_partials(torch.zeros((1, 1, 33, 4, limbs.NLIMBS),
+                                      dtype=torch.int32, device=meta))
