@@ -1,17 +1,25 @@
 """Smoke run of the PyTorch/CUDA port (`ed25519_consensus_tpu_torch`) on one
-NVIDIA GPU: builds the CUDA kernels from `csrc/`, holds each against its
-plain PyTorch version on the card, drives the main path — batch verification
-of a 10,000-signature Zcash block-sync batch through `Verifier.verify_gpu()`,
-a tampered copy, the adversarial ZIP215 batch, and one stacked B = 8 device
-call — and times the kernels.
+NVIDIA GPU: builds the CUDA kernels from `csrc/` and the native host runtime
+from `csrc/host/`, holds each kernel against its plain PyTorch version on the
+card, drives the port's two paths, and times the kernels.
+
+* Single-batch verification: a 10,000-signature Zcash block-sync batch
+  through `Verifier.verify_gpu()`, a tampered copy, the adversarial ZIP215
+  batch, and one stacked B = 8 device call (kernels K1, K2, K3).
+* `verify_many` on one card with resident keysets: the zcash10k batch at
+  depth 16, device only, cold (cache off), warm-residency, hot with
+  resident tables (K1, K4, K2t, K3) and hot with resident heads (K1, K2,
+  K3); then a 256-height cometbft128 commit stream through verify_many's
+  defaults and per commit.
 
     python3 chip_smoke.py
 
 Exits nonzero, and prints no result, without a CUDA device, outside a
-checkout of the repository, or when any phase fails.  Its last line is
+checkout of the repository, when the native runtime does not build or fails
+its self-check, or when any phase fails.  Its last line is
 `{"ok": true, "device": {...}}`; the line before it is the card's name and
 power limit, and the one before that the per-kernel JSON record (launch
-counts on the main path, errors against the plain versions, times and
+counts on the two paths, errors against the plain versions, times and
 bounds)."""
 
 import json
@@ -58,6 +66,9 @@ K1_ADDS_PER_LANE = 2
 
 ZCASH_SIGS, ZCASH_KEYS = 10_000, 64
 STACK_B, STACK_N = 8, 12_288
+DEPTH = 16  # zcash10k batches per verify_many pass (bench.py's default)
+SLICE0_KERNELS = ("expand_compressed", "window_sums", "fold_partials")
+COMET_KEYS, COMET_HEIGHTS = 128, 256
 DEV = "cuda"
 
 
@@ -221,6 +232,38 @@ def phase_kernels(report: dict) -> None:
     report["window_sums"]["max_abs_err"] = err2
     report["fold_partials"]["max_abs_err"] = err3
 
+    # K4 and K2t at B = 2 on the same points: K4 equal to its plain version;
+    # K2t with head tables shared (TH = 1) and per batch (TH = B), the head
+    # boundary at lane 130 inside a chunk, equal to its plain version and,
+    # as points, to K2's window sums on the same points and digits.
+    tbl = msm.multiples_tables(points)
+    tbl_p = msm.build_tables_plain(points)
+    n_head = 130
+    head1 = tbl[:1, ..., :n_head].contiguous()
+    r_tbl = tbl[..., n_head:].contiguous()
+    k2t = msm.window_partials_tables(dig_p, head1, r_tbl)
+    p2t = msm.window_partials_tables_plain(dig_p, head1, r_tbl)
+    headB = tbl[..., :n_head].contiguous()
+    k2tb = msm.window_partials_tables(dig_i, headB, r_tbl)
+    sync()
+    err4 = int((tbl.int() - tbl_p.int()).abs().max())
+    err2t = max(int((k2t - p2t).abs().max()),
+                int((k2tb - msm.window_partials_tables_plain(
+                    dig_i, headB, r_tbl)).abs().max()))
+    ws_t = msm.fold_partials(k2tb).cpu().numpy()
+    n_bad_t = sum(limbs.unpack_point(ws_t[b, ..., w]) !=
+                  limbs.unpack_point(ws_k[b, ..., w])
+                  for b in range(B) for w in range(33))
+    log(f"K4 build_tables vs plain (B={B}, N={N}): max |diff| = {err4}; "
+        f"K2t window_sums_tables vs plain (TH = 1 and TH = B, {n_head} "
+        f"head lanes): max |diff| = {err2t}; windows unequal to K2's as "
+        f"points: {n_bad_t}/66")
+    if err4 or err2t or n_bad_t:
+        raise AssertionError("K4/K2t disagree with their plain versions "
+                             "or with K2")
+    report["build_tables"]["max_abs_err"] = err4
+    report["window_sums_tables"]["max_abs_err"] = err2t
+
 
 def zcash10k(rng):
     """The bench.py `zcash10k` deployment: 10,000 signatures over 64 keys
@@ -332,37 +375,47 @@ def phase_main_path(report: dict, state: dict) -> None:
     if not all(oks):
         raise AssertionError("a stacked zcash10k batch was rejected")
     counts = _cuda.launch_counts()
-    log(f"main-path launches: {counts}")
+    log(f"single-batch path launches: {counts}")
     for name, n in counts.items():
         report[name]["launches"] = n
-        if n == 0:
+        if n == 0 and name in SLICE0_KERNELS:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 f"main path")
+                                 f"single-batch path")
     state["stack"] = (digits, wire)
     state["verifier"] = bv
+    state["tampered"] = tampered
     state["adv"] = adv
+
+
+def k1_work(w):
+    """(bytes, int32 ops) K1 must move and do on the wire w (B, 33, N)
+    uint8: it expands every lane, with the flip multiply and the neg
+    subtraction counted from the hints."""
+    B, _, N = w.shape
+    hints = w[:, 32].int()
+    flips = int((hints & 1).sum())
+    negs = int(((hints >> 1) & 1).sum())
+    return (B * N * (33 + 160),
+            B * N * (K1_SQS_PER_LANE * OPS_FE_SQ
+                     + K1_MULS_PER_LANE * OPS_FE_MUL
+                     + K1_ADDS_PER_LANE * OPS_FE_ADD)
+            + flips * OPS_FE_MUL + negs * OPS_FE_ADD)
 
 
 def kernel_work(d, w, parts):
     """(bytes, int32 ops) each kernel must move and do on these inputs:
     digits d (B, 17, N) uint8, wire w (B, 33, N) uint8, K2's partials.
-    Counted from the data: K1 expands every lane (flip and neg from the
-    hints); K2 builds a lane's table only up to its largest |digit| and adds
-    only the nonzero digits of a (chunk, window), negating the negative
-    ones; K3 takes nchunk - 1 additions per (b, window)."""
+    Counted from the data: K1 as k1_work; K2 builds a lane's table only up
+    to its largest |digit| and adds only the nonzero digits of a (chunk,
+    window), negating the negative ones; K3 takes nchunk - 1 additions per
+    (b, window)."""
     import torch
 
     from ed25519_consensus_tpu_torch.ops import msm
 
     B, _, N = d.shape
     nchunk = parts.shape[1]
-    hints = w[:, 32].int()
-    flips = int((hints & 1).sum())
-    negs = int(((hints >> 1) & 1).sum())
-    k1 = (B * N * (33 + 160),
-          B * N * (K1_SQS_PER_LANE * OPS_FE_SQ + K1_MULS_PER_LANE * OPS_FE_MUL
-                   + K1_ADDS_PER_LANE * OPS_FE_ADD)
-          + flips * OPS_FE_MUL + negs * OPS_FE_ADD)
+    k1 = k1_work(w)
     dig = msm.expand_digits(d).int()  # (B, 33, N)
     table_adds = int((dig.abs().amax(dim=1) - 1).clamp(min=0).sum())
     pad = nchunk * msm.CHUNK - N
@@ -482,6 +535,347 @@ def phase_profile(state: dict) -> None:
         log(f"  {us / 1e3:9.3f} ms  x{count}  {key[:70]}")
 
 
+def phase_native(state: dict) -> None:
+    """The native host runtime: built from csrc/host/ and self-checked, or
+    the run fails — a broken build must never pass as a slow run."""
+    from ed25519_consensus_tpu_torch import native
+
+    t = time.perf_counter()
+    lib = native.load()
+    if lib is None:
+        raise AssertionError("the native host runtime did not build or "
+                             "failed its self-check")
+    log(f"native host runtime: {native.library_path().name}, built and "
+        f"self-checked in {time.perf_counter() - t:.1f} s")
+
+
+def stream_pass(label: str, make, host, tampered_at=None, **kw) -> dict:
+    """One verify_many pass over `make()`'s verifiers with the launch
+    counts set to 0 just before it and read just after; every verdict
+    must equal the host verdict `host[i]`."""
+    from ed25519_consensus_tpu_torch import batch
+    from ed25519_consensus_tpu_torch.ops import _cuda
+
+    vs = make()
+    batch.reset_device_health()
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    verdicts = batch.verify_many(vs, rng=random.Random(len(label)),
+                                 device=DEV, **kw)
+    dt = time.perf_counter() - t
+    counts = _cuda.launch_counts()
+    st = dict(batch.last_run_stats)
+    if verdicts != host:
+        bad = [i for i, (a, b) in enumerate(zip(verdicts, host)) if a != b]
+        raise AssertionError(f"{label}: verdicts differ from the host at "
+                             f"{bad}")
+    sigs = st["sigs"]
+    dc = st["devcache"]
+    log(f"  {label}: {len(vs)} batches, {sigs} sigs in {dt:.3f} s = "
+        f"{sigs / dt:.0f} sigs/s; staging {st.get('stage_seconds', 0):.3f}"
+        f" s, device {st.get('device_seconds', 0):.3f} s, combine "
+        f"{st.get('combine_seconds', 0):.3f} s, host lane "
+        f"{st.get('host_seconds', 0):.3f} s; device batches "
+        f"{st.get('device_batches', st.get('device_unions'))}, host "
+        f"{st.get('host_batches', st.get('host_unions'))}, rejects "
+        f"confirmed {st.get('device_rejects_confirmed', 0)}; devcache "
+        f"hit {dc['hit']} tables_hit {dc['tables_hit']} dispatch_hits "
+        f"{dc['dispatch_hits']} table_dispatch_hits "
+        f"{dc['table_dispatch_hits']}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return {"seconds": dt, "sigs_per_s": sigs / dt, "stats": st,
+            "launches": counts, "verdicts": verdicts}
+
+
+def phase_stream(report: dict, state: dict) -> None:
+    """verify_many on one card with resident keysets, at its users' sizes:
+    zcash10k at depth 16 device only (cold with the cache off,
+    warm-residency, hot with resident tables, hot with resident heads),
+    then the cometbft128 256-height commit stream."""
+    from ed25519_consensus_tpu_torch import batch, devcache
+    from ed25519_consensus_tpu_torch.config import override
+    from ed25519_consensus_tpu_torch.ops import _cuda, msm
+
+    bv = state["verifier"]
+    t = time.perf_counter()
+    for i in range(5):
+        staged = bv.clone()._stage(random.Random(400 + i))
+        staged.device_operands_cached(msm.pad_lanes)
+    per10k = (time.perf_counter() - t) / 5
+    log(f"native staging (stage + cached operands) of one 10k batch: "
+        f"{per10k * 1e3:.1f} ms")
+    state["stage_10k_s"] = per10k
+    tampered = state["tampered"]
+    host_ok = batch._host_verdict(bv.clone(), random.Random(6))
+    host_bad = batch._host_verdict(tampered.clone(), random.Random(7))
+    if not host_ok or host_bad:
+        raise AssertionError("host verdicts of zcash10k / tampered wrong")
+    bad_at = min(11, DEPTH - 1)
+
+    def zcash(tamper=False):
+        def make():
+            return [tampered.clone() if tamper and i == bad_at
+                    else bv.clone() for i in range(DEPTH)]
+        return make
+
+    ok16 = [True] * DEPTH
+    bad16 = [i != bad_at for i in range(DEPTH)]
+    log(f"zcash10k verify_many, depth {DEPTH}, device only "
+        f"(hybrid=False, merge=never, chunk=8):")
+    batch.warm_device_shapes(bv.clone(), rng=random.Random(8), device=DEV)
+    totals = dict.fromkeys(_cuda.KERNELS, 0)
+    passes = {}
+    kw = dict(hybrid=False, merge="never", mesh=0)
+    devcache.set_default_cache(devcache.DeviceOperandCache(enabled=False))
+    passes["cold"] = stream_pass("cold (cache off)", zcash(), ok16, **kw)
+    devcache.set_default_cache(devcache.DeviceOperandCache(enabled=True))
+    passes["warm"] = stream_pass("warm-residency", zcash(), ok16, **kw)
+    passes["tables"] = stream_pass("hot, resident tables (one tampered "
+                                   "batch)", zcash(True), bad16, **kw)
+    with override(ED25519_TPU_DEVCACHE_TABLES="0"):
+        passes["head"] = stream_pass("hot, resident heads "
+                                     "(ED25519_TPU_DEVCACHE_TABLES=0)",
+                                     zcash(), ok16, **kw)
+    for name, p in passes.items():
+        st = p["stats"]
+        want = DEPTH - (1 if name == "tables" else 0)
+        if st["device_batches"] != want or st["device_sick"]:
+            raise AssertionError(f"{name}: device_batches "
+                                 f"{st['device_batches']} != {want}")
+        if name == "tables" and st["device_rejects_confirmed"] != 1:
+            raise AssertionError("the tampered batch was not a confirmed "
+                                 "device reject")
+        for k, v in p["launches"].items():
+            totals[k] += v
+    if passes["tables"]["stats"]["devcache"]["table_dispatch_hits"] <= 0:
+        raise AssertionError("the tables pass never dispatched from "
+                             "resident tables")
+    if passes["head"]["stats"]["devcache"]["dispatch_hits"] <= 0 or \
+            passes["head"]["stats"]["devcache"]["table_dispatch_hits"]:
+        raise AssertionError("the head pass did not run the head-resident "
+                             "dispatch")
+    for name, kernels in (("tables", ("window_sums_tables", "build_tables",
+                                      "expand_compressed", "fold_partials")),
+                          ("head", ("window_sums", "expand_compressed",
+                                    "fold_partials"))):
+        for k in kernels:
+            if passes[name]["launches"][k] == 0:
+                raise AssertionError(f"{name} pass never launched {k}")
+
+    # cometbft128: 128 validators, the same set every height
+    from ed25519_consensus_tpu_torch import SigningKey
+
+    t = time.perf_counter()
+    rng = random.Random(0xC0E7)
+    keys = [SigningKey.new(rng) for _ in range(COMET_KEYS)]
+    heights = []
+    for h in range(COMET_HEIGHTS):
+        ents = []
+        for i, sk in enumerate(keys):
+            msg = b"vote/height=%d/round=0/val=%d" % (h, i)
+            ents.append((sk.verification_key_bytes(), sk.sign(msg), msg))
+        heights.append(ents)
+    bad_h = min(77, COMET_HEIGHTS - 1)
+    vk, sig, _ = heights[bad_h][5]
+    heights[bad_h][5] = (vk, sig, b"vote/tampered")
+    state["comet_verifier"] = batch.Verifier()
+    state["comet_verifier"].queue_bulk(heights[0])
+
+    def comet():
+        out = []
+        for ents in heights:
+            v = batch.Verifier()
+            v.queue_bulk(ents)
+            out.append(v)
+        return out
+
+    host = [batch._host_verdict(v, random.Random(9)) for v in comet()]
+    if host != [h != bad_h for h in range(COMET_HEIGHTS)]:
+        raise AssertionError("cometbft128 host verdicts wrong")
+    log(f"cometbft128 stream: {COMET_HEIGHTS} heights x {COMET_KEYS} "
+        f"validators, height {bad_h} tampered (built in "
+        f"{time.perf_counter() - t:.1f} s):")
+    devcache.set_default_cache(devcache.DeviceOperandCache(enabled=True))
+    batch.warm_device_shapes(state["comet_verifier"].clone(),
+                             rng=random.Random(10), device=DEV)
+    passes["comet_defaults"] = stream_pass(
+        "verify_many defaults (merge=auto, hybrid=True)", comet, host,
+        mesh=0)
+    passes["comet_per_commit"] = stream_pass(
+        "per commit (merge=never, hybrid=False)", comet, host,
+        hybrid=False, merge="never", mesh=0)
+    pc = passes["comet_per_commit"]["stats"]
+    if pc["device_batches"] + pc["device_rejects_confirmed"] \
+            != COMET_HEIGHTS or pc["devcache"]["table_dispatch_hits"] <= 0:
+        raise AssertionError("the per-commit stream did not run on the "
+                             "device from resident tables")
+    for p in (passes["comet_defaults"], passes["comet_per_commit"]):
+        for k, v in p["launches"].items():
+            totals[k] += v
+    state["stream_launches"] = totals
+    state["passes"] = passes
+    devcache.set_default_cache(None)
+
+
+def tables_work(d, head_tables, r_tables, parts):
+    """(bytes, int32 ops) K2t must move and do on these inputs: the digits,
+    the head tables once (shared across the batch when TH = 1), the R
+    tables and the partials written; the window additions of the nonzero
+    digits and their negations."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import msm
+
+    B, _, N = d.shape
+    nchunk = parts.shape[1]
+    dig = msm.expand_digits(d).int() if d.dtype == torch.uint8 else d.int()
+    pad = nchunk * msm.CHUNK - N
+    nnz = torch.nn.functional.pad((dig != 0).int(), (0, pad)).reshape(
+        B, msm.NWINDOWS, nchunk, msm.CHUNK).sum(dim=-1)
+    window_adds = int((nnz - 1).clamp(min=0).sum())
+    neg_digits = int((dig < 0).sum())
+    nbytes = (d.numel() + 2 * (head_tables.numel() + r_tables.numel())
+              + B * nchunk * 33 * 320)
+    return nbytes, window_adds * OPS_GE_ADD + neg_digits * 2 * OPS_FE_NEG
+
+
+def hold_tables(report: dict, label: str, digits, head, head_tables,
+                rwire, record: bool) -> None:
+    """K4 and K2t on the card against their plain versions on the same
+    operands, exactly: K4 on the R points; K2t with the head tables shared
+    (TH = 1, batch stride 0) and per batch (TH = B); K2t's full-tables
+    form (one shared table over all N lanes, no R tables) where every
+    batch has the same points.  K2t's window sums must equal the
+    head-resident dispatch's as points.  Then K1 on the R wire, K4 and K2t
+    are timed beside their bounds (K4 and K2t into the JSON record if
+    `record`; K1's record is the stacked B = 8 cold call's)."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import limbs, msm
+    from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+
+    d = torch.from_numpy(digits).to(DEV)
+    ht = torch.from_numpy(head_tables).to(DEV)[None]
+    rw = torch.from_numpy(rwire).to(DEV)
+    B, _, N = d.shape
+    n_head = ht.shape[-1]
+    r_pts = TD.expand_compressed_points(rw)
+    r_tbl = msm.multiples_tables(r_pts)
+    parts = msm.window_partials_tables(d, ht, r_tbl)
+    htB = ht.expand(B, -1, -1, -1, -1).contiguous()
+    checks = [
+        ("expand_compressed", r_pts, TD.expand_compressed_points_plain(rw)),
+        ("build_tables", r_tbl, msm.build_tables_plain(r_pts)),
+        ("window_sums_tables", parts,
+         msm.window_partials_tables_plain(d, ht, r_tbl)),
+        ("window_sums_tables", msm.window_partials_tables(d, htB, r_tbl),
+         msm.window_partials_tables_plain(d, htB, r_tbl)),
+    ]
+    same_points = bool((rw == rw[:1]).all())
+    if same_points:
+        full = torch.cat([ht, r_tbl[:1]], dim=-1)
+        k_full = msm.window_partials_tables(d, full)
+        checks += [("window_sums_tables", k_full,
+                    msm.window_partials_tables_plain(d, full)),
+                   ("window_sums_tables", k_full, parts)]
+    for name, got, want in checks:
+        sync()
+        err = int((got.int() - want.int()).abs().max())
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on {label} (B={B}, N={N}): {err}")
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+    ws_t = msm.fold_partials(parts).cpu().numpy()
+    ws_h = msm.dispatch_window_sums_many_cached(d, head, rw,
+                                                DEV).cpu().numpy()
+    n_bad = sum(limbs.unpack_point(ws_t[b, ..., w]) !=
+                limbs.unpack_point(ws_h[b, ..., w])
+                for b in range(B) for w in range(33))
+    if n_bad:
+        raise AssertionError(f"K2t window sums differ from the head-resident "
+                             f"dispatch on {label}: {n_bad} windows")
+    log(f"  {label} B={B} N={N} ({n_head} head lanes): K1 on the R wire, "
+        f"K4 and K2t (TH = 1, "
+        f"TH = B{', full-tables form' if same_points else ''}) equal their "
+        f"plain versions (max |diff| 0); K2t's window sums equal the "
+        f"head-resident dispatch's as points")
+    nb_k4 = r_pts.numel() * 2 + r_tbl.numel() * 2
+    ops_k4 = B * r_pts.shape[-1] * (msm.NTABLE - 1) * OPS_GE_ADD
+    cases = {
+        "expand_compressed R wire": (
+            lambda: TD.expand_compressed_points(rw),
+            lambda: TD.expand_compressed_points_plain(rw), k1_work(rw)),
+        "build_tables": (lambda: msm.multiples_tables(r_pts),
+                         lambda: msm.build_tables_plain(r_pts),
+                         (nb_k4, ops_k4)),
+        "window_sums_tables": (
+            lambda: msm.window_partials_tables(d, ht, r_tbl),
+            lambda: msm.window_partials_tables_plain(d, ht, r_tbl),
+            tables_work(d, ht, r_tbl, parts)),
+    }
+    if same_points:
+        # the full-tables form (TB = 1 over all N lanes): timed for the
+        # log, the JSON record keeps the resident-tables form above
+        cases["window_sums_tables full-tables form"] = (
+            lambda: msm.window_partials_tables(d, full),
+            lambda: msm.window_partials_tables_plain(d, full),
+            tables_work(d, full, r_tbl[..., :0], parts))
+    for name, (kern, plain, (nbytes, ops)) in cases.items():
+        ms = cuda_ms(kern)
+        pms = cuda_ms(plain)
+        bms, by = bound_ms(nbytes, ops)
+        log(f"  {label} B={B} N={N} {name:18s} kernel {ms:10.3f}  plain "
+            f"{pms:10.3f}  bound {bms:8.4f} ({by}, {ops:.4e} int32 ops, "
+            f"{nbytes:.4e} B)")
+        if record and name in report:
+            report[name].update(ms=ms, plain_ms=pms, bound_ms=bms,
+                                bound_by=by)
+
+
+def phase_tables_times(report: dict, state: dict) -> None:
+    """K4 and K2t against their plain versions on the operands the
+    resident-tables dispatches of the main path were given — the zcash10k
+    chunk (B = 8, N = 10,176, 130 head lanes; the JSON record's times) and
+    a cometbft128 chunk (B = 8, 258 head + 190 R lanes, 128 of them
+    signatures) — and K4 against the host-built head tables as points."""
+    import numpy as np
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import limbs, msm
+
+    log("K4 / K2t vs plain versions on the resident-tables operands "
+        "(exact), then times (median of 5, CUDA events), ms:")
+    for label, v, record in (("zcash10k tables chunk", state["verifier"],
+                              True),
+                            ("cometbft128 tables chunk",
+                             state["comet_verifier"], False)):
+        staged = [v.clone()._stage(random.Random(500 + b))
+                  for b in range(8)]
+        head = staged[0].head_tensor()
+        n_head = head.shape[-1]
+        nr = msm.pad_lanes(staged[0].n_cached_terms) - n_head
+        ops = [s.device_operands_cached(lambda n: n_head + nr)
+               for s in staged]
+        digits = np.stack([o[0] for o in ops])
+        rwire = np.stack([o[1] for o in ops])
+        host_tbl = staged[0].head_tables_tensor()
+        hold_tables(report, label, digits, head, host_tbl, rwire, record)
+        # K4 on the head points against the host-built tables: exact
+        # against its plain version, equal to the host tables as points
+        hp = torch.from_numpy(head[None]).to(DEV)
+        k4 = msm.multiples_tables(hp)
+        err = int((k4.int() - msm.build_tables_plain(hp).int()).abs().max())
+        k4h = k4[0].cpu().numpy()
+        n_bad = sum(limbs.unpack_point(k4h[k][..., j]) !=
+                    limbs.unpack_point(host_tbl[k][..., j])
+                    for k in range(msm.NTABLE) for j in range(n_head))
+        log(f"  {label}: K4 on the {n_head} head points vs plain max "
+            f"|diff| = {err}; entries unequal to the host-built "
+            f"head_tables_tensor as points: {n_bad}/{msm.NTABLE * n_head}")
+        if err or n_bad:
+            raise AssertionError("K4 disagrees with the host-built tables")
+
+
 def main() -> int:
     try:
         import torch
@@ -514,6 +908,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    state = {}
+    phase_native(state)
     sources = {k.name: f"ed25519_consensus_tpu_torch/csrc/{k.source}"
                for k in _cuda.KERNELS.values()}
     replaces = {
@@ -521,15 +917,27 @@ def main() -> int:
             "ed25519_consensus_tpu/ops/jnp_decompress.py:151",
         "window_sums": "ed25519_consensus_tpu/ops/pallas_msm.py:320",
         "fold_partials": "ed25519_consensus_tpu/ops/pallas_msm.py:424",
+        "window_sums_tables": "ed25519_consensus_tpu/ops/pallas_msm.py:320",
+        "build_tables": "ed25519_consensus_tpu/ops/msm.py:194",
     }
     report = {name: {"name": name, "route": "cuda", "source": sources[name],
-                     "replaces": replaces[name], "library_ms": None}
+                     "replaces": replaces[name], "library_ms": None,
+                     "max_abs_err": 0}
               for name in sources}
-    state = {}
     phase_kernels(report)
     phase_main_path(report, state)
+    phase_stream(report, state)
+    for name, n in state["stream_launches"].items():
+        report[name]["launches"] += n
+    log(f"verify_many path launches (all passes): "
+        f"{state['stream_launches']}")
     phase_times(report, state)
+    phase_tables_times(report, state)
     phase_profile(state)
+    from ed25519_consensus_tpu_torch import batch
+
+    if not batch._DeviceLane.reset_all(timeout=60.0):
+        raise AssertionError("a device-lane worker did not stop")
 
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

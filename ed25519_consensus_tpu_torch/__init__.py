@@ -9,6 +9,7 @@ keeps its own copies of the host modules it needs."""
 
 from . import batch
 from .error import (
+    DeviceError,
     Error,
     InvalidSignature,
     InvalidSliceLength,
@@ -25,6 +26,7 @@ __all__ = [
     "MalformedPublicKey",
     "InvalidSignature",
     "InvalidSliceLength",
+    "DeviceError",
     "Signature",
     "SigningKey",
     "VerificationKey",

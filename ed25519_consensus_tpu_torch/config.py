@@ -1,0 +1,128 @@
+"""The ``ED25519_TPU_*`` environment knobs the port reads, under the JAX
+package's names and meanings.
+
+This module is the one place the port reads the environment.  Every knob
+has a declared type with one parsing convention, a default and a one-line
+doc.  Malformed numeric values raise :class:`ConfigError` at read time with
+the knob name and the raw value.  Reads are live: nothing is cached, so a
+long-running process can flip an opt-out knob mid-flight.
+
+Type conventions:
+
+* ``choice``  — lowercased and matched against ``choices``; anything else
+  falls back to the default.
+* ``opt-in``  — boolean, default False; ONLY ``1``/``true``/``yes`` enable.
+* ``opt-out`` — boolean, default True; ONLY ``0``/``false``/``no`` disable.
+* ``flag``    — boolean, default False; any non-empty value enables.
+* ``float`` / ``int`` — parsed strictly; unset or empty means the default.
+"""
+
+import contextlib
+import os
+
+from .error import ConfigError
+
+__all__ = ["ConfigError", "Knob", "KNOBS", "get", "override"]
+
+_OPT_IN_TRUE = ("1", "true", "yes")
+_OPT_OUT_FALSE = ("0", "false", "no")
+_TYPES = ("choice", "opt-in", "opt-out", "flag", "float", "int")
+
+
+class Knob:
+    """One registered environment knob."""
+
+    __slots__ = ("name", "type", "default", "choices", "doc")
+
+    def __init__(self, name: str, type: str, default, doc: str,
+                 choices: "tuple | None" = None):
+        if type not in _TYPES:
+            raise ValueError(f"unknown knob type {type!r}")
+        self.name = name
+        self.type = type
+        self.default = default
+        self.choices = choices
+        self.doc = doc
+
+    def read(self):
+        """The knob's current value (live read)."""
+        raw = os.environ.get(self.name)
+        if self.type == "choice":
+            v = (raw or "").lower()
+            return v if v in self.choices else self.default
+        if self.type == "opt-in":
+            return (raw or "").lower() in _OPT_IN_TRUE
+        if self.type == "opt-out":
+            return (raw or "").lower() not in _OPT_OUT_FALSE
+        if self.type == "flag":
+            return bool(raw)
+        if not raw:
+            return self.default
+        try:
+            return float(raw) if self.type == "float" else int(raw)
+        except ValueError:
+            raise ConfigError(self.name, raw,
+                              f"a {self.type}" + (
+                                  "" if self.default is None
+                                  else f" (default {self.default})"))
+
+
+def _k(name, type, default, doc, choices=None):
+    return name, Knob(name, type, default, doc, choices)
+
+
+KNOBS: "dict[str, Knob]" = dict([
+    _k("ED25519_TPU_DIGIT_WIRE", "choice", "packed",
+       "Scalar digit wire: `packed` (two signed radix-16 digits/byte, "
+       "17 B/term) or `plain` (one digit/byte).", ("packed", "plain")),
+    _k("ED25519_TPU_DEBUG", "flag", False,
+       "Any non-empty value prints device-lane tracebacks before the "
+       "error is classified."),
+    _k("ED25519_TPU_DISABLE_DEVICE", "opt-in", False,
+       "Force verify_many's pure-host lane (re-checked live on every "
+       "call)."),
+    _k("ED25519_TPU_DISABLE_NATIVE", "opt-in", False,
+       "Skip the native C++ host runtime; every caller has an "
+       "exact-Python path (re-checked live on every load())."),
+    _k("ED25519_TPU_EMA_PRIOR", "float", 0.2,
+       "Seconds-per-batch device turnaround prior before the first "
+       "measurement (deadline budget is 3×EMA×batches, 2 s floor)."),
+    _k("ED25519_TPU_MIN_LANES", "int", None,
+       "Floor on the padded device lane count, so many small batches "
+       "share one padded shape; unset/0 keeps tight padding."),
+    _k("ED25519_TPU_DEVCACHE", "opt-out", True,
+       "Set to 0/false/no to disable the device-resident operand cache "
+       "(recurring-keyset residency, devcache.py)."),
+    _k("ED25519_TPU_DEVCACHE_BYTES", "int", 1 << 26,
+       "Device operand cache residency budget in bytes (deterministic "
+       "LRU eviction above it); 0 also disables residency."),
+    _k("ED25519_TPU_DEVCACHE_TABLES", "opt-out", True,
+       "Set to 0/false/no to disable the resident multiples-TABLES kind "
+       "of the device operand cache; head residency is unaffected."),
+])
+
+
+def get(name: str):
+    """Parsed value of a registered knob (live read).  KeyError for an
+    unregistered name, ConfigError for a malformed value."""
+    return KNOBS[name].read()
+
+
+@contextlib.contextmanager
+def override(**knobs):
+    """Scoped environment overrides for registered knobs, restored on
+    exit (even on error)."""
+    for name in knobs:
+        KNOBS[name]  # unregistered names must not silently write the env
+    old = {}
+    try:
+        for name, value in knobs.items():
+            old[name] = os.environ.get(name)
+            os.environ[name] = str(value)
+        yield
+    finally:
+        for name, prev in old.items():
+            if prev is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = prev

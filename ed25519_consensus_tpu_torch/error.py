@@ -26,3 +26,26 @@ class InvalidSignature(Error):
 class InvalidSliceLength(Error):
     def __init__(self):
         super().__init__("Invalid length when parsing byte slice.")
+
+
+class DeviceError(RuntimeError):
+    """The device that was asked for could not decide the work: a kernel
+    that did not build, load or launch, an error the call raised, a call
+    past its deadline, a device cooling down after one of those, or no
+    placeable CUDA device.  verify_many raises it rather than decide on
+    the host what the caller sent to the device; the cause is chained.
+    Not an `Error`: it says nothing about the signatures."""
+
+
+class ConfigError(Error):
+    """A malformed ED25519_TPU_* environment knob (config.py registry),
+    raised at read time with the knob name, the raw value, and what was
+    expected."""
+
+    def __init__(self, name: str, raw: str, expected: str):
+        super().__init__(
+            f"Invalid value {raw!r} for {name}: expected {expected}."
+        )
+        self.name = name
+        self.raw = raw
+        self.expected = expected

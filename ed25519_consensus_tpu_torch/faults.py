@@ -1,0 +1,372 @@
+"""Deterministic, seedable fault injection for the device dispatch path.
+
+A `FaultPlan` is a deterministic schedule mapping (site, call index) to an
+action; `install`ing one makes the dispatch boundaries consult it:
+
+* SITE_LANE — the `_DeviceLane` worker's dispatch (batch.py);
+* SITE_DEVCACHE — the device operand cache's lookup (devcache.py); "call
+  index" counts lookups and the payload is the cache itself.
+
+Fault classes: `ErrorOn` (the call raises), `TypedErrorOn` (raises one of
+the classifier's typed shapes), `StallFor` (virtual clocks advance, real
+clocks sleep), `CorruptSum` (the result comes back with flipped entries),
+`KillLane` (the worker thread dies mid-flight), and at the cache seam
+`CorruptResidentEntry`, `EvictStorm` and `StaleEpochOn`.
+
+Every decision is a pure function of (plan seed, site, call index), so a
+plan replayed over the same call stream injects identically.
+
+No fault class may ever change a verdict: an error past its retries, a
+stall past the deadline or a lane death fails the call (verify_many
+raises DeviceError and gives no verdict); a corrupted sum can at worst
+make the device claim
+"reject", which verify_many re-decides on the host; a corrupted, evicted
+or stale resident entry is caught by the cache's epoch and hash checks and
+restages.  With no plan installed, `run_device_call` is one read and one
+`is None` check.
+"""
+
+import hashlib
+import random
+import threading
+import time
+from contextlib import contextmanager
+
+import numpy as np
+
+__all__ = [
+    "SITE_LANE", "SITE_DEVCACHE", "InjectedFault", "TransientDispatchError",
+    "FatalChipError", "LaneDeathSignal", "Fault", "ErrorOn", "TypedErrorOn",
+    "StallFor", "CorruptSum", "KillLane",
+    "CorruptResidentEntry", "EvictStorm", "StaleEpochOn", "FaultPlan",
+    "storm_plan", "devcache_plan", "typed_error_plan", "install",
+    "uninstall", "injected", "run_device_call",
+]
+
+SITE_LANE = "lane"
+SITE_DEVCACHE = "devcache"
+
+
+class InjectedFault(RuntimeError):
+    """An injected device fault (no classification marker: the
+    classifier's AMBIGUOUS bucket)."""
+
+
+class TransientDispatchError(InjectedFault):
+    """A typed TRANSIENT dispatch error: the scheduler retries the chunk
+    with bounded backoff."""
+
+    device_error_class = "transient"
+
+
+class FatalChipError(InjectedFault):
+    """A typed FATAL dispatch error naming the chips that are gone."""
+
+    device_error_class = "fatal"
+
+    def __init__(self, msg: str, chips=(), heal_after: "float | None" = None,
+                 chips_marked: bool = False):
+        super().__init__(msg)
+        self.chips = tuple(int(c) for c in chips)
+        self.heal_after = heal_after
+        self.chips_marked = bool(chips_marked)
+
+
+class LaneDeathSignal(Exception):
+    """Raised through the lane worker to kill it mid-flight; the worker
+    exits WITHOUT reporting a result."""
+
+
+def _stable_seed(*parts) -> int:
+    """A cross-process-deterministic int seed from mixed parts."""
+    digest = hashlib.sha256(repr(parts).encode()).digest()
+    return int.from_bytes(digest[:8], "little")
+
+
+def _as_call_set(on):
+    """`on` as a membership predicate over call indices: int, iterable of
+    ints, or a callable(index) -> bool."""
+    if callable(on):
+        return on
+    if isinstance(on, int):
+        return frozenset((on,)).__contains__
+    return frozenset(int(i) for i in on).__contains__
+
+
+class Fault:
+    """One fault rule: fires at `site` on the call indices `on` (0-based,
+    counted per site)."""
+
+    def __init__(self, on=0, site: str = SITE_LANE):
+        self.site = site
+        self._fires = _as_call_set(on)
+
+    def fires_on(self, index: int) -> bool:
+        return bool(self._fires(index))
+
+    def before(self, ctx) -> None:
+        """May stall; may raise to abort the call."""
+
+    def after(self, ctx, out):
+        """May transform the completed result."""
+        return out
+
+
+class ErrorOn(Fault):
+    def before(self, ctx):
+        raise InjectedFault(
+            f"injected device error (site={ctx.site}, call={ctx.index})")
+
+
+class TypedErrorOn(Fault):
+    """Raise one of the classifier's input shapes: ``transient``
+    (TransientDispatchError), ``fatal`` (FatalChipError naming `chips`),
+    ``ambiguous`` (plain InjectedFault), ``timeout`` (TimeoutError) or
+    ``oserror`` (ConnectionResetError)."""
+
+    def __init__(self, kind: str = "transient", on=0,
+                 site: str = SITE_LANE, chips=(),
+                 heal_after: "float | None" = None):
+        if kind not in ("transient", "fatal", "ambiguous", "timeout",
+                        "oserror"):
+            raise ValueError(f"unknown typed-error kind {kind!r}")
+        super().__init__(on=on, site=site)
+        self.error_kind = kind
+        self.chips = tuple(int(c) for c in chips)
+        self.heal_after = heal_after
+
+    def before(self, ctx):
+        where = f"(site={ctx.site}, call={ctx.index})"
+        if self.error_kind == "transient":
+            raise TransientDispatchError(
+                f"injected transient dispatch error {where}")
+        if self.error_kind == "fatal":
+            raise FatalChipError(
+                f"injected fatal chip error: chips {list(self.chips)} "
+                f"{where}", chips=self.chips, heal_after=self.heal_after)
+        if self.error_kind == "timeout":
+            raise TimeoutError(f"injected dispatch timeout {where}")
+        if self.error_kind == "oserror":
+            raise ConnectionResetError(f"injected link reset {where}")
+        raise InjectedFault(f"injected ambiguous device error {where}")
+
+
+class StallFor(Fault):
+    """Stall the call for `seconds`: a virtual clock is advanced, a real
+    clock sleeps."""
+
+    def __init__(self, seconds: float, on=0, site: str = SITE_LANE):
+        super().__init__(on=on, site=site)
+        self.seconds = float(seconds)
+
+    def before(self, ctx):
+        clock = ctx.clock
+        if clock is not None and getattr(clock, "virtual", False):
+            clock.advance(self.seconds)
+        else:
+            time.sleep(self.seconds)
+
+
+class CorruptSum(Fault):
+    """Complete the call, then flip `flips` entries in EVERY leading-axis
+    slice of the result — a corrupted device sum.  Random corruption moves
+    a valid batch's combined point off the 8-torsion coset, so it becomes
+    a device REJECT, which verify_many re-decides on the host."""
+
+    def __init__(self, on=0, site: str = SITE_LANE, flips: int = 4):
+        super().__init__(on=on, site=site)
+        self.flips = int(flips)
+
+    def after(self, ctx, out):
+        arr = np.array(out, copy=True)
+        rng = random.Random(_stable_seed(
+            ctx.plan.seed, ctx.site, ctx.index, "corrupt"))
+        slices = arr.reshape(arr.shape[0], -1) if arr.ndim > 1 \
+            else arr.reshape(1, -1)
+        for row in slices:
+            for _ in range(max(1, self.flips)):
+                row[rng.randrange(row.size)] ^= 1 << rng.randrange(12)
+        return arr
+
+
+class KillLane(Fault):
+    """Kill the lane worker mid-flight.  `advance` pre-advances a virtual
+    clock, so the orphaned chunk's deadline expires deterministically."""
+
+    def __init__(self, on=0, advance: float = 3600.0):
+        super().__init__(on=on, site=SITE_LANE)
+        self.advance = float(advance)
+
+    def before(self, ctx):
+        clock = ctx.clock
+        if clock is not None and getattr(clock, "virtual", False) \
+                and self.advance:
+            clock.advance(self.advance)
+        raise LaneDeathSignal(f"injected lane death (call={ctx.index})")
+
+
+class CorruptResidentEntry(Fault):
+    """Flip bytes in the looked-up resident entry's HOST mirror.  The
+    cache's hash re-check runs after this seam on every hit, so the
+    corruption forces a restage before any dispatch could use it."""
+
+    def __init__(self, on=0, flips: int = 4):
+        super().__init__(on=on, site=SITE_DEVCACHE)
+        self.flips = int(flips)
+
+    def after(self, ctx, out):
+        if out is not None:
+            rng = random.Random(_stable_seed(
+                ctx.plan.seed, ctx.site, ctx.index, "resident"))
+            flat = out.head_tensor.reshape(-1)
+            for _ in range(max(1, self.flips)):
+                flat[rng.randrange(flat.size)] ^= 1 << rng.randrange(8)
+        return out
+
+
+class EvictStorm(Fault):
+    """Drop EVERY resident entry at the faulted lookup (the payload is the
+    cache): the lookup becomes a miss and the batch restages."""
+
+    def __init__(self, on=0, site: str = SITE_DEVCACHE):
+        super().__init__(on=on, site=site)
+
+    def before(self, ctx):
+        if ctx.payload is not None:
+            ctx.payload.drop_all("evict-storm fault")
+
+
+class StaleEpochOn(Fault):
+    """Bump the cache epoch at the faulted lookup, so the entry about to
+    be returned is stale and restages."""
+
+    def __init__(self, on=0, site: str = SITE_DEVCACHE):
+        super().__init__(on=on, site=site)
+
+    def before(self, ctx):
+        if ctx.payload is not None:
+            ctx.payload.bump_epoch("stale-epoch fault")
+
+
+class _CallContext:
+    __slots__ = ("plan", "site", "index", "clock", "payload")
+
+    def __init__(self, plan, site, index, clock, payload=None):
+        self.plan = plan
+        self.site = site
+        self.index = index
+        self.clock = clock
+        self.payload = payload
+
+
+class FaultPlan:
+    """A deterministic schedule of faults over the device-call stream;
+    call indices are counted per site, in dispatch order."""
+
+    def __init__(self, faults=(), seed: int = 0):
+        self.faults = list(faults)
+        self.seed = int(seed)
+        self._lock = threading.Lock()
+        self._counts = {}
+
+    def calls_seen(self, site: str = SITE_LANE) -> int:
+        with self._lock:
+            return self._counts.get(site, 0)
+
+    def run(self, site: str, fn, *, clock=None, payload=None):
+        with self._lock:
+            idx = self._counts.get(site, 0)
+            self._counts[site] = idx + 1
+        fired = [f for f in self.faults
+                 if f.site == site and f.fires_on(idx)]
+        ctx = _CallContext(self, site, idx, clock, payload)
+        for f in fired:
+            f.before(ctx)
+        out = fn()
+        for f in fired:
+            out = f.after(ctx, out)
+        return out
+
+
+def storm_plan(seed: int, kind: str, at: int = 0, length: int = 1,
+               seconds: float = 6.0, site: str = SITE_LANE,
+               advance: float = 3600.0) -> FaultPlan:
+    """One contiguous window of faults over the device-call stream:
+    ``error`` (every call in [at, at+length) raises), ``stall`` (each
+    stalls `seconds`) or ``crash`` (the lane worker dies at those
+    calls)."""
+    window = range(at, at + max(1, length))
+    if kind == "error":
+        faults = [ErrorOn(on=window, site=site)]
+    elif kind == "stall":
+        faults = [StallFor(seconds, on=window, site=site)]
+    elif kind == "crash":
+        faults = [KillLane(on=window, advance=advance)]
+    else:
+        raise ValueError(f"unknown storm kind {kind!r}")
+    return FaultPlan(faults, seed=seed)
+
+
+def devcache_plan(seed: int, kind: str, at: int = 0, length: int = 1,
+                  flips: int = 4) -> FaultPlan:
+    """A fault window over the device operand cache's LOOKUP stream:
+    ``corrupt`` (flip host-mirror bytes), ``evict`` (drop all residency)
+    or ``stale`` (bump the epoch)."""
+    window = range(at, at + max(1, length))
+    if kind == "corrupt":
+        faults = [CorruptResidentEntry(on=window, flips=flips)]
+    elif kind == "evict":
+        faults = [EvictStorm(on=window)]
+    elif kind == "stale":
+        faults = [StaleEpochOn(on=window)]
+    else:
+        raise ValueError(f"unknown devcache fault kind {kind!r}")
+    return FaultPlan(faults, seed=seed)
+
+
+def typed_error_plan(seed: int, kind: str, at: int = 0, length: int = 1,
+                     chips=(), heal_after: "float | None" = None,
+                     site: str = SITE_LANE) -> FaultPlan:
+    """Every call in [at, at+length) raises the `kind` shape (TypedErrorOn
+    kinds)."""
+    window = range(at, at + max(1, length))
+    return FaultPlan([TypedErrorOn(kind, on=window, chips=chips,
+                                   heal_after=heal_after, site=site)],
+                     seed=seed)
+
+
+_active = [None]
+_active_lock = threading.Lock()
+
+
+def install(plan: FaultPlan) -> FaultPlan:
+    with _active_lock:
+        if _active[0] is not None:
+            raise RuntimeError("a FaultPlan is already installed")
+        _active[0] = plan
+    return plan
+
+
+def uninstall() -> None:
+    with _active_lock:
+        _active[0] = None
+
+
+@contextmanager
+def injected(plan: FaultPlan):
+    """`with faults.injected(plan): ...` — install for the block and
+    uninstall on exit."""
+    install(plan)
+    try:
+        yield plan
+    finally:
+        uninstall()
+
+
+def run_device_call(site: str, fn, *, clock=None, payload=None):
+    """The seam the dispatch boundaries call: apply the active plan's
+    faults for this (site, call) around `fn`.  No plan → `fn()`."""
+    plan = _active[0]
+    if plan is None:
+        return fn()
+    return plan.run(site, fn, clock=clock, payload=payload)

@@ -1,0 +1,506 @@
+"""Device health for the verify_many scheduler: one `DeviceHealth` per
+dispatch mode with an injectable monotonic `Clock`, the typed error
+classifier, the process `ChipRegistry` of reported chip liveness, and the
+residency-drop listeners the device operand cache hangs on.
+
+THREAD SEMANTICS:
+
+* Every mutable field of a `DeviceHealth` / `ChipRegistry` is read and
+  written only under its internal lock.  No method calls out of the module
+  — and in particular never enters the CUDA runtime — while holding it.
+* All timestamps come from `self.clock`; nothing in the scheduler paths
+  reads `time.monotonic` directly, so a `FakeClock` injection is complete.
+* `lane_stuck` additionally latches a PROCESS-wide flag: a worker thread
+  wedged inside the CUDA runtime is a process-scoped hazard.
+
+CUDA errors differ from the TPU runtime's in one way that matters here: an
+error raised inside a kernel (an illegal address, a trap) is STICKY — it
+poisons the device's CUDA context for the rest of the process, and every
+later call on that device fails too.  `classify_device_error` therefore
+maps such an error to FATAL (never TRANSIENT: retrying into a dead context
+only burns the retry budget), and the scheduler marks the chip dead and
+arms the cooldown.
+"""
+
+import hashlib
+import threading
+import time
+
+__all__ = [
+    "Clock", "FakeClock", "SYSTEM_CLOCK", "DeviceHealth", "Backoff",
+    "ChipRegistry", "chip_registry", "normalize_mesh", "health_for",
+    "reset_all", "any_lane_stuck",
+    "register_residency_drop_listener", "notify_residency_drop",
+    "register_chip_drop_listener", "notify_chip_drop",
+    "ERROR_TRANSIENT", "ERROR_FATAL", "ERROR_AMBIGUOUS", "ErrorVerdict",
+    "classify_device_error",
+]
+
+
+# -- typed error classification --------------------------------------------
+#
+# * TRANSIENT — a retryable shape (timeout, link reset): a bounded-backoff
+#   retry on the same lane before anything is benched.
+# * FATAL     — the device is gone for this process (a sticky CUDA error,
+#   or an error that declares named chips dead).
+# * AMBIGUOUS — everything unrecognized: the chunk falls to the host, with
+#   no retry and no chip death.
+#
+# The rule table matches explicit types and markers only; an unrecognized
+# error can only land in AMBIGUOUS.
+
+ERROR_TRANSIENT = "transient"
+ERROR_FATAL = "fatal"
+ERROR_AMBIGUOUS = "ambiguous"
+
+_ERROR_CLASSES = (ERROR_TRANSIENT, ERROR_FATAL, ERROR_AMBIGUOUS)
+
+# cudaError_t codes that leave the context unusable (the CUDA runtime API):
+# ECC uncorrectable, illegal address, launch timeout, device-side assert,
+# hardware stack error, illegal instruction, misaligned address, invalid
+# address space, invalid PC, launch failure.
+CUDA_STICKY_ERRORS = frozenset({214, 700, 702, 710, 714, 715, 716, 717,
+                                718, 719})
+
+
+class ErrorVerdict:
+    """One classified dispatch error: the class, the chips a FATAL error
+    attributes (empty = the caller's current placement), whether the
+    raiser already marked them dead, the raiser's heal window, and a
+    short reason."""
+
+    __slots__ = ("cls", "chips", "marked", "heal_after", "reason")
+
+    def __init__(self, cls, chips=(), marked=False, heal_after=None,
+                 reason=""):
+        self.cls = cls
+        self.chips = tuple(int(c) for c in chips)
+        self.marked = bool(marked)
+        self.heal_after = heal_after
+        self.reason = reason
+
+    def __repr__(self):
+        return (f"ErrorVerdict(cls={self.cls!r}, chips={self.chips!r}, "
+                f"marked={self.marked}, reason={self.reason!r})")
+
+
+def _cuda_sticky(err) -> bool:
+    """True for an error that poisoned the CUDA context: a launch that
+    returned a sticky `cudaError_t` (ops/_cuda.CudaError carries its
+    `cuda_error` code), or a CUDA runtime error PyTorch raised when it
+    next touched the device (`torch.AcceleratorError`, or a RuntimeError
+    whose message carries the runtime's "CUDA error" text)."""
+    code = getattr(err, "cuda_error", None)
+    if code is not None:
+        return int(code) in CUDA_STICKY_ERRORS
+    if type(err).__name__ == "AcceleratorError":
+        return True
+    return isinstance(err, RuntimeError) and "CUDA error" in str(err)
+
+
+def classify_device_error(err) -> ErrorVerdict:
+    """Map one dispatch-time exception to {transient, fatal, ambiguous}.
+
+    In order: a ``device_error_class`` marker (faults.py typed injections)
+    declares its class — an invalid marker is AMBIGUOUS; a sticky CUDA
+    error is FATAL; ``TimeoutError`` and ``ConnectionError``/``OSError``
+    are TRANSIENT; anything else (None included) is AMBIGUOUS."""
+    marker = getattr(err, "device_error_class", None)
+    if marker is not None:
+        if marker in _ERROR_CLASSES:
+            return ErrorVerdict(
+                marker,
+                chips=getattr(err, "chips", ()) or (),
+                marked=bool(getattr(err, "chips_marked", False)),
+                heal_after=getattr(err, "heal_after", None),
+                reason=f"declared:{type(err).__name__}")
+        return ErrorVerdict(
+            ERROR_AMBIGUOUS,
+            reason=f"invalid-marker:{marker!r}:{type(err).__name__}")
+    if _cuda_sticky(err):
+        return ErrorVerdict(ERROR_FATAL,
+                            reason=f"cuda-sticky:{type(err).__name__}")
+    if isinstance(err, TimeoutError):
+        return ErrorVerdict(ERROR_TRANSIENT, reason="timeout")
+    if isinstance(err, (ConnectionError, OSError)):
+        return ErrorVerdict(ERROR_TRANSIENT,
+                            reason=f"link:{type(err).__name__}")
+    if err is None:
+        return ErrorVerdict(ERROR_AMBIGUOUS, reason="no-exception-context")
+    return ErrorVerdict(ERROR_AMBIGUOUS,
+                        reason=f"unclassified:{type(err).__name__}")
+
+
+def normalize_mesh(mesh) -> int:
+    """THE mesh-key rule shared by the health registry, the device-lane
+    registry and the compile-grace keys: mesh <= 1 is the single-device
+    lane, 0."""
+    return int(mesh) if mesh and int(mesh) > 1 else 0
+
+
+class Clock:
+    """Monotonic time source.  `virtual` tells blocking waiters whether
+    time only advances explicitly (they must poll instead of sleeping the
+    full timeout)."""
+
+    virtual = False
+
+    def monotonic(self) -> float:
+        return time.monotonic()
+
+
+SYSTEM_CLOCK = Clock()
+
+
+class FakeClock(Clock):
+    """A virtual monotonic clock for deterministic scheduler tests: time
+    advances ONLY via `advance`, so deadline and grace logic
+    is driven by the test scenario, never by host load."""
+
+    virtual = True
+
+    def __init__(self, start: float = 1000.0):
+        self._lock = threading.Lock()
+        self._now = float(start)
+
+    def monotonic(self) -> float:
+        with self._lock:
+            return self._now
+
+    def advance(self, seconds: float) -> None:
+        if seconds < 0:
+            raise ValueError("monotonic clocks cannot go backwards")
+        with self._lock:
+            self._now += float(seconds)
+
+
+_lane_stuck_latch = [False]
+_latch_lock = threading.Lock()
+
+# Residency-drop listeners: a lane abandoned mid-call may leave device
+# operand arrays behind on a runtime that is no longer trusted, so
+# `mark_lane_stuck` notifies every registered listener (devcache drops all
+# residency).  Listeners run outside every lock and must not raise.
+_residency_listeners = []
+
+
+def register_residency_drop_listener(fn) -> None:
+    """Register `fn(reason)` to run whenever a lane is marked stuck.
+    Idempotent by identity."""
+    with _latch_lock:
+        if fn not in _residency_listeners:
+            _residency_listeners.append(fn)
+
+
+def notify_residency_drop(reason: str) -> None:
+    """Run every residency-drop listener (outside all health locks); a
+    listener's failure never breaks the transition that triggered it."""
+    with _latch_lock:
+        listeners = list(_residency_listeners)
+    for fn in listeners:
+        try:
+            fn(reason)
+        except Exception:
+            pass
+
+
+# Chip-drop listeners: a chip marked dead drops only that chip's device
+# arrays (devcache registers its per-device drop).  Same contract.
+_chip_drop_listeners = []
+
+
+def register_chip_drop_listener(fn) -> None:
+    """Register `fn(chip, reason)` to run whenever a chip is marked dead.
+    Idempotent by identity."""
+    with _latch_lock:
+        if fn not in _chip_drop_listeners:
+            _chip_drop_listeners.append(fn)
+
+
+def notify_chip_drop(chip: int, reason: str) -> None:
+    with _latch_lock:
+        listeners = list(_chip_drop_listeners)
+    for fn in listeners:
+        try:
+            fn(chip, reason)
+        except Exception:
+            pass
+
+
+class ChipRegistry:
+    """Process-wide REPORTED liveness of the CUDA devices (indices as
+    torch enumerates them): what the single lane's placement checks read.
+
+    `mark_chip_dead(chip, heal_after=None)` is a chip loss — a finite
+    `heal_after` (registry-clock seconds) rejoins the chip once the window
+    elapses, None is permanent (a sticky CUDA error: the context is gone
+    for the process).  Marking notifies the chip-drop listeners.  Reads
+    prune healed windows, so rejoin is a read, not a daemon.  Liveness
+    gates placement, never math."""
+
+    def __init__(self, clock: "Clock | None" = None):
+        self.clock = clock if clock is not None else SYSTEM_CLOCK
+        self._lock = threading.Lock()
+        self._dead = {}  # chip index -> heal-at time (inf = permanent)
+
+    def set_clock(self, clock: "Clock | None") -> None:
+        with self._lock:
+            self.clock = clock if clock is not None else SYSTEM_CLOCK
+
+    def mark_chip_dead(self, chip: int, heal_after: "float | None" = None,
+                       reason: str = "chip-loss") -> None:
+        chip = int(chip)
+        with self._lock:
+            heal_at = (float("inf") if heal_after is None
+                       else self.clock.monotonic() + float(heal_after))
+            # Monotone per chip: a shorter window never shortens an armed
+            # longer one.
+            self._dead[chip] = max(self._dead.get(chip, 0.0), heal_at)
+        notify_chip_drop(chip, reason)
+
+    def heal_chip(self, chip: int) -> None:
+        with self._lock:
+            self._dead.pop(int(chip), None)
+
+    def excluded_chips(self) -> "frozenset[int]":
+        """The chips placement must avoid right now (reported dead, heal
+        windows pruned)."""
+        with self._lock:
+            now = self.clock.monotonic()
+            for c in [c for c, t in self._dead.items() if now >= t]:
+                del self._dead[c]
+            return frozenset(self._dead)
+
+    def healthy_count(self, total: int) -> int:
+        """How many of the chips [0, total) are placeable right now."""
+        excluded = self.excluded_chips()
+        return sum(1 for c in range(int(total)) if c not in excluded)
+
+    def surviving(self, want: int, total: int) -> "tuple[int, ...] | None":
+        """The first `want` placeable chips among [0, total), or None when
+        fewer remain."""
+        excluded = self.excluded_chips()
+        out = [c for c in range(int(total)) if c not in excluded]
+        return tuple(out[:int(want)]) if len(out) >= int(want) else None
+
+    def reset(self) -> None:
+        """Clear all chip-death state and restore the process clock."""
+        with self._lock:
+            self._dead.clear()
+            self.clock = SYSTEM_CLOCK
+
+    def __repr__(self):
+        with self._lock:
+            return f"ChipRegistry(dead={sorted(self._dead)})"
+
+
+_chip_registry = ChipRegistry()
+
+
+def chip_registry() -> ChipRegistry:
+    """The process ChipRegistry."""
+    return _chip_registry
+
+
+class DeviceHealth:
+    """Health/backoff state for ONE dispatch mode.  The state machine, in
+    degradation-ladder order:
+
+    * `note_deadline_miss()` — a device call blew its turnaround deadline,
+      or raised a fatal error: skip the device lane for
+      `DEADLINE_COOLDOWN` seconds.
+    * `note_uncompetitive()` — the device was MEASURED and still won zero
+      batches: pause probing for `UNCOMPETITIVE_PAUSE` seconds.
+    * `note_unresolved_probe()` — a call's probe never resolved; a streak
+      of `UNRESOLVED_PROBE_LIMIT` arms the shorter
+      `UNRESOLVED_PROBE_PAUSE`.
+    * `note_probe_resolved()` — a measured probe clears the streak.
+    * `mark_lane_stuck()` — a lane worker was abandoned mid-call."""
+
+    DEADLINE_COOLDOWN = 30.0
+    UNCOMPETITIVE_PAUSE = 60.0
+    UNRESOLVED_PROBE_LIMIT = 2
+    UNRESOLVED_PROBE_PAUSE = 30.0
+
+    def __init__(self, mesh: int = 0, clock: "Clock | None" = None):
+        self.mesh = normalize_mesh(mesh)
+        self.clock = clock if clock is not None else SYSTEM_CLOCK
+        self._lock = threading.Lock()
+        self._cooldown_until = 0.0
+        self._uncompetitive_until = 0.0
+        self._unresolved_probe_streak = 0
+        # Grace the host race gives a YOUNG fully-overtaken probe to
+        # deliver its timing before it is discarded (seconds).
+        self._young_probe_grace = 3.0
+        self._lane_stuck = False
+
+    def now(self) -> float:
+        return self.clock.monotonic()
+
+    def device_allowed(self) -> bool:
+        """False while any cooldown/pause is armed."""
+        with self._lock:
+            now = self.clock.monotonic()
+            return (now >= self._cooldown_until
+                    and now >= self._uncompetitive_until)
+
+    def in_cooldown(self) -> bool:
+        """True while the cooldown of a deadline miss or a fatal error is
+        armed (the competitiveness pauses are not cooldowns)."""
+        with self._lock:
+            return self.clock.monotonic() < self._cooldown_until
+
+    def note_deadline_miss(self) -> None:
+        with self._lock:
+            self._cooldown_until = (
+                self.clock.monotonic() + self.DEADLINE_COOLDOWN)
+
+    def note_uncompetitive(self) -> None:
+        with self._lock:
+            self._uncompetitive_until = (
+                self.clock.monotonic() + self.UNCOMPETITIVE_PAUSE)
+            self._unresolved_probe_streak = 0
+
+    def note_unresolved_probe(self) -> bool:
+        """Count one unresolved probe; True when the streak reached the
+        limit and the re-probe backoff armed."""
+        with self._lock:
+            self._unresolved_probe_streak += 1
+            if self._unresolved_probe_streak >= self.UNRESOLVED_PROBE_LIMIT:
+                self._uncompetitive_until = (
+                    self.clock.monotonic() + self.UNRESOLVED_PROBE_PAUSE)
+                return True
+            return False
+
+    def note_probe_resolved(self) -> None:
+        with self._lock:
+            self._unresolved_probe_streak = 0
+
+    def mark_lane_stuck(self) -> None:
+        with self._lock:
+            self._lane_stuck = True
+        with _latch_lock:
+            _lane_stuck_latch[0] = True
+        # Outside both locks: a dead/abandoned lane drops all device
+        # operand residency.
+        notify_residency_drop(f"lane-stuck mesh={self.mesh}")
+
+    def reset(self) -> None:
+        """Clear cooldowns, pauses, the streak and the stuck flag; the
+        young-probe grace is configuration and is kept."""
+        with self._lock:
+            self._cooldown_until = 0.0
+            self._uncompetitive_until = 0.0
+            self._unresolved_probe_streak = 0
+            self._lane_stuck = False
+
+    @property
+    def cooldown_until(self) -> float:
+        with self._lock:
+            return self._cooldown_until
+
+    @property
+    def uncompetitive_until(self) -> float:
+        with self._lock:
+            return self._uncompetitive_until
+
+    @property
+    def unresolved_probe_streak(self) -> int:
+        with self._lock:
+            return self._unresolved_probe_streak
+
+    @property
+    def lane_stuck(self) -> bool:
+        with self._lock:
+            return self._lane_stuck
+
+    @property
+    def young_probe_grace(self) -> float:
+        with self._lock:
+            return self._young_probe_grace
+
+    def __repr__(self):
+        with self._lock:
+            return (f"DeviceHealth(mesh={self.mesh}, "
+                    f"cooldown_until={self._cooldown_until:.3f}, "
+                    f"uncompetitive_until={self._uncompetitive_until:.3f}, "
+                    f"streak={self._unresolved_probe_streak}, "
+                    f"lane_stuck={self._lane_stuck})")
+
+
+class Backoff:
+    """Deterministic seeded-jitter exponential backoff on an injectable
+    Clock: attempt k waits base·factor^(k−1), capped at `max_delay`,
+    scaled by a jitter factor that is a pure function of (seed, attempt)."""
+
+    def __init__(self, clock: "Clock | None" = None, base: float = 1.0,
+                 factor: float = 2.0, max_delay: float = 60.0,
+                 jitter: float = 0.25, seed: int = 0):
+        if not 0.0 <= jitter < 1.0:
+            raise ValueError("jitter must be in [0, 1)")
+        self.clock = clock if clock is not None else SYSTEM_CLOCK
+        self.base = float(base)
+        self.factor = float(factor)
+        self.max_delay = float(max_delay)
+        self.jitter = float(jitter)
+        self.seed = int(seed)
+        self._lock = threading.Lock()
+        self._attempt = 0
+        self._until = 0.0
+
+    def _jitter_factor(self, attempt: int) -> float:
+        digest = hashlib.sha256(
+            repr((self.seed, attempt, "backoff")).encode()).digest()
+        u = int.from_bytes(digest[:8], "little") / float(1 << 64)
+        return 1.0 - self.jitter + 2.0 * self.jitter * u
+
+    def delay_for(self, attempt: int) -> float:
+        if attempt < 1:
+            return 0.0
+        raw = min(self.base * self.factor ** (attempt - 1),
+                  self.max_delay)
+        return raw * self._jitter_factor(attempt)
+
+    def arm(self) -> float:
+        """Advance to the next attempt and arm its delay from now; returns
+        the delay."""
+        with self._lock:
+            self._attempt += 1
+            d = self.delay_for(self._attempt)
+            self._until = self.clock.monotonic() + d
+            return d
+
+
+_registry: "dict[int, DeviceHealth]" = {}
+_registry_lock = threading.Lock()
+
+
+def health_for(mesh: int = 0) -> DeviceHealth:
+    """The process DeviceHealth for a dispatch mode (tests that want an
+    isolated fake-clock instance construct `DeviceHealth` directly)."""
+    mesh = normalize_mesh(mesh)
+    with _registry_lock:
+        h = _registry.get(mesh)
+        if h is None:
+            h = DeviceHealth(mesh=mesh)
+            _registry[mesh] = h
+        return h
+
+
+def reset_all() -> None:
+    """Reset every registered DeviceHealth, the lane-stuck latch and the
+    chip registry."""
+    with _registry_lock:
+        healths = list(_registry.values())
+    for h in healths:
+        h.reset()
+    with _latch_lock:
+        _lane_stuck_latch[0] = False
+    _chip_registry.reset()
+
+
+def any_lane_stuck() -> bool:
+    """True if any device-lane worker in this process was ever abandoned
+    mid-call."""
+    with _latch_lock:
+        return _lane_stuck_latch[0]

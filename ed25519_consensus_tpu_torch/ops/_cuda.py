@@ -7,7 +7,10 @@ file name carries a hash of its source, the shared header and the flags, so
 an edited source is rebuilt and a stale one is never loaded.  All sources
 build in parallel, one `nvcc` each.  The libraries are loaded with ctypes:
 pointers and the stream pass as `c_void_p`, and every C entry returns
-`cudaGetLastError()`, which `Kernel.launch` raises on.
+`cudaGetLastError()`, which `Kernel.launch` raises on as a `CudaError`
+carrying the code (health.classify_device_error reads it: a sticky error
+has poisoned the device's context).  Two kernels may share a source (K2
+and K2t live in window_sums.cu); a source builds once.
 
 Each `Kernel` counts its launches: `launches` is incremented where the
 kernel is launched and nowhere else, so a run can show that the main path
@@ -36,6 +39,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+class CudaError(RuntimeError):
+    """A kernel launch that returned a `cudaError_t` other than success."""
+
+    def __init__(self, name: str, code: int):
+        super().__init__(f"CUDA kernel {name} failed to launch: error "
+                         f"{code}")
+        self.cuda_error = int(code)
 
 
 class Kernel:
@@ -85,8 +97,7 @@ class Kernel:
         with torch.cuda.device(device):
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err:
-            raise RuntimeError(
-                f"CUDA kernel {self.name} failed to launch: error {err}")
+            raise CudaError(self.name, err)
         self.launches += 1
 
 
@@ -97,6 +108,11 @@ KERNELS = {
         Kernel("window_sums", "window_sums.cu", "window_sums_launch",
                [_P, _I, _P, _P, _I, _I, _P]),
         Kernel("fold_partials", "fold_partials.cu", "fold_partials_launch",
+               [_P, _P, _I, _I, _P]),
+        Kernel("window_sums_tables", "window_sums.cu",
+               "window_sums_tables_launch",
+               [_P, _I, _P, _I, _I, _P, _P, _I, _I, _P]),
+        Kernel("build_tables", "build_tables.cu", "build_tables_launch",
                [_P, _P, _I, _I, _P]),
     )
 }
@@ -117,8 +133,8 @@ def nvcc_path() -> str:
 
 
 def build_all() -> dict:
-    """Compile every kernel whose library is missing, all at once (one
-    `nvcc` per source).  Returns {name: {"seconds", "log"}} for the
+    """Compile every source whose library is missing, all at once (one
+    `nvcc` per source).  Returns {source: {"seconds", "log"}} for the
     sources built, the log being the compiler's `-Xptxas -v` report
     (registers, spills, shared memory).  Raises if any build fails, with
     the compiler's output."""
@@ -129,10 +145,10 @@ def build_all() -> dict:
         procs = {}
         for k in KERNELS.values():
             out = k.library_path()
-            if out.exists():
+            if out.exists() or k.source in procs:
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            procs[k.name] = (k, out, tmp, subprocess.Popen(
+            procs[k.source] = (k, out, tmp, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.path)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
@@ -147,6 +163,14 @@ def build_all() -> dict:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         return report
+
+
+def load_all() -> None:
+    """Build what is missing and load every kernel's C entry point, so a
+    build or load failure raises here, in the caller's thread, before any
+    work is handed to a device lane."""
+    for k in KERNELS.values():
+        k.function()
 
 
 def launch_counts() -> dict:

@@ -72,6 +72,21 @@ def pack_point_batch(points) -> np.ndarray:
     return np.stack([pack_field_batch(c) for c in coords])
 
 
+def pack_points_from_raw(raw: np.ndarray) -> np.ndarray:
+    """Vectorized limb packing straight from canonical point bytes: (T,
+    128) uint8 rows of X‖Y‖Z‖T 32-byte little-endian coordinates (the
+    native decompression output) → (4, NLIMBS, T) int16."""
+    n = raw.shape[0]
+    coords = raw.reshape(n, 4, 32)
+    bits = np.unpackbits(coords, axis=2, bitorder="little")  # (n, 4, 256)
+    bits = np.concatenate(
+        [bits, np.zeros((n, 4, NLIMBS * LIMB_BITS - 256), np.uint8)], axis=2
+    )
+    limbs13 = bits.reshape(n, 4, NLIMBS, LIMB_BITS).astype(np.int16)
+    vals = limbs13 @ _LIMB_WEIGHTS.astype(np.int16)  # (n, 4, NLIMBS)
+    return np.ascontiguousarray(np.moveaxis(vals, 0, 2))
+
+
 def unpack_point(arr) -> "object":
     """Unpack a single device point (4, NLIMBS) back to an exact host Point.
     Limbs may be unnormalized; the host reduces mod p exactly."""

@@ -13,7 +13,7 @@ with T_i the [0..8]P_i multiples table.  The device computes only the 33
 window sums S_w; the Horner combine (`combine_window_sums`) and every
 accept/reject decision stay in exact host integers.
 
-One device call is three kernels (csrc/), each with its plain PyTorch
+A cold device call is three kernels (csrc/), each with its plain PyTorch
 version beside its wrapper:
 
   K1 `expand_compressed` (ops/torch_decompress.py) — compressed wire →
@@ -24,6 +24,17 @@ version beside its wrapper:
   K3 `fold_partials` (`fold_partials`) — the group fold of the chunk
      partials to (B, 4, NLIMBS, 33) int32.
 
+A keyset resident in the device operand cache (devcache.py) takes one of
+two hot dispatches: the head-resident one (`dispatch_window_sums_many_
+cached`: K1 on the R wire, the resident head broadcast beside it, K2, K3)
+or the tables-resident one (`dispatch_window_sums_many_tables`):
+
+  K4 `build_tables` (`multiples_tables`) — the [0..8]P tables of K1's R
+     points;
+  K2t `window_sums_tables` (`window_partials_tables`) — K2's window phase
+     on prebuilt tables: the resident head tables, shared across the
+     batch, and K4's R tables; then K3.
+
 The plain versions take the kernels' additions in the kernels' order, so
 kernel and plain version agree limb for limb.  Against the JAX package's
 window sums they agree as group elements (projectively), not limb for limb:
@@ -33,9 +44,12 @@ Public entry points take `device=None`, meaning "cuda", and raise when no
 CUDA device exists and the caller did not ask for the CPU.
 """
 
+import threading
+
 import numpy as np
 import torch
 
+from .. import config as _config
 from . import _cuda
 from . import limbs
 from . import torch_edwards as E
@@ -49,6 +63,34 @@ MASK128 = (1 << 128) - 1
 CHUNK = 64
 HALF = CHUNK // 2
 FOLD_THREADS = 32
+# Entries of a multiples table, [0..8]P.
+NTABLE = 9
+
+# Every device call (launches and the blocking fetch) holds this lock, so
+# two threads — the verify_many lane worker and a direct caller — never
+# interleave their calls into one device.  Reentrant: the lane worker holds
+# it across a dispatch and its fetch, and the dispatches take it again.
+DEVICE_CALL_LOCK = threading.RLock()
+
+# (n_batches, n_lanes, mesh, variant) shapes that have COMPLETED at least
+# one device call this process.  The lane builds and loads every kernel
+# before it starts (batch._DeviceLane.get), but a shape's first call still
+# pays the device's lazy set-up, so the scheduler gives a shape the longer
+# first-call deadline until its first call completes.  Variants: 0 cold,
+# 1 resident-head, 2 resident-tables dispatch.
+_shapes_completed = set()
+
+
+def mark_shape_completed(n_batches: int, n_lanes: int, mesh: int = 0,
+                         cached: "bool | int" = False) -> None:
+    _shapes_completed.add((int(n_batches), int(n_lanes), int(mesh or 0),
+                           int(cached)))
+
+
+def shape_completed(n_batches: int, n_lanes: int, mesh: int = 0,
+                    cached: "bool | int" = False) -> bool:
+    return (int(n_batches), int(n_lanes), int(mesh or 0),
+            int(cached)) in _shapes_completed
 
 
 def resolve_device(device=None) -> torch.device:
@@ -66,7 +108,9 @@ def resolve_device(device=None) -> torch.device:
 
 def pad_lanes(n: int) -> int:
     """Lane count for n terms: a multiple of the K2 chunk (the kernel masks
-    a ragged edge too, but a whole chunk costs the same)."""
+    a ragged edge too, but a whole chunk costs the same), at least
+    ED25519_TPU_MIN_LANES when that knob is set."""
+    n = max(n, _config.get("ED25519_TPU_MIN_LANES") or 0)
     return max(CHUNK, -(-n // CHUNK) * CHUNK)
 
 
@@ -170,21 +214,30 @@ def window_partials_plain(digits, points):
     B, _, _, N = points.shape
     if _check_digits(digits, B, N):
         digits = expand_digits(digits)
-    nchunk = -(-N // CHUNK)
-    Np = nchunk * CHUNK
-    dev = points.device
-    pts = torch.zeros((4, NLIMBS, B, Np), dtype=torch.int32, device=dev)
+    Np = -(-N // CHUNK) * CHUNK
+    pts = torch.zeros((4, NLIMBS, B, Np), dtype=torch.int32,
+                      device=points.device)
     pts[1, 0] = 1
     pts[2, 0] = 1
     pts[..., :N] = points.permute(1, 2, 0, 3)
-    dig = torch.zeros((B, NWINDOWS, Np), dtype=torch.int32, device=dev)
-    dig[..., :N] = digits
     # tables: (9, 4, NLIMBS, B, Np), entry 0 the identity
     ents = [E.identity_like(pts), pts]
     for _ in range(7):
         ents.append(E.point_add(ents[-1], pts).to(torch.int16)
                     .to(torch.int32))
-    tbl = torch.stack(ents)
+    return _partials_from_tables(torch.stack(ents), digits, N)
+
+
+def _partials_from_tables(tbl, digits, N: int):
+    """The window phase shared by K2's and K2t's plain versions: tables
+    (9, 4, NLIMBS, B, Np) int32 with entry 0 the identity and every lane
+    past N the identity, plain digits (B, 33, N) → (B, nchunk, 33, 4,
+    NLIMBS) int32, each half-chunk summed lane by lane, then the halves."""
+    B, Np = tbl.shape[3], tbl.shape[4]
+    nchunk = Np // CHUNK
+    dig = torch.zeros((B, NWINDOWS, Np), dtype=torch.int32,
+                      device=tbl.device)
+    dig[..., :N] = digits
     sel = _select(tbl, dig)  # (4, NLIMBS, B, 33, Np)
     sel = sel.reshape(4, NLIMBS, B, NWINDOWS, nchunk, 2, HALF).permute(
         0, 1, 2, 4, 3, 5, 6)
@@ -229,6 +282,120 @@ def window_partials(digits, points):
             points.device, digits.data_ptr(), int(packed),
             points.data_ptr(), out.data_ptr(), B, N)
     return out
+
+
+# -- K2t: window partials from prebuilt tables ----------------------------
+
+def _check_tables(tables, name: str):
+    if tables.dtype != torch.int16 or tables.ndim != 5 or \
+            tuple(tables.shape[1:4]) != (NTABLE, 4, NLIMBS):
+        raise ValueError(f"{name} must be (*, {NTABLE}, 4, {NLIMBS}, n) "
+                         f"int16, got {tuple(tables.shape)} {tables.dtype}")
+
+
+def _tables_operands(digits, head_tables, r_tables):
+    """Validates K2t's operands; returns (B, n_head, N, packed, r_tables)
+    with an empty R table tensor standing in for None."""
+    _check_tables(head_tables, "head_tables")
+    B = digits.shape[0]
+    n_head = head_tables.shape[4]
+    if r_tables is None:
+        r_tables = torch.empty((B, NTABLE, 4, NLIMBS, 0), dtype=torch.int16,
+                               device=head_tables.device)
+    _check_tables(r_tables, "r_tables")
+    N = n_head + r_tables.shape[4]
+    if head_tables.shape[0] not in (1, B) or r_tables.shape[0] != B:
+        raise ValueError(f"head tables batch {head_tables.shape[0]} and R "
+                         f"tables batch {r_tables.shape[0]} do not fit "
+                         f"B = {B} (head: 1 or B; R: B)")
+    packed = _check_digits(digits, B, N)
+    return B, n_head, N, packed, r_tables
+
+
+def window_partials_tables_plain(digits, head_tables, r_tables=None):
+    """Plain PyTorch version of K2t: digits (B, 17 | 33, N), head tables
+    (TH, 9, 4, NLIMBS, n_head) int16 with TH ∈ {1, B}, R tables (B, 9, 4,
+    NLIMBS, N − n_head) int16 (None when n_head = N) → partials (B, nchunk,
+    33, 4, NLIMBS) int32.  The same selection and additions as K2's plain
+    version on the given tables; entry 0 is taken as the identity, never
+    read from the tensors (the kernel never stores or reads it)."""
+    B, n_head, N, packed, r_tables = _tables_operands(
+        digits, head_tables, r_tables)
+    if packed:
+        digits = expand_digits(digits)
+    Np = -(-N // CHUNK) * CHUNK
+    tbl = torch.zeros((NTABLE, 4, NLIMBS, B, Np), dtype=torch.int32,
+                      device=r_tables.device)
+    tbl[:, 1:3, 0] = 1  # the identity, kept in entry 0 and past lane N
+    tbl[1:, ..., :n_head] = head_tables[:, 1:].permute(1, 2, 3, 0, 4)
+    tbl[1:, ..., n_head:N] = r_tables[:, 1:].permute(1, 2, 3, 0, 4)
+    return _partials_from_tables(tbl, digits, N)
+
+
+def window_partials_tables(digits, head_tables, r_tables=None):
+    """K2t wrapper: launches window_sums_tables (csrc/window_sums.cu) on
+    CUDA tensors, runs `window_partials_tables_plain` on CPU tensors.
+    TH = 1 head tables are shared by every batch (batch stride 0)."""
+    B, n_head, N, packed, r_tables = _tables_operands(
+        digits, head_tables, r_tables)
+    devs = {digits.device, head_tables.device, r_tables.device}
+    if devs == {torch.device("cpu")}:
+        return window_partials_tables_plain(digits, head_tables, r_tables)
+    if len(devs) != 1 or digits.device.type != "cuda":
+        raise ValueError(f"digits, head tables and R tables on {devs}: all "
+                         f"must be on one CUDA device or all on the CPU")
+    digits = digits.contiguous()
+    head_tables = head_tables.contiguous()
+    r_tables = r_tables.contiguous()
+    nchunk = -(-N // CHUNK)
+    out = torch.empty((B, nchunk, NWINDOWS, 4, NLIMBS), dtype=torch.int32,
+                      device=digits.device)
+    if B * nchunk:
+        _cuda.KERNELS["window_sums_tables"].launch(
+            digits.device, digits.data_ptr(), int(packed),
+            head_tables.data_ptr(), int(head_tables.shape[0] != 1),
+            n_head, r_tables.data_ptr(), out.data_ptr(), B, N)
+    return out
+
+
+# -- K4: multiples tables --------------------------------------------------
+
+def build_tables_plain(points):
+    """Plain PyTorch version of K4: extended points (B, 4, NLIMBS, N) int16
+    → tables (B, 9, 4, NLIMBS, N) int16, entry 0 the identity, entry k =
+    entry (k−1) + P — the reference's table_scan, step for step."""
+    pts = points.permute(1, 2, 0, 3).to(torch.int32)  # (4, NLIMBS, B, N)
+    ents = [E.identity_like(pts)]
+    for _ in range(NTABLE - 1):
+        ents.append(E.point_add(ents[-1], pts))
+    return torch.stack(ents).to(torch.int16).permute(3, 0, 1, 2, 4) \
+        .contiguous()
+
+
+def multiples_tables(points):
+    """K4 wrapper: launches build_tables (csrc/build_tables.cu) on a CUDA
+    tensor, runs `build_tables_plain` on a CPU tensor."""
+    _check_points(points)
+    if points.device.type == "cpu":
+        return build_tables_plain(points)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    points = points.contiguous()
+    B, _, _, N = points.shape
+    out = torch.empty((B, NTABLE, 4, NLIMBS, N), dtype=torch.int16,
+                      device=points.device)
+    if B * N:
+        _cuda.KERNELS["build_tables"].launch(
+            points.device, points.data_ptr(), out.data_ptr(), B, N)
+    return out
+
+
+def build_multiples_tables(points, device=None):
+    """The multiples tables of a batch of extended points, (B, 4, NLIMBS,
+    N) int16 (numpy or tensor) → (B, 9, 4, NLIMBS, N) int16 tensor on
+    `device` (None means CUDA): row 0 the identity, row k the exact [k]P,
+    equal byte for byte to the reference's build_multiples_tables."""
+    return multiples_tables(as_tensor(points, resolve_device(device)))
 
 
 # -- K3: fold of the chunk partials ----------------------------------------
@@ -303,9 +470,10 @@ def dispatch_window_sums_many(digits, points, device=None):
     dev = resolve_device(device)
     digits = as_tensor(digits, dev)
     points = as_tensor(points, dev)
-    if points.ndim == 3:
-        points = expand_compressed_points(points)
-    return fold_partials(window_partials(digits, points))
+    with DEVICE_CALL_LOCK:
+        if points.ndim == 3:
+            points = expand_compressed_points(points)
+        return fold_partials(window_partials(digits, points))
 
 
 def dispatch_window_sums(digits, points, device=None):
@@ -315,6 +483,43 @@ def dispatch_window_sums(digits, points, device=None):
     dev = resolve_device(device)
     return dispatch_window_sums_many(as_tensor(digits, dev)[None],
                                      as_tensor(points, dev)[None], dev)
+
+
+def dispatch_window_sums_many_cached(digits, head, rwire, device=None):
+    """The dispatch for a keyset whose head operands are resident: digits
+    (B, 17 | 33, N) for all N = n_head + n_r lanes, `head` the entry's
+    (4, NLIMBS, n_head) int16 tensor, `rwire` (B, 33, n_r) the per-
+    signature compressed R encodings → (B, 4, NLIMBS, 33) int32.  K1
+    expands the R wire, the head is broadcast beside it over the batch
+    (a tensor copy), then K2 and K3 run as on the cold path — the same
+    window-sum math, only where the head bytes came from differs."""
+    dev = resolve_device(device)
+    digits = as_tensor(digits, dev)
+    head = as_tensor(head, dev)
+    rwire = as_tensor(rwire, dev)
+    with DEVICE_CALL_LOCK:
+        r_pts = expand_compressed_points(rwire)
+        pts = torch.cat([head[None].expand(rwire.shape[0], -1, -1, -1),
+                         r_pts], dim=-1)
+        return fold_partials(window_partials(digits, pts))
+
+
+def dispatch_window_sums_many_tables(digits, head_tables, rwire,
+                                     device=None):
+    """The dispatch for a keyset whose head multiples TABLES are resident:
+    digits (B, 17 | 33, N) for all N = n_head + n_r lanes, `head_tables`
+    the entry's (9, 4, NLIMBS, n_head) int16 tensor, `rwire` (B, 33, n_r)
+    → (B, 4, NLIMBS, 33) int32.  K1 expands the R wire, K4 builds the R
+    lanes' tables, K2t sums the windows with the head tables shared across
+    the batch (TH = 1), K3 folds.  The head tables are never rebuilt."""
+    dev = resolve_device(device)
+    digits = as_tensor(digits, dev)
+    head_tables = as_tensor(head_tables, dev)
+    rwire = as_tensor(rwire, dev)
+    with DEVICE_CALL_LOCK:
+        r_tbl = multiples_tables(expand_compressed_points(rwire))
+        return fold_partials(window_partials_tables(
+            digits, head_tables[None], r_tbl))
 
 
 class PendingMSM:

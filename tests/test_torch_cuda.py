@@ -1,13 +1,14 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
-version, at small and ragged shapes.  CUDA kernels have no CPU mode, so
+version, at small and ragged shapes, and verify_many through resident
+tables on the card.  CUDA kernels have no CPU mode, so
 every test here needs an NVIDIA GPU (sm_90a) and `nvcc`; without one they
 skip.  On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 (`--noconftest`: the suite's conftest imports JAX, which the port does
-not need and a GPU host may not have).  Tolerance: exact equality; K2 and
-K3 take the plain versions' additions in the same order."""
+not need and a GPU host may not have).  Tolerance: exact equality; K2,
+K2t, K3 and K4 take the plain versions' additions in the same order."""
 
 import random
 
@@ -87,7 +88,10 @@ def test_verify_gpu_accepts_and_rejects(dev):
     good = batch.Verifier()
     good.queue_bulk(entries)
     good.verify_gpu(rng=random.Random(7))
-    assert all(n == 1 for n in _cuda.launch_counts().values())
+    counts = _cuda.launch_counts()
+    assert [counts[k] for k in ("expand_compressed", "window_sums",
+                                "fold_partials")] == [1, 1, 1]
+    assert counts["window_sums_tables"] == counts["build_tables"] == 0
     entries[9] = (entries[9][0], entries[9][1], b"altered")
     bad = batch.Verifier()
     bad.queue_bulk(entries)
@@ -101,3 +105,50 @@ def test_mixed_devices_raise(dev):
                          device=dev)
     with pytest.raises(ValueError):
         msm.window_partials(digits, points)
+
+
+@pytest.mark.parametrize("head_batched", [False, True])
+def test_build_tables_and_window_sums_tables_match_plain(dev, head_batched):
+    B, N, n_head = 2, 200, 70
+    points = TD.expand_compressed_points(
+        torch.from_numpy(np.stack([_wire(N, 8), _wire(N, 9)])).to(dev))
+    tables = msm.multiples_tables(points)
+    assert torch.equal(tables, msm.build_tables_plain(points))
+    d = np.random.default_rng(10).integers(
+        -8, 8, size=(B, limbs.NWINDOWS, N)).astype(np.int8)
+    digits = torch.from_numpy(
+        np.stack([limbs.pack_digit_planes(x) for x in d])).to(dev)
+    head = tables[..., :n_head] if head_batched else tables[:1, ..., :n_head]
+    head, r = head.contiguous(), tables[..., n_head:].contiguous()
+    got = msm.window_partials_tables(digits, head, r)
+    assert torch.equal(got, msm.window_partials_tables_plain(digits, head,
+                                                             r))
+    full = msm.window_partials_tables(digits, tables)
+    assert torch.equal(msm.window_partials_tables_plain(digits, tables),
+                       full)
+
+
+def test_verify_many_from_resident_tables(dev):
+    from ed25519_consensus_tpu_torch import devcache
+
+    rng = random.Random(11)
+    keys = [SigningKey.new(rng) for _ in range(6)]
+    devcache.set_default_cache(devcache.DeviceOperandCache(enabled=True))
+    try:
+        for rep in range(3):
+            vs = []
+            for b in range(2):
+                v = batch.Verifier()
+                v.queue_bulk([(sk.verification_key_bytes(),
+                               sk.sign(b"%d-%d-%d" % (rep, b, i)),
+                               b"%d-%d-%d" % (rep, b, i)
+                               if (rep, b, i) != (2, 1, 0) else b"x")
+                              for i, sk in enumerate(keys)])
+                vs.append(v)
+            got = batch.verify_many(vs, rng=rng, chunk=2, hybrid=False,
+                                    merge="never")
+            assert got == [True, rep != 2]
+        assert batch.last_run_stats["devcache"]["table_dispatch_hits"] == 1
+    finally:
+        devcache.set_default_cache(None)
+        batch._DeviceLane.reset_all()

@@ -1,7 +1,9 @@
 """The port stands alone: `ed25519_consensus_tpu_torch` and `chip_smoke.py`
 import neither `jax` nor anything of the JAX package `ed25519_consensus_tpu`
-(the port keeps its own copies of the host modules), and its device entry
-points never fall back to the CPU unasked.
+(the port keeps its own copies of the host modules and of the host C++
+runtime), and its device entry points never fall back to the CPU unasked.
+The blocked-import run drives the native runtime and verify_many through
+resident tables as well.
 
 Careful with names: `ed25519_consensus_tpu_torch` starts with
 `ed25519_consensus_tpu`, so a blocked name is matched exactly or as a
@@ -80,6 +82,25 @@ for i in range(12):
 bv.queue_bulk(entries)
 bv.verify(rng=rng, backend="device", device="cpu")
 bv.verify(rng=rng, backend="host")
+
+from ed25519_consensus_tpu_torch import (carry, config, devcache, faults,
+                                         health, native, routing)
+from ed25519_consensus_tpu_torch.utils import metrics
+
+assert native.load() is not None
+clock = health.FakeClock()
+for rep in range(3):
+    vs = []
+    for j in range(2):
+        v = batch.Verifier()
+        v.queue_bulk(entries)
+        vs.append(v)
+    assert batch.verify_many(vs, rng=rng, chunk=2, hybrid=False,
+                             merge="never", device="cpu",
+                             health=health.DeviceHealth(clock=clock)) \
+        == [True, True]
+assert batch.last_run_stats["devcache"]["table_dispatch_hits"] == 1
+batch._DeviceLane.reset_all()
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
@@ -95,6 +116,17 @@ def test_port_runs_with_jax_and_reference_blocked():
                        env=env, capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.strip().endswith("OK")
+
+
+def test_host_runtime_is_the_ports_own_copy():
+    """The native loader builds the port's own C++ source, never the JAX
+    package's."""
+    from ed25519_consensus_tpu_torch import native
+
+    assert native.SOURCE.is_relative_to(PORT)
+    assert native.SOURCE.read_bytes() == (
+        ROOT / "ed25519_consensus_tpu" / "native" / "fe25519.cpp"
+    ).read_bytes()
 
 
 def _imported_names(path: Path):
