@@ -11,8 +11,23 @@ card, drives the port's two paths, and times the kernels.
   resident tables (K1, K4, K2t, K3) and hot with resident heads (K1, K2,
   K3); then a 256-height cometbft128 commit stream through verify_many's
   defaults and per commit.
+* The sharded mesh at D = 2 and D = 4 — shard k on cuda:k when that many
+  cards are visible, else every shard on cuda:0 (a virtual mesh; the log
+  names the placement): the 1M-signature pod batch and a tampered copy
+  through `sharded_msm.sharded_staged_msm`, then pod100k batches through
+  `verify_many(mesh=D)` cold, from a resident head and with every chunk
+  audited by the sentinel (K1, K2, K3 per shard, K5 across shards); then
+  the affine wire through the single lane and the mesh (K6 in place of
+  K1).  K5 and K6 are held against their plain versions on the operands
+  those paths gave them, and the routing model's constants `a` and `b`
+  are measured.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --stress-tables REPS SECONDS
+
+The second form only runs the cometbft128 per-commit stream again and again
+(`stress_tables_path`) and exits nonzero if the device ever rejected a batch
+the host accepts.
 
 Exits nonzero, and prints no result, without a CUDA device, outside a
 checkout of the repository, when the native runtime does not build or fails
@@ -69,6 +84,10 @@ STACK_B, STACK_N = 8, 12_288
 DEPTH = 16  # zcash10k batches per verify_many pass (bench.py's default)
 SLICE0_KERNELS = ("expand_compressed", "window_sums", "fold_partials")
 COMET_KEYS, COMET_HEIGHTS = 128, 256
+# bench.py's pod configs (BASELINE.json config 5): signatures tiled from
+# POD_BASE distinct ones over POD_KEYS keys.
+POD_SIGS, POD100K, POD_BASE, POD_KEYS = 1_000_000, 100_000, 10_000, 256
+MESH_DEPTH = 4  # pod100k batches per verify_many pass on the mesh
 DEV = "cuda"
 
 
@@ -557,11 +576,12 @@ def stream_pass(label: str, make, host, tampered_at=None, **kw) -> dict:
     from ed25519_consensus_tpu_torch.ops import _cuda
 
     vs = make()
+    device = kw.pop("device", DEV)
     batch.reset_device_health()
     _cuda.reset_launch_counts()
     t = time.perf_counter()
     verdicts = batch.verify_many(vs, rng=random.Random(len(label)),
-                                 device=DEV, **kw)
+                                 device=device, **kw)
     dt = time.perf_counter() - t
     counts = _cuda.launch_counts()
     st = dict(batch.last_run_stats)
@@ -578,13 +598,99 @@ def stream_pass(label: str, make, host, tampered_at=None, **kw) -> dict:
         f"{st.get('host_seconds', 0):.3f} s; device batches "
         f"{st.get('device_batches', st.get('device_unions'))}, host "
         f"{st.get('host_batches', st.get('host_unions'))}, rejects "
-        f"confirmed {st.get('device_rejects_confirmed', 0)}; devcache "
+        f"confirmed {st.get('device_rejects_confirmed', 0)} overturned "
+        f"{st.get('device_rejects_overturned', 0)}; devcache "
         f"hit {dc['hit']} tables_hit {dc['tables_hit']} dispatch_hits "
         f"{dc['dispatch_hits']} table_dispatch_hits "
         f"{dc['table_dispatch_hits']}; launches "
         f"{ {k: v for k, v in counts.items() if v} }")
     return {"seconds": dt, "sigs_per_s": sigs / dt, "stats": st,
             "launches": counts, "verdicts": verdicts}
+
+
+class record_calls:
+    """Records every call the path makes to `msm.<name>` while it runs:
+    its arguments (numpy operands as given, device tensors by reference)
+    and a clone of its result on the device — no synchronisation, so the
+    path keeps its timing."""
+
+    def __init__(self, name):
+        self.name = name
+        self.calls = []
+
+    def __enter__(self):
+        from ed25519_consensus_tpu_torch.ops import msm
+
+        self.saved = getattr(msm, self.name)
+
+        def wrapper(*args, **kw):
+            out = self.saved(*args, **kw)
+            self.calls.append((args, out.clone()))
+            return out
+
+        setattr(msm, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        from ed25519_consensus_tpu_torch.ops import msm
+
+        setattr(msm, self.name, self.saved)
+        return False
+
+
+def first_per_shape(calls) -> list:
+    """The first input tensor of each shape among recorded calls."""
+    first = {}
+    for (x, *_), _out in calls:
+        first.setdefault(tuple(x.shape), x)
+    return list(first.values())
+
+
+def hold_recorded_tables(label: str, calls) -> None:
+    """Every tables-resident dispatch a path made held, on the card,
+    against its plain versions run on the same operands, kernel by kernel
+    on the recomputed intermediates: K1 on the R wire, K4, K2t, K3 — and
+    the path's own result against the plain chain's, exactly.  A
+    difference fails the run, naming the chunk, its batches and the
+    kernels that differ."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import msm
+    from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+
+    t = time.perf_counter()
+    bad = []
+    for c, ((digits, head, rwire, *_), out) in enumerate(calls):
+        d = msm.as_tensor(digits, DEV)
+        rw = msm.as_tensor(rwire, DEV)
+        ht = head[None]
+        ext = TD.expand_compressed_points_plain(rw)
+        tbl = msm.build_tables_plain(ext)
+        part = msm.window_partials_tables_plain(d, ht, tbl)
+        want = msm.fold_partials_plain(part)
+        if torch.equal(out, want):
+            continue
+        rows = [b for b in range(out.shape[0])
+                if not torch.equal(out[b], want[b])]
+        kernels = {
+            "K1": torch.equal(TD.expand_compressed_points(rw), ext),
+            "K4": torch.equal(msm.multiples_tables(ext), tbl),
+            "K2t": torch.equal(msm.window_partials_tables(d, ht, tbl), part),
+            "K3": torch.equal(msm.fold_partials(part), want),
+            "the dispatch again": torch.equal(
+                msm.dispatch_window_sums_many_tables(digits, head, rwire,
+                                                     DEV), want)}
+        log(f"  {label} chunk {c}: batches {rows} differ from the plain "
+            f"versions (max |diff| {int((out - want).abs().max())}); on the "
+            f"same operands again, equal to the plain version: {kernels}")
+        bad.append(c)
+    sync()
+    log(f"  {label}: {len(calls) - len(bad)}/{len(calls)} tables "
+        f"dispatches of the path equal their plain versions (K1, K4, K2t, "
+        f"K3; exact), held in {time.perf_counter() - t:.1f} s")
+    if bad:
+        raise AssertionError(f"{label}: device window sums differ from the "
+                             f"plain versions in chunks {bad}")
 
 
 def phase_stream(report: dict, state: dict) -> None:
@@ -630,8 +736,10 @@ def phase_stream(report: dict, state: dict) -> None:
     passes["cold"] = stream_pass("cold (cache off)", zcash(), ok16, **kw)
     devcache.set_default_cache(devcache.DeviceOperandCache(enabled=True))
     passes["warm"] = stream_pass("warm-residency", zcash(), ok16, **kw)
-    passes["tables"] = stream_pass("hot, resident tables (one tampered "
-                                   "batch)", zcash(True), bad16, **kw)
+    with record_calls("dispatch_window_sums_many_tables") as rec:
+        passes["tables"] = stream_pass("hot, resident tables (one tampered "
+                                       "batch)", zcash(True), bad16, **kw)
+    hold_recorded_tables("hot, resident tables", rec.calls)
     with override(ED25519_TPU_DEVCACHE_TABLES="0"):
         passes["head"] = stream_pass("hot, resident heads "
                                      "(ED25519_TPU_DEVCACHE_TABLES=0)",
@@ -663,9 +771,54 @@ def phase_stream(report: dict, state: dict) -> None:
                 raise AssertionError(f"{name} pass never launched {k}")
 
     # cometbft128: 128 validators, the same set every height
+    t = time.perf_counter()
+    heights, bad_h = comet_heights()
+    state["comet_verifier"] = batch.Verifier()
+    state["comet_verifier"].queue_bulk(heights[0])
+
+    def comet():
+        return verifiers(heights)
+
+    host = [batch._host_verdict(v, random.Random(9)) for v in comet()]
+    if host != [h != bad_h for h in range(COMET_HEIGHTS)]:
+        raise AssertionError("cometbft128 host verdicts wrong")
+    log(f"cometbft128 stream: {COMET_HEIGHTS} heights x {COMET_KEYS} "
+        f"validators, height {bad_h} tampered (built in "
+        f"{time.perf_counter() - t:.1f} s):")
+    (passes["comet_defaults"], passes["comet_per_commit"],
+     calls) = comet_passes(comet, host, state["comet_verifier"])
+    hold_recorded_tables("per commit", calls)
+    pc = passes["comet_per_commit"]["stats"]
+    if pc["device_batches"] + pc["device_rejects_confirmed"] \
+            != COMET_HEIGHTS or pc["devcache"]["table_dispatch_hits"] <= 0:
+        raise AssertionError("the per-commit stream did not run on the "
+                             "device from resident tables")
+    for p in (passes["comet_defaults"], passes["comet_per_commit"]):
+        for k, v in p["launches"].items():
+            totals[k] += v
+    state["stream_launches"] = totals
+    state["passes"] = passes
+    devcache.set_default_cache(None)
+
+
+def verifiers(batches) -> list:
+    """One fresh batch.Verifier per list of (vk, sig, msg) entries."""
+    from ed25519_consensus_tpu_torch import batch
+
+    out = []
+    for ents in batches:
+        v = batch.Verifier()
+        v.queue_bulk(ents)
+        out.append(v)
+    return out
+
+
+def comet_heights():
+    """bench.py's cometbft128 stream: COMET_HEIGHTS heights signed by the
+    same COMET_KEYS validators (keys from a seed), one height tampered →
+    (per-height entries, the tampered height)."""
     from ed25519_consensus_tpu_torch import SigningKey
 
-    t = time.perf_counter()
     rng = random.Random(0xC0E7)
     keys = [SigningKey.new(rng) for _ in range(COMET_KEYS)]
     heights = []
@@ -678,43 +831,411 @@ def phase_stream(report: dict, state: dict) -> None:
     bad_h = min(77, COMET_HEIGHTS - 1)
     vk, sig, _ = heights[bad_h][5]
     heights[bad_h][5] = (vk, sig, b"vote/tampered")
-    state["comet_verifier"] = batch.Verifier()
-    state["comet_verifier"].queue_bulk(heights[0])
+    return heights, bad_h
 
-    def comet():
-        out = []
-        for ents in heights:
-            v = batch.Verifier()
-            v.queue_bulk(ents)
-            out.append(v)
-        return out
 
-    host = [batch._host_verdict(v, random.Random(9)) for v in comet()]
-    if host != [h != bad_h for h in range(COMET_HEIGHTS)]:
-        raise AssertionError("cometbft128 host verdicts wrong")
-    log(f"cometbft128 stream: {COMET_HEIGHTS} heights x {COMET_KEYS} "
-        f"validators, height {bad_h} tampered (built in "
-        f"{time.perf_counter() - t:.1f} s):")
+def comet_passes(make, host, first):
+    """The cometbft128 stream through verify_many's defaults, then per
+    commit with every tables dispatch recorded, the cache fresh and the
+    shapes of `first` warmed → (defaults pass, per-commit pass, the
+    recorded calls)."""
+    from ed25519_consensus_tpu_torch import batch, devcache
+
     devcache.set_default_cache(devcache.DeviceOperandCache(enabled=True))
-    batch.warm_device_shapes(state["comet_verifier"].clone(),
-                             rng=random.Random(10), device=DEV)
-    passes["comet_defaults"] = stream_pass(
-        "verify_many defaults (merge=auto, hybrid=True)", comet, host,
-        mesh=0)
-    passes["comet_per_commit"] = stream_pass(
-        "per commit (merge=never, hybrid=False)", comet, host,
-        hybrid=False, merge="never", mesh=0)
-    pc = passes["comet_per_commit"]["stats"]
-    if pc["device_batches"] + pc["device_rejects_confirmed"] \
-            != COMET_HEIGHTS or pc["devcache"]["table_dispatch_hits"] <= 0:
-        raise AssertionError("the per-commit stream did not run on the "
-                             "device from resident tables")
-    for p in (passes["comet_defaults"], passes["comet_per_commit"]):
-        for k, v in p["launches"].items():
-            totals[k] += v
-    state["stream_launches"] = totals
-    state["passes"] = passes
+    batch.warm_device_shapes(first.clone(), rng=random.Random(10),
+                             device=DEV)
+    defaults = stream_pass("verify_many defaults (merge=auto, hybrid=True)",
+                           make, host, mesh=0)
+    with record_calls("dispatch_window_sums_many_tables") as rec:
+        per_commit = stream_pass("per commit (merge=never, hybrid=False)",
+                                 make, host, hybrid=False, merge="never",
+                                 mesh=0)
+    return defaults, per_commit, rec.calls
+
+
+def stress_tables_path(reps: int, seconds: float) -> int:
+    """The cometbft128 stream of phase_stream, `reps` times or for
+    `seconds`, whichever ends first — the search for the open fault of
+    ROADMAP.md §C (valid batches the device rejected on the
+    resident-tables path, once).  A pass whose device rejects the host
+    overturned has its tables dispatches held against the plain versions
+    (`hold_recorded_tables` names the chunk, batches and kernel).  Returns
+    the number of overturned rejects."""
+    from ed25519_consensus_tpu_torch import devcache
+
+    heights, bad_h = comet_heights()
+    host = [h != bad_h for h in range(COMET_HEIGHTS)]
+    first = verifiers(heights[:1])[0]
+    t0 = time.perf_counter()
+    total = passes = 0
+    while passes < reps and time.perf_counter() - t0 < seconds:
+        _, per_commit, calls = comet_passes(
+            lambda: verifiers(heights), host, first)
+        over = per_commit["stats"]["device_rejects_overturned"]
+        if over:
+            try:
+                hold_recorded_tables(f"pass {passes}", calls)
+            except AssertionError as e:
+                log(f"  {e}")
+        total += over
+        passes += 1
     devcache.set_default_cache(None)
+    log(f"stress: {passes} per-commit passes ({passes * COMET_HEIGHTS} "
+        f"batches) in {time.perf_counter() - t0:.1f} s; device rejects "
+        f"the host overturned: {total}")
+    return total
+
+
+def need_launches(label: str, counts: dict, kernels) -> None:
+    """Fails unless every kernel of `kernels` launched in the path `label`
+    (a CPU rehearsal, DEV = "cpu", launches none and checks nothing)."""
+    missing = [k for k in kernels if not counts[k]]
+    if missing and DEV != "cpu":
+        raise AssertionError(f"{label} never launched {missing}")
+
+
+def mesh_placement(D: int):
+    """(devices, label): shard k on cuda:k when D cards are visible, else
+    all D shards on cuda:0 — a virtual mesh, which measures the mesh's
+    overhead, not its scaling."""
+    import torch
+
+    if DEV != "cuda":
+        return [DEV] * D, f"virtual ({D} shards on {DEV})"
+    if torch.cuda.device_count() >= D:
+        return ([f"cuda:{k}" for k in range(D)],
+                f"cards (cuda:0..cuda:{D - 1})")
+    return ["cuda:0"] * D, f"virtual ({D} shards on cuda:0)"
+
+
+def pod_base(rng):
+    """bench.py's pod configs: POD_BASE distinct signatures over POD_KEYS
+    keys, tiled to the batch size (BASELINE.json config 5)."""
+    from ed25519_consensus_tpu_torch import SigningKey
+
+    keys = [SigningKey.new(rng) for _ in range(POD_KEYS)]
+    out = []
+    for i in range(POD_BASE):
+        sk = keys[i % POD_KEYS]
+        msg = b"pod-tx-%d" % i
+        out.append((sk.verification_key_bytes(), sk.sign(msg), msg))
+    return out
+
+
+def pod_verifier(base, count: int, tamper: bool = False):
+    from ed25519_consensus_tpu_torch import batch
+
+    bv = batch.Verifier()
+    for rep in range(count // POD_BASE):
+        if tamper and rep == 0:
+            bad = list(base)
+            vk, sig, _ = bad[7]
+            bad[7] = (vk, sig, b"pod-tx-tampered")
+            bv.queue_bulk(bad)
+        else:
+            bv.queue_bulk(base)
+    return bv
+
+
+def phase_mesh(report: dict, state: dict) -> None:
+    """The sharded mesh at D = 2 and D = 4:
+    pod1m (and a tampered copy) once through sharded_staged_msm, then
+    pod100k batches through verify_many(mesh=D) at depth MESH_DEPTH —
+    cold, hot from a resident head, and with every chunk audited by the
+    sentinel — with the launch counts set to 0 before and read after."""
+    from ed25519_consensus_tpu_torch import batch, devcache
+    from ed25519_consensus_tpu_torch.ops import _cuda, msm
+    from ed25519_consensus_tpu_torch.parallel import sharded_msm
+
+    t = time.perf_counter()
+    base = pod_base(random.Random(0x90D))
+    pod1m = pod_verifier(base, POD_SIGS)
+    pod1m_bad = pod_verifier(base, POD_SIGS, tamper=True)
+    log(f"built pod1m ({POD_SIGS} sigs tiled from {POD_BASE} distinct over "
+        f"{POD_KEYS} keys) and its tampered copy in "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    staged = {"pod1m": pod1m._stage(random.Random(11)),
+              "pod1m tampered": pod1m_bad._stage(random.Random(12))}
+    host = {k: batch._host_verdict(v.clone(), random.Random(13))
+            for k, v in (("pod1m", pod1m), ("pod1m tampered", pod1m_bad))}
+    log(f"  staged both in {time.perf_counter() - t:.1f} s (with host "
+        f"verdicts {host})")
+    if host != {"pod1m": True, "pod1m tampered": False}:
+        raise AssertionError("pod1m host verdicts wrong")
+    # The single lane's window sums of the same staged batch, the points
+    # the mesh's must equal.
+    single = {}
+    for k, s in staged.items():
+        pad = msm.pad_lanes(s.n_device_terms)
+        t = time.perf_counter()
+        d, w = s.device_operands(lambda n: pad)
+        t_pack = time.perf_counter() - t
+        t = time.perf_counter()
+        ws = msm.dispatch_window_sums_many(d[None], w[None], DEV)
+        ws = ws.cpu().numpy()
+        t_dev = time.perf_counter() - t
+        t = time.perf_counter()
+        single[k] = msm.combine_window_sums(ws)
+        log(f"  {k} single lane: N = {pad}, operands packed in "
+            f"{t_pack:.3f} s, device call (copies in and out included) "
+            f"{t_dev:.3f} s, host combine {time.perf_counter() - t:.3f} s")
+
+    base100k = pod_verifier(base, POD100K)
+    bad100k = pod_verifier(base, POD100K, tamper=True)
+    host100k = (batch._host_verdict(base100k.clone(), random.Random(14)),
+                batch._host_verdict(bad100k.clone(), random.Random(15)))
+    if host100k != (True, False):
+        raise AssertionError("pod100k host verdicts wrong")
+    bad_at = min(2, MESH_DEPTH - 1)
+
+    def pod100k(tamper=False):
+        def make():
+            return [bad100k.clone() if tamper and i == bad_at
+                    else base100k.clone() for i in range(MESH_DEPTH)]
+        return make
+
+    ok = [True] * MESH_DEPTH
+    bad = [i != bad_at for i in range(MESH_DEPTH)]
+    totals = dict.fromkeys(_cuda.KERNELS, 0)
+    passes = {}
+    state["mesh_passes"] = passes
+    with record_calls("fold_shards") as cap:
+        for D in (2, 4):
+            devices, label = mesh_placement(D)
+            log(f"mesh D = {D}: placement {label}")
+            _cuda.reset_launch_counts()
+            for k, s in staged.items():
+                t = time.perf_counter()
+                check = sharded_msm.sharded_staged_msm(s, D, devices=devices)
+                dt = time.perf_counter() - t
+                verdict = check.mul_by_cofactor().is_identity()
+                log(f"  {k} sharded_staged_msm: N = "
+                    f"{sharded_msm.shard_pad(s.n_device_terms, D)}, "
+                    f"{dt:.3f} s = {POD_SIGS / dt:.0f} sigs/s (operand "
+                    f"packing, device call, host combine); verdict "
+                    f"{verdict} (host {host[k]}); window sums equal the "
+                    f"single lane's as points: {check == single[k]}")
+                if verdict != host[k] or check != single[k]:
+                    raise AssertionError(f"{k} on the D = {D} mesh "
+                                         f"disagrees with the host or the "
+                                         f"single lane")
+            counts = _cuda.launch_counts()
+            for name, n in counts.items():
+                totals[name] += n
+            log(f"  pod1m launches: { {k: v for k, v in counts.items() if v} }")
+            need_launches("pod1m", counts, ("expand_compressed",
+                                            "window_sums", "fold_partials",
+                                            "fold_shards"))
+            kw = dict(hybrid=False, merge="never", mesh=D, chunk=MESH_DEPTH,
+                      device=devices[0] if label.startswith("virtual")
+                      else None)
+            batch.warm_device_shapes(base100k.clone(), rng=random.Random(16),
+                                     chunk=MESH_DEPTH, **{
+                                         k: kw[k] for k in ("mesh",
+                                                            "device")})
+            devcache.set_default_cache(
+                devcache.DeviceOperandCache(enabled=False))
+            passes[f"cold D={D}"] = stream_pass(
+                f"pod100k x{MESH_DEPTH} cold, D = {D} (one tampered batch)",
+                pod100k(True), bad, **kw)
+            devcache.set_default_cache(
+                devcache.DeviceOperandCache(enabled=True))
+            for sight in (1, 2):  # sighting 1 stages cold, 2 builds
+                stream_pass(f"pod100k x{MESH_DEPTH} sighting {sight}, "
+                            f"D = {D}", pod100k(), ok, **kw)
+            passes[f"head D={D}"] = stream_pass(
+                f"pod100k x{MESH_DEPTH} resident head, D = {D}",
+                pod100k(), ok, **kw)
+            devcache.set_default_cache(
+                devcache.DeviceOperandCache(enabled=False))
+            passes[f"sentinel D={D}"] = stream_pass(
+                f"pod100k x{MESH_DEPTH} sentinel rate 1.0, D = {D}",
+                pod100k(), ok, sentinel_rate=1.0, **kw)
+            devcache.set_default_cache(None)
+            for name in (f"cold D={D}", f"head D={D}", f"sentinel D={D}"):
+                st = passes[name]["stats"]
+                want = MESH_DEPTH - (1 if name.startswith("cold") else 0)
+                if st["mesh"] != D or st["device_batches"] != want:
+                    raise AssertionError(f"{name}: mesh {st['mesh']}, "
+                                         f"device_batches "
+                                         f"{st['device_batches']} != {want}")
+                need_launches(name, passes[name]["launches"],
+                              ("expand_compressed", "window_sums",
+                               "fold_partials", "fold_shards"))
+                for k, v in passes[name]["launches"].items():
+                    totals[k] += v
+            if passes[f"head D={D}"]["stats"]["devcache"]["dispatch_hits"] \
+                    <= 0:
+                raise AssertionError("the resident-head mesh form never ran")
+            sen = passes[f"sentinel D={D}"]["stats"]["sentinel"]
+            log(f"  sentinel: {sen}")
+            if sen["audits"] < 1 or sen["divergence"]:
+                raise AssertionError(f"sentinel audits {sen}")
+            if passes[f"cold D={D}"]["stats"]["device_rejects_confirmed"] \
+                    != 1:
+                raise AssertionError("the tampered pod100k batch was not a "
+                                     "confirmed device reject")
+    state["mesh_launches"] = totals
+    state["fold_shards_inputs"] = first_per_shape(cap.calls)
+    state["pod100k"] = base100k
+    sync()
+
+
+def phase_affine(report: dict, state: dict) -> None:
+    """ED25519_TPU_WIRE=affine through the single lane and the D = 2 mesh
+    (zcash10k at depth 8, the cache off so every chunk is cold): K6 in
+    place of K1, verdicts the host's."""
+    from ed25519_consensus_tpu_torch import devcache
+    from ed25519_consensus_tpu_torch.config import override
+    from ed25519_consensus_tpu_torch.ops import _cuda
+
+    bv, tampered = state["verifier"], state["tampered"]
+    depth, bad_at = 8, 5
+
+    def make():
+        return [tampered.clone() if i == bad_at else bv.clone()
+                for i in range(depth)]
+
+    want = [i != bad_at for i in range(depth)]
+    devices, label = mesh_placement(2)
+    totals = dict.fromkeys(_cuda.KERNELS, 0)
+    log(f"affine wire (ED25519_TPU_WIRE=affine), zcash10k x{depth}, one "
+        f"tampered, cache off:")
+    devcache.set_default_cache(devcache.DeviceOperandCache(enabled=False))
+    with override(ED25519_TPU_WIRE="affine"), \
+            record_calls("expand_affine_points") as cap:
+        for mesh, dev in ((0, DEV), (2, devices[0] if label.startswith(
+                "virtual") else None)):
+            p = stream_pass("single lane" if not mesh else
+                            f"mesh D = 2, {label}", make, want,
+                            hybrid=False, merge="never", mesh=mesh,
+                            device=dev)
+            if p["launches"]["expand_compressed"]:
+                raise AssertionError("the affine pass ran K1")
+            need_launches("affine", p["launches"], ("expand_affine",)
+                          + (("fold_shards",) if mesh else ()))
+            for k, v in p["launches"].items():
+                totals[k] += v
+    devcache.set_default_cache(None)
+    state["affine_launches"] = totals
+    state["expand_affine_inputs"] = first_per_shape(cap.calls)
+
+
+def phase_mesh_kernels(report: dict, state: dict) -> None:
+    """K5 and K6 against their plain versions on the first operands the
+    mesh and affine paths gave them (exact), then timed beside their
+    bounds; and K1, K2, K3 held on one pod100k mesh shard's operands."""
+    from ed25519_consensus_tpu_torch.ops import msm
+    from ed25519_consensus_tpu_torch.parallel import sharded_msm
+
+    log("K5 / K6 vs plain versions on the path's operands (exact, every "
+        "shape), then times at the largest (median of 5, CUDA events), ms:")
+    for name, xs, kern, plain in (
+            ("fold_shards", state["fold_shards_inputs"], msm.fold_shards,
+             msm.fold_shards_plain),
+            ("expand_affine", state["expand_affine_inputs"],
+             msm.expand_affine_points, msm.expand_affine_points_plain)):
+        for x in xs:
+            err = int((kern(x).int() - plain(x).int()).abs().max())
+            if err:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at {tuple(x.shape)}: {err}")
+        log(f"  {name}: equal to its plain version at "
+            f"{[tuple(x.shape) for x in xs]}")
+    g = max(state["fold_shards_inputs"], key=lambda x: x.numel())
+    a = max(state["expand_affine_inputs"], key=lambda x: x.numel())
+    D, B = g.shape[:2]
+    Ba, _, _, Na = a.shape
+    cases = {
+        "fold_shards": (lambda: msm.fold_shards(g),
+                        lambda: msm.fold_shards_plain(g),
+                        (D * B * 33 * 320 + B * 33 * 320,
+                         B * 33 * max(D - 1, 0) * OPS_GE_ADD),
+                        f"D={D} B={B}"),
+        "expand_affine": (lambda: msm.expand_affine_points(a),
+                          lambda: msm.expand_affine_points_plain(a),
+                          (Ba * Na * (80 + 160), Ba * Na * OPS_FE_MUL),
+                          f"B={Ba} N={Na}"),
+    }
+    for name, (kern, plain, (nbytes, ops), shape) in cases.items():
+        got, want = kern(), plain()
+        sync()
+        err = int((got.int() - want.int()).abs().max())
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"({shape}): {err}")
+        ms = cuda_ms(kern)
+        pms = cuda_ms(plain)
+        bms, by = bound_ms(nbytes, ops)
+        log(f"  {shape} {name:14s} kernel {ms:10.4f}  plain {pms:10.3f}  "
+            f"bound {bms:8.5f} ({by}, {ops:.4e} int32 ops, {nbytes:.4e} B)"
+            f"; max |diff| 0")
+        report[name].update(max_abs_err=err, ms=ms, plain_ms=pms,
+                            bound_ms=bms, bound_by=by)
+    # One pod100k shard's operands as the D = 4 mesh gives them.
+    staged = [state["pod100k"].clone()._stage(random.Random(600 + b))
+              for b in range(MESH_DEPTH)]
+    pad = max(sharded_msm.shard_pad(s.n_device_terms, 4) for s in staged)
+    ops = [s.device_operands(lambda n: pad) for s in staged]
+    per = pad // 4
+    import numpy as np
+
+    digits = np.ascontiguousarray(np.stack([o[0] for o in ops])[..., :per])
+    wire = np.ascontiguousarray(np.stack([o[1] for o in ops])[..., :per])
+    hold_and_time(report, "pod100k D=4 shard 0", digits, wire, False)
+
+
+def phase_routing(state: dict) -> None:
+    """The routing model's constants on this card: `b` = the single lane's
+    device seconds per term (slope of K1 + K2 + K3 over two lane counts at
+    B = 4), `a` = the D = 2 mesh call's fixed cost (its intercept over the
+    same two lane counts), operands already on the card."""
+    import torch
+
+    import numpy as np
+
+    from ed25519_consensus_tpu_torch.ops import msm
+    from ed25519_consensus_tpu_torch.parallel import sharded_msm
+
+    staged = [state["pod100k"].clone()._stage(random.Random(700 + b))
+              for b in range(MESH_DEPTH)]
+    pad = max(sharded_msm.shard_pad(s.n_device_terms, 2) for s in staged)
+    ops = [s.device_operands(lambda n: pad) for s in staged]
+    d_all = torch.from_numpy(np.stack([o[0] for o in ops])).to(DEV)
+    w_all = torch.from_numpy(np.stack([o[1] for o in ops])).to(DEV)
+    devices, label = mesh_placement(2)
+
+    def wall(fn, reps=5):
+        fn()
+        sync()
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            sync()
+            ts.append(time.perf_counter() - t)
+        return statistics.median(ts)
+
+    sizes = [n - n % 128 for n in (pad // 8, pad)]
+    single, mesh = [], []
+    for n in sizes:
+        d, w = d_all[..., :n].contiguous(), w_all[..., :n].contiguous()
+        single.append((n, wall(lambda: msm.dispatch_window_sums_many(
+            d, w, DEV))))
+        mesh.append((n, wall(lambda: sharded_msm.sharded_window_sums_many(
+            d, w, 2, devices=devices))))
+    terms = [(n * MESH_DEPTH) for n, _ in single]
+    b = (single[1][1] - single[0][1]) / (terms[1] - terms[0])
+    slope = (mesh[1][1] - mesh[0][1]) / (terms[1] - terms[0])
+    a = mesh[0][1] - slope * terms[0]
+    log(f"routing constants (B = {MESH_DEPTH}, lanes {sizes[0]} and "
+        f"{sizes[1]} per batch; mesh D = 2 {label}): single lane "
+        f"{single[0][1] * 1e3:.3f} / {single[1][1] * 1e3:.3f} ms, mesh "
+        f"{mesh[0][1] * 1e3:.3f} / {mesh[1][1] * 1e3:.3f} ms; "
+        f"b = {b:.4e} s/term, a = {a:.4e} s "
+        f"(mesh slope {slope:.4e} s/term)")
+    state["routing"] = {"a": a, "b": b, "placement": label}
 
 
 def tables_work(d, head_tables, r_tables, parts):
@@ -910,6 +1431,9 @@ def main() -> int:
 
     state = {}
     phase_native(state)
+    if sys.argv[1:2] == ["--stress-tables"]:
+        reps, seconds = int(sys.argv[2]), float(sys.argv[3])
+        return 1 if stress_tables_path(reps, seconds) else 0
     sources = {k.name: f"ed25519_consensus_tpu_torch/csrc/{k.source}"
                for k in _cuda.KERNELS.values()}
     replaces = {
@@ -919,21 +1443,34 @@ def main() -> int:
         "fold_partials": "ed25519_consensus_tpu/ops/pallas_msm.py:424",
         "window_sums_tables": "ed25519_consensus_tpu/ops/pallas_msm.py:320",
         "build_tables": "ed25519_consensus_tpu/ops/msm.py:194",
+        "fold_shards":
+            "ed25519_consensus_tpu/parallel/sharded_msm.py:139",
+        "expand_affine": "ed25519_consensus_tpu/ops/msm.py:396",
     }
     report = {name: {"name": name, "route": "cuda", "source": sources[name],
                      "replaces": replaces[name], "library_ms": None,
                      "max_abs_err": 0}
               for name in sources}
-    phase_kernels(report)
-    phase_main_path(report, state)
-    phase_stream(report, state)
-    for name, n in state["stream_launches"].items():
-        report[name]["launches"] += n
-    log(f"verify_many path launches (all passes): "
-        f"{state['stream_launches']}")
-    phase_times(report, state)
-    phase_tables_times(report, state)
-    phase_profile(state)
+    def timed(phase, *args):
+        t = time.perf_counter()
+        phase(*args)
+        log(f"[{phase.__name__}: {time.perf_counter() - t:.1f} s]")
+
+    timed(phase_kernels, report)
+    timed(phase_main_path, report, state)
+    timed(phase_stream, report, state)
+    timed(phase_mesh, report, state)
+    timed(phase_affine, report, state)
+    for path in ("stream", "mesh", "affine"):
+        for name, n in state[f"{path}_launches"].items():
+            report[name]["launches"] += n
+        log(f"{path} path launches (all passes): "
+            f"{state[f'{path}_launches']}")
+    timed(phase_times, report, state)
+    timed(phase_tables_times, report, state)
+    timed(phase_mesh_kernels, report, state)
+    timed(phase_routing, state)
+    timed(phase_profile, state)
     from ed25519_consensus_tpu_torch import batch
 
     if not batch._DeviceLane.reset_all(timeout=60.0):

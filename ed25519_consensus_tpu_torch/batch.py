@@ -184,6 +184,16 @@ def _basepoint_wire() -> "tuple":
     return _B_WIRE
 
 
+def _device_wire_mode() -> str:
+    """The device point wire (ED25519_TPU_WIRE): `compressed` (default)
+    ships 33 B/term — the 32-byte y encoding and the flip/neg hint — and K1
+    recomputes x on the device; `affine` ships 80 B/term of X‖Y limbs and
+    K6 rebuilds Z and T.  No production caller needs `affine`: it is kept
+    for A/B parity with the JAX package, and it is the wire of a staged
+    batch that carries no encodings (carry.staged_from_reference)."""
+    return _config.get("ED25519_TPU_WIRE")
+
+
 def _digits_for_wire(digits: np.ndarray) -> np.ndarray:
     """ED25519_TPU_DIGIT_WIRE: `packed` (default) nibble-packs the digit
     planes to 17 B/term; `plain` ships one digit per byte."""
@@ -420,15 +430,24 @@ class StagedBatch:
             list(self.coeffs) + zints,
             [_point_from_row(r) for r in self.raw_points])
 
-    def device_operands(self, pad_fn):
+    def device_operands(self, pad_fn, wire: "str | None" = None):
         """The padded device operands: signed digit planes — (17, N) uint8
         nibble-packed, or (33, N) int8 with ED25519_TPU_DIGIT_WIRE=plain —
-        and the compressed point wire, (33, N) uint8 of 32-byte y
-        encodings + flip/neg hint bytes (x is recomputed on the device).
+        and the point wire (`wire`, default ED25519_TPU_WIRE):
+
+        * `compressed`: (33, N) uint8 of 32-byte y encodings + flip/neg
+          hint bytes; x is recomputed on the device (K1), 33 B/term;
+        * `affine`: (2, NLIMBS, N) int16 X‖Y limbs; Z = 1 and T = X·Y
+          are rebuilt on the device (K6), 80 B/term — also the wire of a
+          batch whose staging captured no encodings.
 
         Coefficients split into 128-bit chunks against their cached shift
         points.  Term order: [coeffs..., split-highs..., R's...]; padding
-        terms are digit 0 on the identity encoding."""
+        terms are digit 0 on the wire's identity."""
+        if wire is None:
+            wire = _device_wire_mode()
+        if self.enc32 is None or self.hints is None:
+            wire = "affine"  # staging captured no encodings
         mask = (1 << 128) - 1
         lo = [c & mask for c in self.coeffs]
         hi_s, hi_p = [], []
@@ -449,6 +468,17 @@ class StagedBatch:
             zb = np.frombuffer(self.z_blob, dtype=np.uint8).reshape(
                 self.n_sigs, 16)
             digits[:, n_head:n] = limbs.pack_u128_windows(zb)
+        digits = _digits_for_wire(digits)
+        if wire == "affine":
+            pts = limbs.identity_affine_batch(N)
+            pts[..., :n_coeff] = limbs.pack_points_affine_from_raw(
+                self.raw_points[:n_coeff])
+            if hi_p:
+                pts[..., n_coeff:n_head] = limbs.pack_point_affine_batch(
+                    [sp[0] for sp in hi_p]).astype(np.int16)
+            pts[..., n_head:n] = limbs.pack_points_affine_from_raw(
+                self.raw_points[n_coeff:])
+            return digits, pts
         m = n_coeff - 1  # distinct keys among the coefficient terms
         w = limbs.identity_wire_batch(N)
         b_enc, b_hint = _basepoint_wire()
@@ -462,7 +492,7 @@ class StagedBatch:
             w[32, n_coeff + j] = sp[2]
         w[:32, n_head:n] = self.enc32[m:].T
         w[32, n_head:n] = self.hints[m:]
-        return _digits_for_wire(digits), w
+        return digits, w
 
 
 def _draw_blinders(rng, n: int) -> bytes:
@@ -723,19 +753,23 @@ class Verifier:
 
         `backend` selects where the bulk MSM runs: "device" (the default) —
         the window-sum kernels on `device` (None means CUDA, and raises
-        without one; "cpu" runs their plain PyTorch versions); "host" —
+        without one; "cpu" runs their plain PyTorch versions); "sharded" —
+        the same kernels sharded over every visible card
+        (parallel/sharded_msm.py), or, with `device` named, over
+        `routing.available_devices()` shards all on that device; "host" —
         the host MSM, only when asked for: one fused native call
         (decompression, staging, MSM, cofactor check) when the runtime is
-        loaded and the queue-order buffers are live.  Both are
+        loaded and the queue-order buffers are live.  All are
         verdict-equivalent by construction.
 
         `timings`, if a dict, receives wall seconds per stage:
         "stage_host", then "device" and "combine" for the device backend,
+        "sharded" (the mesh call and the combine) for the sharded one,
         "msm_host" (or "host_fused") for the host backend.  `metrics`, if
         a `utils.metrics.BatchMetrics`, is filled likewise."""
         if metrics is None:
             metrics = BatchMetrics()
-        if backend not in ("host", "device"):
+        if backend not in ("host", "device", "sharded"):
             raise ValueError(f"unknown backend {backend!r}")
         try:
             self._verify(rng, backend, device, metrics)
@@ -752,6 +786,19 @@ class Verifier:
             from .ops import msm
 
             dev = msm.resolve_device(device)
+        elif backend == "sharded":
+            from .parallel import sharded_msm
+
+            if device is None:
+                _indexed(None)  # raises without a CUDA device
+                n_shards, devices = None, None
+            else:
+                n_shards = _routing.available_devices()
+                if n_shards < 1:
+                    raise ValueError(
+                        "backend='sharded' with a device needs "
+                        "routing.available_devices() >= 1 shards")
+                devices = (_indexed(device),) * n_shards
         if self._invalid is not None:
             raise InvalidSignature()
         n = self.batch_size
@@ -781,6 +828,11 @@ class Verifier:
         if backend == "host":
             with metrics.stage("msm_host"):
                 ok = staged.host_msm().mul_by_cofactor().is_identity()
+        elif backend == "sharded":
+            with metrics.stage("sharded"):
+                ok = sharded_msm.sharded_staged_msm(
+                    staged, n_shards, devices=devices).mul_by_cofactor() \
+                    .is_identity()
         else:
             with metrics.stage("device"):
                 ws = msm.PendingMSM(
@@ -840,13 +892,16 @@ _PENDING = object()
 
 class _DeviceLane:
     """The device lane: ONE worker thread serializing every device call
-    (launches + blocking fetch) of verify_many on one device.  verify_many
-    submits pre-packed chunk operands and polls for results; a lane whose
-    worker is stuck is abandoned (left to die with the process) and a
-    fresh lane is created after the health cooldown."""
+    (launches + blocking fetch) of verify_many in one dispatch mode on one
+    placement — the single-device lane of a device, or a D-shard mesh lane
+    over its shards' devices.  verify_many submits pre-packed chunk
+    operands and polls for results; a lane whose worker is stuck is
+    abandoned (left to die with the process) and a fresh lane is created
+    after the health cooldown."""
 
-    # One lane per device: concurrent callers on different devices must
-    # not tear down each other's lane mid-call.
+    # One lane per (dispatch mode, placement): concurrent callers on
+    # different devices or meshes must not tear down each other's lane
+    # mid-call.  DEVICE_CALL_LOCK serializes their device calls.
     _instances = {}
     # Abandoned-but-possibly-alive lanes: never handed out again, but the
     # atexit drain still retries their workers (a live worker at
@@ -855,21 +910,26 @@ class _DeviceLane:
     _instance_lock = threading.Lock()
 
     @classmethod
-    def get(cls, device, health: "DeviceHealth | None" = None
-            ) -> "_DeviceLane":
-        """The device's lane.  On a CUDA device every kernel is built and
-        loaded first, so a build or load failure raises in the caller's
-        thread and never reaches the worker."""
+    def get(cls, device, health: "DeviceHealth | None" = None,
+            mesh: int = 0, placement=None, chips=None) -> "_DeviceLane":
+        """The lane of `device` (mesh 0), or of the `mesh`-shard placement
+        `placement` (its shards' devices, the first one leading) whose
+        chips are `chips` (None: 0 .. mesh − 1).  On CUDA every kernel is
+        built and loaded first, so a build or load failure raises in the
+        caller's thread and never reaches the worker."""
         import torch
 
-        device = torch.device(device)
-        if device.type == "cuda":
+        mesh = _health.normalize_mesh(mesh)
+        placement = (tuple(torch.device(d) for d in placement) if mesh
+                     else (torch.device(device),))
+        if any(d.type == "cuda" for d in placement):
             from .ops import _cuda
 
             _cuda.load_all()
-        key = str(device)
+        chips = tuple(int(c) for c in chips) if chips else None
+        key = (mesh, tuple(str(d) for d in placement), chips)
         if health is None:
-            health = _health.health_for(0)
+            health = _health.health_for(mesh)
         with cls._instance_lock:
             inst = cls._instances.get(key)
             if inst is not None and inst.healthy() \
@@ -884,7 +944,7 @@ class _DeviceLane:
                     cls._abandoned_instances.append(inst)
                 inst = None
             if inst is None or not inst.healthy():
-                inst = cls(device, health=health)
+                inst = cls(placement, health=health, mesh=mesh, chips=chips)
                 cls._instances[key] = inst
             return inst
 
@@ -927,12 +987,18 @@ class _DeviceLane:
                     cls._abandoned_instances.remove(inst)
         return all_dead
 
-    def __init__(self, device, health: "DeviceHealth | None" = None):
+    def __init__(self, placement, health: "DeviceHealth | None" = None,
+                 mesh: int = 0, chips=None):
         import torch
 
-        self._device = torch.device(device)
+        self._mesh = _health.normalize_mesh(mesh)
+        self._placement = tuple(torch.device(d) for d in placement)
+        self._device = self._placement[0]
+        self._chips = tuple(chips) if chips else None
+        self._key = (self._mesh, tuple(str(d) for d in self._placement),
+                     self._chips)
         self._health = health if health is not None \
-            else _health.health_for(0)
+            else _health.health_for(self._mesh)
         self._clock = self._health.clock
         self._q = queue.Queue()
         self._results = {}
@@ -948,23 +1014,28 @@ class _DeviceLane:
     def healthy(self) -> bool:
         return self._thread.is_alive() and not self._abandoned
 
-    def submit(self, digits, pts, cached=None, tables=None) -> int:
+    def submit(self, digits, pts, cached=None, tables=None,
+               audit: bool = False) -> int:
         """Queue one chunk dispatch.  Cold path: `digits`/`pts` are the
         full staged operands.  Cached path (`cached` = the looked-up head
         entry): `pts` is the per-signature R wire and `digits` the
-        full-lane digit planes; the worker takes the head tensor from the
-        entry.  `tables` (the looked-up kind="tables" entry) upgrades the
-        cached dispatch to the tables-resident one."""
+        full-lane digit planes — or, on a mesh lane, the (head digits, R
+        digits) pair of the mesh layout; the worker takes the head tensor
+        from the entry.  `tables` (the looked-up kind="tables" entry,
+        single lane only) upgrades the cached dispatch to the
+        tables-resident one.  `audit` (cold mesh chunks) runs the
+        sentinel-audit form, whose result carries each shard's partial
+        sums after the fold."""
         with self._cv:
             cid = self._next_id
             self._next_id += 1
-        self._q.put((cid, digits, pts, cached, tables))
+        self._q.put((cid, digits, pts, cached, tables, audit))
         return cid
 
     def discard(self, cid: int) -> None:
         """The caller no longer wants this result (it decided on the
-        host): drop it on arrival, or skip the call if it has not
-        started."""
+        host, or ended the call): drop it on arrival, or skip the call if
+        it has not started."""
         with self._cv:
             self._started.pop(cid, None)
             if cid in self._results:
@@ -997,9 +1068,8 @@ class _DeviceLane:
     def abandon(self) -> None:
         self._abandoned = True
         with type(self)._instance_lock:
-            key = str(self._device)
-            if type(self)._instances.get(key) is self:
-                del type(self)._instances[key]
+            if type(self)._instances.get(self._key) is self:
+                del type(self)._instances[self._key]
             if (self._thread.is_alive()
                     and self not in type(self)._abandoned_instances):
                 type(self)._abandoned_instances.append(self)
@@ -1010,12 +1080,44 @@ class _DeviceLane:
         self._q.put(None)
         self._thread.join(timeout)
 
-    def _dispatch(self, digits, pts, cached, tables):
-        """(the chunk's call, its compile-grace variant)."""
+    def _dispatch(self, digits, pts, cached, tables, audit):
+        """(the chunk's fetch, its (batches, lanes, variant) shape key).
+        Variants: 0 cold, 1 resident-head, 2 resident-tables, 3 cold
+        audit."""
         from .ops import msm as _msm
 
         dev = self._device
-        if cached is not None and tables is not None:
+        n_batches, n_lanes = _chunk_shape(digits)
+        if self._mesh:
+            from .parallel import mesh as _mesh_lib
+            from .parallel import sharded_msm as _sh
+
+            kw = dict(clock=self._clock, device_ids=self._chips,
+                      devices=self._placement)
+            if cached is not None:
+                dh, dr = digits
+                chips = _mesh_lib.shard_chips(self._placement, self._chips)
+
+                def head_on(d):
+                    # The copy on `d`, charged to the chips of its shards.
+                    return cached.device_ref(d, chips=[
+                        c for c, p in zip(chips, self._placement) if p == d])
+
+                def call():
+                    return _sh.sharded_window_sums_many_cached(
+                        dh, dr, head_on, pts, self._mesh, **kw)
+                variant = 1
+            elif audit:
+                def call():
+                    return _sh.sharded_window_sums_many_audit(
+                        digits, pts, self._mesh, **kw)
+                variant = 3
+            else:
+                def call():
+                    return _sh.sharded_window_sums_many(
+                        digits, pts, self._mesh, **kw)
+                variant = 0
+        elif cached is not None and tables is not None:
             def call():
                 return _msm.dispatch_window_sums_many_tables(
                     digits, tables.device_ref(dev), pts, dev)
@@ -1038,7 +1140,7 @@ class _DeviceLane:
                     return call().cpu().numpy()
             return call().numpy()
 
-        return fetch, variant
+        return fetch, (n_batches, n_lanes, variant)
 
     def _run(self):
         from .ops import msm as _msm
@@ -1048,11 +1150,11 @@ class _DeviceLane:
             item = self._q.get()
             if item is None:
                 return
-            cid, digits, pts, cached, tables = item
+            cid, digits, pts, cached, tables, audit = item
             with self._cv:
                 if cid in self._discarded:
-                    # the caller already decided on the host: don't spend
-                    # a device call on it
+                    # the caller no longer wants it: don't spend a device
+                    # call on it
                     self._discarded.discard(cid)
                     continue
             t_call = None
@@ -1061,16 +1163,17 @@ class _DeviceLane:
                     t_call = clock.monotonic()
                     with self._cv:
                         self._started[cid] = t_call
-                    fetch, variant = self._dispatch(digits, pts, cached,
-                                                    tables)
+                    fetch, shape = self._dispatch(digits, pts, cached,
+                                                  tables, audit)
                     # Every device call passes through the fault seam (a
                     # no-op unless a faults.FaultPlan is installed).
                     out = np.asarray(_faults.run_device_call(
-                        _faults.SITE_LANE, fetch, clock=clock))
-                # Fetch done: any first-use build for this shape is over,
+                        _faults.SITE_LANE, fetch, clock=clock,
+                        mesh=self._mesh, payload=self._chips))
+                # Fetch done: any first-use set-up for this shape is over,
                 # so later calls are held to the normal deadline.
-                _msm.mark_shape_completed(digits.shape[0], digits.shape[2],
-                                          cached=variant)
+                _msm.mark_shape_completed(shape[0], shape[1], self._mesh,
+                                          cached=shape[2])
             except _faults.LaneDeathSignal:
                 # Injected thread death: exit without reporting a result.
                 return
@@ -1094,6 +1197,15 @@ class _DeviceLane:
                 else:
                     self._results[cid] = (out, call_dt, err)
                 self._cv.notify_all()
+
+
+def _chunk_shape(digits) -> "tuple[int, int]":
+    """(padded batches, lanes) of a chunk's digits — the mesh layout's
+    (head digits, R digits) pair counts both parts' lanes."""
+    if isinstance(digits, tuple):
+        dh, dr = digits
+        return dr.shape[0], dh.shape[2] + dr.shape[2]
+    return digits.shape[0], digits.shape[2]
 
 
 def _shutdown_device_lane():
@@ -1214,27 +1326,144 @@ def _merge_groups(verifiers):
 
 
 # One in-flight chunk as the scheduler tracks it: `variant` is the
-# compile-grace key (0 cold, 1 resident-head, 2 resident-tables).
+# first-call grace key (0 cold, 1 resident-head, 2 resident-tables, 3 cold
+# audit) and `staged` keeps an audited chunk's (digits, pts) operands for
+# the sentinel's host recomputation (None otherwise).
 _OutstandingChunk = collections.namedtuple(
     "_OutstandingChunk", ("cid", "idxs", "t0", "padded_b", "n_lanes",
-                          "variant"))
+                          "variant", "staged"))
 
 
-def _lane_device(device):
-    """The device verify_many's lane runs on — `device` resolved (None
-    means CUDA, and raises without one), a CUDA device given its index.
-    An excluded device moves the lane to the first surviving device, the
-    way the reference reforms onto survivors; with every CUDA device
-    excluded by the ChipRegistry it raises DeviceError."""
+# -- sentinel audits ---------------------------------------------------------
+#
+# A sampled cold mesh chunk dispatches in the audit form, whose result
+# carries each shard's partial window sums beside their fold.  The host
+# recomputes one sampled batch's sampled shard from the staged operand
+# bytes and compares it as a group element, and checks the fold against
+# the sum of every partial.  A divergence is attributed to the chip that
+# owns the shard (suspicion, then the ChipRegistry's quarantine) — the one
+# check that sees a corrupted ACCEPT, which host confirmation of rejects
+# cannot.  The audit only reads: it never edits a device result.
+
+_SENTINEL_SEED = 0x53E4713E1
+
+
+def _sentinel_fires(rate: float, ordinal: int) -> bool:
+    """Deterministic sampled-audit draw: a pure function of the cold mesh
+    dispatch ordinal, so two identical runs audit identical chunks."""
+    if rate >= 1.0:
+        return True
+    if rate <= 0.0:
+        return False
+    digest = hashlib.sha256(
+        repr((_SENTINEL_SEED, "sentinel", ordinal)).encode()).digest()
+    return int.from_bytes(digest[:8], "little") / float(1 << 64) < rate
+
+
+def _sentinel_draw(ordinal: int, what: str, n: int) -> int:
+    """Deterministic [0, n) pick of the audited batch or shard."""
+    digest = hashlib.sha256(
+        repr((_SENTINEL_SEED, what, ordinal)).encode()).digest()
+    return int.from_bytes(digest[:8], "little") % max(1, n)
+
+
+def _sentinel_lane_values(digits_b) -> "list[int] | None":
+    """One batch's digit planes — packed (17, N) uint8 or plain (33, N)
+    int8 — as every lane's integer Σ_w d_w·16^(32−w) (the staged 128-bit
+    coefficient chunk or blinder); None for any other layout (the audit
+    abstains rather than mis-decode)."""
+    d = np.asarray(digits_b)
+    if d.dtype == np.uint8:
+        if d.shape[0] != limbs.PACKED_WINDOWS:
+            return None
+        lo = ((d & 0xF).astype(np.int64) ^ 8) - 8
+        hi = (((d >> 4) & 0xF).astype(np.int64) ^ 8) - 8
+        half = limbs.NWINDOWS // 2
+        planes = np.empty((limbs.NWINDOWS, d.shape[1]), np.int64)
+        planes[0:2 * half:2] = lo[:half]
+        planes[1:2 * half:2] = hi[:half]
+        planes[2 * half] = lo[half]
+    elif d.shape[0] == limbs.NWINDOWS:
+        planes = d.astype(np.int64)
+    else:
+        return None
+    # Three 11-window parts, each inside int64 (|part| < 8·16^11 < 2^47).
+    parts = []
+    for w0 in (0, 11, 22):
+        p = np.zeros(planes.shape[1], np.int64)
+        for w in range(w0, w0 + 11):
+            p = p * 16 + planes[w]
+        parts.append(p.tolist())
+    return [(a << 88) + (b << 44) + c for a, b, c in zip(*parts)]
+
+
+def _sentinel_lane_rows(pts_b, lanes) -> "np.ndarray | None":
+    """The raw X‖Y‖Z‖T rows of `lanes` from any point wire (compressed,
+    affine or extended); None when an encoding fails to decompress."""
+    pts_b = np.asarray(pts_b)
+    if pts_b.dtype == np.uint8:  # compressed (33, N): decompress y
+        blob = np.ascontiguousarray(pts_b[:32, lanes].T).tobytes()
+        raw, ok, _ = _decompress(blob, len(lanes))
+        return raw if ok.all() else None
+    rows = np.zeros((len(lanes), 128), dtype=np.uint8)
+    for j, lane in enumerate(lanes):
+        c = [limbs.limbs_to_int(pts_b[k, :, lane]) % P
+             for k in range(pts_b.shape[0])]
+        if len(c) == 2:  # affine: Z = 1, T = X·Y
+            c = [c[0], c[1], 1, c[0] * c[1] % P]
+        rows[j] = np.frombuffer(_point_row(edwards.Point(*c)), np.uint8)
+    return rows
+
+
+def _sentinel_shard_sum(values, pts_b, lane_lo: int, lane_hi: int):
+    """The host-exact Σ [v_lane]P_lane over one shard's lanes [lo, hi)
+    from the staged operand bytes (zero-digit lanes skipped): the native
+    MSM when the runtime is loaded, exact Python otherwise.  None when a
+    lane's point fails to decode (the caller counts a divergence)."""
+    lanes = [lane for lane in range(lane_lo, lane_hi) if values[lane]]
+    if not lanes:
+        return edwards.Point(0, 1, 1, 0)
+    rows = _sentinel_lane_rows(pts_b, lanes)
+    if rows is None:
+        return None
+    vals = [values[lane] for lane in lanes]
+    if min(vals) >= 0:
+        got = native.vartime_msm_scblob(
+            b"".join(v.to_bytes(32, "little") for v in vals), rows)
+        if got is not None:
+            return got
+    acc = edwards.Point(0, 1, 1, 0)
+    for v, row in zip(vals, rows):
+        pt = _point_from_row(row)
+        acc = acc.add(pt.scalar_mul(v) if v >= 0
+                      else pt.scalar_mul(-v).neg())
+    return acc
+
+
+def _indexed(device):
+    """`device` resolved (None means CUDA, and raises without one), a CUDA
+    device given its index."""
     import torch
 
     from .ops import msm
 
     dev = msm.resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _lane_device(device):
+    """The device verify_many's single lane runs on — `device` resolved
+    and indexed.  An excluded CUDA device moves the lane to the first
+    surviving device, the way the reference reforms onto survivors; with
+    every CUDA device excluded by the ChipRegistry it raises
+    DeviceError."""
+    import torch
+
+    dev = _indexed(device)
     if dev.type != "cuda":
         return dev
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
     if dev.index in _health.chip_registry().excluded_chips():
         rung, ids = _routing.reform_for(1)
         if rung < 1:
@@ -1244,10 +1473,47 @@ def _lane_device(device):
     return dev
 
 
+def _one_card_mesh(mesh: int, device) -> bool:
+    """A mesh on a named CUDA device is virtual: all its shards run on that
+    one card, its only chip, so no reformation rung lies below it."""
+    import torch
+
+    return bool(mesh) and device is not None \
+        and torch.device(device).type == "cuda"
+
+
+def _rung_placement(mesh: int, device, chips) -> tuple:
+    """The devices a dispatch mode runs on, the lane's device first.  A
+    mesh of D shards: `device` repeated when the caller named one — a
+    virtual mesh; on a card its every shard is that card's chip, and an
+    excluded card raises DeviceError — else the cards `chips` (default
+    0 .. D − 1), which raises ValueError with fewer cards visible.  The
+    single lane: `device` (or, after a reformation down to one card, the
+    first surviving card)."""
+    import torch
+
+    if mesh:
+        if device is not None:
+            dev = _indexed(device)
+            if dev.type == "cuda" and \
+                    dev.index in _health.chip_registry().excluded_chips():
+                raise DeviceError(f"mesh={mesh} on {dev}: {dev} is "
+                                  f"excluded (dead or quarantined)")
+            return (dev,) * mesh
+        from .parallel import mesh as mesh_lib
+
+        return mesh_lib.batch_mesh(mesh, device_ids=chips)
+    if chips is not None:
+        return ((_indexed(device),) if device is not None
+                else (torch.device("cuda", chips[0]),))
+    return (_lane_device(device),)
+
+
 def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                 merge: str = "auto", mesh: "int | None" = None,
-                health: "DeviceHealth | None" = None,
-                device=None) -> "list[bool]":
+                health: "DeviceHealth | None" = None, device=None,
+                policy: "_routing.RoutingPolicy | None" = None,
+                sentinel_rate: "float | None" = None) -> "list[bool]":
     """Verify MANY independent batches with union-merging, chunked
     double-buffered device calls, and an opportunistic host lane.
 
@@ -1268,46 +1534,59 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
     A recurring keyset (the same validators every height) becomes resident
     in the device operand cache (devcache.py) at its second sighting and
     dispatches from its third through the tables-resident kernels (K4,
-    K2t), or the head-resident dispatch when the tables kind is off or was
-    not admitted.
+    K2t) on the single lane, or the head-resident dispatch — on a mesh,
+    or when the tables kind is off or was not admitted.
+
+    `mesh` routing (routing.py): None (auto) asks the RoutingPolicy
+    (`policy`, default routing.default_policy()), which picks the full
+    healthy mesh of visible cards only above its crossover and with at
+    least two cards — so on one card auto is the single lane, and with
+    `device` named it always is; 0 or 1 is the single-device lane; D > 1
+    is a D-shard mesh (parallel/sharded_msm.py).  A mesh without `device`
+    puts shard k on `cuda:k` and raises ValueError with fewer than D cards
+    visible; with `device` named, all D shards run on it (a virtual mesh:
+    the tests run D shards on "cpu", a one-card machine on "cuda:0").
+    Excluded chips (dead or quarantined in the ChipRegistry) reform the
+    mesh at entry onto the widest surviving rung.
+
+    `sentinel_rate` (default ED25519_TPU_SENTINEL_RATE) samples cold mesh
+    chunks for a sentinel audit (see _sentinel_fires).
 
     Returns a verdict per verifier (True = every queued signature valid),
     each decided by the same exact host math as `verify` (a batch that
     fails host staging is simply False).  A device REJECT is never a
     verdict by itself: it is re-decided on the host, so even a corrupted
     device result cannot fail a valid batch.  The host never decides what
-    the device failed to: the kernels are built and loaded before the
-    lane starts, and a device error is classified
-    (health.classify_device_error) — a transient one retries the chunk on
-    the device with bounded backoff (twice per call), anything else raises
-    DeviceError from it, a fatal one (a sticky CUDA error) after marking
-    the device dead and arming its cooldown, never a retry into a dead
-    context.  A chunk that misses its deadline abandons the lane, arms the
-    cooldown and raises DeviceError; so does a call made during the
-    cooldown.  `ED25519_TPU_DISABLE_DEVICE=1` is how a caller asks for the
-    host lane alone.
+    the device failed to — unlike the JAX package, which re-decides such
+    chunks on the host:
 
-    `mesh`: None (auto) and 0/1 are the single-device lane; a wider mesh
-    raises NotImplementedError (the port has no sharded lane yet).
+    * the kernels are built and loaded before the lane starts;
+    * a device error is classified (health.classify_device_error): a
+      transient one retries the chunk on the device with bounded backoff
+      (twice per call); on a mesh, a fatal one marks its chips dead and an
+      ambiguous one smears suspicion over the placement, and the wave's
+      undecided batches are re-issued on the widest surviving rung
+      (`try_reform`, the mesh N → N/2 → … → one card);
+    * anything left — no rung to reform to, a single-lane error that is
+      not transient (a fatal one after marking the device dead and arming
+      its cooldown, never a retry into a dead context), a chunk that
+      misses its deadline, a call during the cooldown — raises
+      DeviceError, cause chained;
+    * a sentinel divergence records the attributed suspicion and raises
+      DeviceError naming the chips.
+
     `device`: None means CUDA, "cpu" runs the kernels' plain versions.
     `health` injects the DeviceHealth and its clock (tests drive deadlines
-    with health.FakeClock)."""
+    with health.FakeClock).  `ED25519_TPU_DISABLE_DEVICE=1` is how a
+    caller asks for the host lane alone."""
     from .ops import msm
+    from .parallel import mesh as _mesh_lib
+    from .parallel.sharded_msm import shard_pad, shard_pad_cached
 
     _wall = _health.SYSTEM_CLOCK.monotonic
     verifiers = list(verifiers)
     if merge not in ("auto", "never", "always"):
         raise ValueError(f"unknown merge policy {merge!r}")
-    _routing.resolve_mesh(mesh)
-    lane_dev = None
-    if not _config.get("ED25519_TPU_DISABLE_DEVICE"):
-        lane_dev = _lane_device(device)
-    if health is None:
-        health = _health.health_for(0)
-    if lane_dev is not None and verifiers and health.in_cooldown():
-        raise DeviceError(
-            f"{lane_dev} is cooling down after a failed call (until "
-            f"{health.cooldown_until:.1f} on the health clock)")
     do_merge = merge == "always" or (
         merge == "auto" and len(verifiers) >= 2
         and sum(v.batch_size for v in verifiers)
@@ -1318,9 +1597,12 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
             unions = [merge_verifiers([verifiers[i] for i in g])
                       for g in groups]
             t0 = _wall()
+            # `mesh` passes through unresolved: auto routing reads the
+            # merged sizes, the ones actually dispatched.
             union_verdicts = verify_many(
                 unions, rng=rng, chunk=chunk, hybrid=hybrid, merge="never",
-                mesh=mesh, health=health, device=device)
+                mesh=mesh, health=health, device=device, policy=policy,
+                sentinel_rate=sentinel_rate)
             stats = dict(last_run_stats)
             verdicts = [False] * len(verifiers)
             for g, ok in zip(groups, union_verdicts):
@@ -1348,6 +1630,41 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         big = max(verifiers, key=_routing.estimate_device_terms)
         devcache_probe = devcache_cache.probe(
             _devcache.keyset_digest(big._canonical_keyset_blob()))
+    device_on = not _config.get("ED25519_TPU_DISABLE_DEVICE")
+    mesh = _routing.resolve_mesh(
+        mesh, est_terms_per_batch=max(
+            (_routing.estimate_device_terms(v) for v in verifiers),
+            default=0),
+        n_devices=None if device is None else 1, health=health,
+        policy=policy)
+    if sentinel_rate is None:
+        sentinel_rate = _config.get("ED25519_TPU_SENTINEL_RATE")
+    sentinel_rate = float(sentinel_rate)
+    # Entry reformation: with chips excluded (dead or quarantined), a mesh
+    # runs only the rung the live chip set supports, on the survivors.
+    chips = None
+    entry_reform = None
+    if device_on and mesh and not _one_card_mesh(mesh, device):
+        excluded = _health.chip_registry().excluded_chips()
+        if excluded:
+            rung, chips = _routing.reform_for(mesh)
+            if rung < 1:
+                raise DeviceError(f"mesh={mesh}: every chip is excluded "
+                                  f"({sorted(excluded)})")
+            new_mesh = _health.normalize_mesh(rung)
+            if new_mesh != mesh or chips is not None:
+                entry_reform = {"from": mesh, "to": new_mesh,
+                                "device_ids": list(chips) if chips else None,
+                                "reissued": 0}
+            mesh = new_mesh
+    placement = _rung_placement(mesh, device, chips) if device_on else None
+    lane_dev = placement[0] if placement else None
+    if health is None:
+        health = _health.health_for(mesh)
+    if lane_dev is not None and verifiers and health.in_cooldown():
+        raise DeviceError(
+            f"{lane_dev} is cooling down after a failed call (until "
+            f"{health.cooldown_until:.1f} on the health clock)")
     now = health.now
 
     verdicts = [False] * len(verifiers)
@@ -1356,14 +1673,19 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
     stats = {
         "batches": len(verifiers),
         "sigs": sum(v.batch_size for v in verifiers),
-        "mesh": 0,
+        "mesh": mesh,  # the resolved dispatch mode (0 = single device)
         "device": None if lane_dev is None else str(lane_dev),
+        "device_ids": list(chips) if chips else None,
+        # Every reformation of this call: at entry (chips excluded before
+        # dispatch) or mid-wave (a chip failed under an in-flight chunk,
+        # whose undecided batches were re-issued on the reformed rung).
+        "mesh_reformations": [entry_reform] if entry_reform else [],
         "host_batches": 0,
         "device_batches": 0,
         "device_sick": False,
         "device_measured": False,  # a chunk completed and updated the EMA
         "probed": False,  # a probe chunk was actually dispatched
-        "device_errors": 0,  # error chunks (retried, or the call raised)
+        "device_errors": 0,  # error chunks (retried, reformed or raised)
         # Device rejects re-decided on the host: CONFIRMED (a genuinely
         # bad batch) or OVERTURNED (the host restored a valid batch a
         # corrupted device result tried to fail).
@@ -1375,6 +1697,9 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                           _health.ERROR_FATAL: 0,
                           _health.ERROR_AMBIGUOUS: 0},
         "transient_retries": 0,
+        # Audited mesh chunks, divergences, and the chips they named.
+        "sentinel": {"rate": sentinel_rate, "audits": 0, "divergence": 0,
+                     "attributed": []},
         # Wall seconds by layer: host staging of device chunks, the
         # device calls (launches + fetch), the host combine + cofactor
         # check of device results, and whole host-lane verifications.
@@ -1467,14 +1792,18 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
     def pad_batch_axis(digits, pts):
         """Pad the batch axis to the full chunk for EVERY dispatch (probe
         and tails included): one fixed shape per dispatch form.  Padding
-        batches are zero digits on identity encodings."""
+        batches are zero digits on the wire's identity (compressed,
+        affine or extended)."""
         if digits.shape[0] >= chunk:
             return digits, pts
         nb = chunk - digits.shape[0]
         digits = np.concatenate(
             [digits, np.zeros((nb,) + digits.shape[1:], digits.dtype)])
-        ident = limbs.identity_wire_batch(pts.shape[-1])
-        return digits, np.concatenate([pts, np.stack([ident] * nb)])
+        ident = {2: limbs.identity_affine_batch,
+                 33: limbs.identity_wire_batch}.get(
+            pts.shape[1], limbs.identity_point_batch)(pts.shape[-1])
+        return digits, np.concatenate(
+            [pts, np.stack([ident] * nb).astype(pts.dtype)])
 
     def stage_chunk(vs_idx):
         staged, idxs = [], []
@@ -1488,17 +1817,33 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         entry, tables_entry = resident_entry_for(staged)
         if entry is not None:
             n_head = entry.n_head
-            nr = max(msm.pad_lanes(s.n_cached_terms) for s in staged) \
-                - n_head
+            if mesh:
+                nr = max(shard_pad_cached(s.n_sigs, n_head, mesh)
+                         for s in staged)
+            else:
+                nr = max(msm.pad_lanes(s.n_cached_terms)
+                         for s in staged) - n_head
             ops = [s.device_operands_cached(lambda n, nr=nr: n_head + nr)
                    for s in staged]
-        else:
-            pad = max(msm.pad_lanes(s.n_device_terms) for s in staged)
-            ops = [s.device_operands(lambda n: pad) for s in staged]
-            tables_entry = None
+            digits, pts = pad_batch_axis(np.stack([d for d, _ in ops]),
+                                         np.stack([p for _, p in ops]))
+            if mesh:
+                # The mesh layout: head digits on shard 0's head lanes
+                # only (zeros elsewhere: identity contributions), R
+                # digits split over the shards like the cold operands.
+                # The tables-resident dispatch stays single-device.
+                dh = np.zeros(digits.shape[:2] + (mesh * n_head,),
+                              dtype=digits.dtype)
+                dh[..., :n_head] = digits[..., :n_head]
+                return (idxs, (dh, np.ascontiguousarray(
+                    digits[..., n_head:])), pts, entry, None)
+            return idxs, digits, pts, entry, tables_entry
+        pad = max(shard_pad(s.n_device_terms, mesh) if mesh
+                  else msm.pad_lanes(s.n_device_terms) for s in staged)
+        ops = [s.device_operands(lambda n: pad) for s in staged]
         digits, pts = pad_batch_axis(np.stack([d for d, _ in ops]),
                                      np.stack([p for _, p in ops]))
-        return idxs, digits, pts, entry, tables_entry
+        return idxs, digits, pts, None, None
 
     # Work-stealing pipeline.  The device lane is ONE worker thread that
     # serializes every device call; the main thread stages chunks for it,
@@ -1507,13 +1852,14 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
     # measures its per-batch turnaround, and further chunks go out only
     # while it beats the host.  A chunk that misses its deadline (3× the
     # turnaround EMA × batches, 2 s floor) marks the device sick and fails
-    # the call.
+    # the call, unless a mesh can reform around an excluded chip.
     if (lane_dev is None or not verifiers
             or (hybrid and not health.device_allowed())):
         while remaining:
             host_verify_one(remaining.pop())
         return _finish(verdicts)
-    dev = _DeviceLane.get(lane_dev, health=health)
+    dev = _DeviceLane.get(lane_dev, health=health, mesh=mesh,
+                          placement=placement, chips=chips)
 
     # Seconds-per-batch prior before the first measurement; a malformed
     # ED25519_TPU_EMA_PRIOR raises ConfigError here.
@@ -1525,6 +1871,11 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         clock=health.clock, base=0.05, factor=2.0, max_delay=0.5,
         jitter=0.0)
     _transient_gate = threading.Event()  # never set: a pure bounded wait
+    # Mid-wave reformation budget: each chip-loss event may step the
+    # ladder once; a storm that keeps killing chips walks 8 → 4 → 2 → 1
+    # and then raises — never a livelock.
+    reforms_left = [4]
+    sentinel_ord = [0]  # cold mesh submits, the sentinel draw's ordinal
 
     def _transient_wait():
         """The bounded backoff between transient retries: virtual clocks
@@ -1536,6 +1887,11 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         else:
             _transient_gate.wait(delay)
 
+    def placement_chips() -> "tuple[int, ...]":
+        """The chips the current dispatch runs on, each once: what an
+        unattributed error marks dead or smears suspicion over."""
+        return tuple(dict.fromkeys(_mesh_lib.shard_chips(placement, chips)))
+
     def submit(size=None):
         size = chunk if size is None else size
         ch = remaining[:size]
@@ -1546,14 +1902,25 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         if pending is None:
             return
         idxs, digits, pts, cached, tables = pending
-        cid = dev.submit(digits, pts, cached=cached, tables=tables)
+        audit = False
+        if mesh and cached is None:
+            # Sentinel sampling: cold mesh chunks only — the audit
+            # recomputes a shard from the staged wire bytes, which the
+            # cached form keeps off the wire.
+            audit = _sentinel_fires(sentinel_rate, sentinel_ord[0])
+            sentinel_ord[0] += 1
+        cid = dev.submit(digits, pts, cached=cached, tables=tables,
+                         audit=audit)
         if cached is not None:
             stats["devcache"]["dispatch_hits"] += 1
         if tables is not None:
             stats["devcache"]["table_dispatch_hits"] += 1
-        variant = 0 if cached is None else (2 if tables is not None else 1)
+        variant = 3 if audit else (
+            0 if cached is None else (2 if tables is not None else 1))
+        padded_b, n_lanes = _chunk_shape(digits)
         outstanding.append(_OutstandingChunk(
-            cid, idxs, now(), digits.shape[0], digits.shape[2], variant))
+            cid, idxs, now(), padded_b, n_lanes, variant,
+            (digits, pts) if audit else None))
 
     def decide_on_device(idxs, out):
         w0 = _wall()
@@ -1588,50 +1955,179 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         _publish()
         raise DeviceError(msg) from cause
 
+    def sentinel_check(rec, folded, partials) -> "list[int] | None":
+        """Audit one audited chunk (read-only): recompute a sampled
+        batch's sampled shard on the host and compare it as a group
+        element, then check the fold against the sum of every partial.
+        None when consistent; otherwise the chips the divergence names
+        (every shard recomputed when only the fold is off; empty when no
+        shard explains it), after recording their suspicion."""
+        digits, pts = rec.staged
+        sen = stats["sentinel"]
+        d_mesh = partials.shape[0]
+        j = _sentinel_draw(rec.cid, "batch", len(rec.idxs))
+        values = _sentinel_lane_values(digits[j])
+        if values is None:
+            return None  # not the production digit layout: abstain
+        sen["audits"] += 1
+        _metrics.record_fault("sentinel_audit")
+        per = len(values) // d_mesh
+        shard_chips = _mesh_lib.shard_chips(placement, chips)
+
+        def diverges(shard: int) -> bool:
+            want = _sentinel_shard_sum(values, pts[j], shard * per,
+                                       (shard + 1) * per)
+            return want is None or want != msm.combine_window_sums(
+                partials[shard, j])
+
+        k = _sentinel_draw(rec.cid, "shard", d_mesh)
+        if diverges(k):
+            named = [shard_chips[k]]
+        else:
+            total = edwards.Point(0, 1, 1, 0)
+            for d in range(d_mesh):
+                total = total.add(msm.combine_window_sums(partials[d, j]))
+            if total == msm.combine_window_sums(folded[j]):
+                return None
+            named = list(dict.fromkeys(shard_chips[d] for d in range(d_mesh)
+                                       if d != k and diverges(d)))
+        sen["divergence"] += 1
+        _metrics.record_fault("sentinel_divergence")
+        chipreg = _health.chip_registry()
+        if named:
+            sen["attributed"].extend(named)
+            for c in named:
+                chipreg.record_suspicion(c, _health.SENTINEL_SUSPICION,
+                                         "sentinel-audit divergence")
+        else:
+            # The fold lies but every partial checks out: no chip to
+            # name, ambiguous suspicion over the placement.
+            for c in placement_chips():
+                chipreg.record_suspicion(
+                    c, _health.AMBIGUOUS_SUSPICION,
+                    "sentinel fold inconsistency (unattributed)")
+        return named
+
+    def try_reform(reissue_idxs) -> bool:
+        """Chip-loss escalation on a mesh: with chips excluded in the
+        ChipRegistry, reform onto the widest surviving rung (mesh N →
+        N/2 → … → one card; a same-width move onto other cards counts
+        too) and re-issue `reissue_idxs` there, on the device.  False when
+        this is not a mesh, no chip is excluded, no other rung exists, or
+        the budget is spent; the caller then raises."""
+        nonlocal mesh, chips, placement, lane_dev, health, dev, \
+            ema_is_prior, probed
+        if (not mesh or reforms_left[0] <= 0
+                or _one_card_mesh(mesh, device)):
+            return False
+        excluded = _health.chip_registry().excluded_chips()
+        if not excluded:
+            return False
+        cur = (mesh, chips)
+        rung, ids = _routing.reform_for(mesh)
+        if (rung, ids) == cur:
+            # The live set still supports this shape but the fault hit it
+            # anyway: step down one rung.
+            rung, ids = _routing.reform_for(max(1, mesh // 2))
+            if (rung, ids) == cur:
+                return False
+        if rung < 1:
+            return False
+        new_mesh = _health.normalize_mesh(rung)
+        try:
+            new_placement = _rung_placement(new_mesh, device, ids)
+        except (ValueError, DeviceError):
+            return False
+        reforms_left[0] -= 1
+        old_mesh = mesh
+        process_health = health is _health.health_for(old_mesh)
+        mesh, chips, placement = new_mesh, ids, new_placement
+        lane_dev = placement[0]
+        # Keep the caller's clock across the reformation.
+        health = (_health.health_for(new_mesh) if process_health
+                  else _health.DeviceHealth(mesh=new_mesh,
+                                            clock=health.clock))
+        dev = _DeviceLane.get(lane_dev, health=health, mesh=mesh,
+                              placement=placement, chips=chips)
+        # The old width's EMA does not price the new rung, which earns a
+        # fresh probe.
+        ema_is_prior = True
+        probed = False
+        stats.update(mesh=new_mesh, device=str(lane_dev),
+                     device_ids=list(ids) if ids else None)
+        stats["mesh_reformations"].append({
+            "from": old_mesh, "to": new_mesh,
+            "device_ids": list(ids) if ids else None,
+            "dead": sorted(excluded), "reissued": len(reissue_idxs)})
+        _metrics.record_fault("mesh_reformed")
+        remaining.extend(reissue_idxs)
+        return True
+
     def on_device_error(idxs, err) -> None:
         """Classify a chunk's device error: a transient one re-dispatches
         the chunk's undecided batches (fresh blinders, bounded backoff);
-        any other fails the call, a fatal one after marking the device
+        on a mesh, a fatal one marks its chips dead, an ambiguous one
+        smears suspicion, and the wave re-issues on a reformed rung; any
+        other case fails the call, a fatal one after marking the device
         dead and arming its cooldown."""
         nonlocal probed
         stats["device_errors"] += 1
         _metrics.record_fault("device_error")
         ev = _health.classify_device_error(err)
         stats["error_classes"][ev.cls] += 1
+        undecided = [i for i in idxs if not decided[i]]
         if ev.cls == _health.ERROR_TRANSIENT and transient_left[0] > 0:
             transient_left[0] -= 1
             stats["transient_retries"] += 1
             _metrics.record_fault("device_transient_retry")
             _transient_wait()
-            remaining.extend(i for i in idxs if not decided[i])
+            remaining.extend(undecided)
             probed = False  # an errored probe measured nothing
             return
+        chipreg = _health.chip_registry()
+        where = (f"the mesh of {mesh} on {stats['device']}" if mesh
+                 else str(lane_dev))
         if ev.cls == _health.ERROR_FATAL:
-            # The device is gone for this process (a sticky CUDA error
-            # poisons its context): mark it dead unless the raiser did,
-            # and cool the lane down.  fail() drops the chunks queued
-            # behind it unrun: never a retry into a dead context.
-            if not ev.marked and lane_dev.type == "cuda":
-                for c in (ev.chips or (lane_dev.index,)):
-                    _health.chip_registry().mark_chip_dead(
+            # The chips are gone for this process (a sticky CUDA error
+            # poisons a context): mark them dead unless the raiser did.
+            # Never a retry into a dead context.
+            if not ev.marked and (mesh or lane_dev.type == "cuda"):
+                for c in (ev.chips or placement_chips()):
+                    chipreg.mark_chip_dead(
                         c, heal_after=ev.heal_after,
                         reason=f"classified-fatal: {ev.reason}")
-            health.note_deadline_miss()
             _metrics.record_fault("device_fatal_classified")
-        fail(f"a device call on {lane_dev} failed ({ev.cls}: {ev.reason})",
-             err)
+        elif ev.cls == _health.ERROR_AMBIGUOUS and mesh:
+            for c in placement_chips():
+                chipreg.record_suspicion(
+                    c, _health.AMBIGUOUS_SUSPICION,
+                    f"ambiguous device error: {ev.reason}")
+        inflight = [i for r2 in outstanding for i in r2.idxs
+                    if not decided[i]]
+        old_dev = dev
+        if try_reform(undecided + inflight):
+            # The old lane is healthy as a thread, just pointed at a
+            # placement with a dead chip: its leftovers are discarded.
+            for r2 in outstanding:
+                old_dev.discard(r2.cid)
+            outstanding.clear()
+            return
+        if ev.cls == _health.ERROR_FATAL:
+            health.note_deadline_miss()  # cool the failed rung down
+        fail(f"a device call on {where} failed ({ev.cls}: {ev.reason})"
+             + ("; no reformation rung left" if mesh else ""), err)
 
     def poll(block: bool):
         """Apply finished chunk results; True if progress.  A deadline
-        miss abandons the lane, cools the device down and fails the
-        call."""
+        miss abandons the lane, cools the device down and fails the call
+        (a mesh with an excluded chip reforms instead)."""
         nonlocal ema_per_batch, ema_is_prior
         progress = False
         while outstanding:
             rec = outstanding[0]
             budget = max(3.0 * ema_per_batch * rec.padded_b, 2.0)
             if ema_is_prior and not msm.shape_completed(
-                    rec.padded_b, rec.n_lanes, 0, cached=rec.variant):
+                    rec.padded_b, rec.n_lanes, mesh, cached=rec.variant):
                 # No measurement yet AND no call of this padded shape has
                 # completed: the call pays the device's lazy set-up, and
                 # must not be mistaken for a seized device.
@@ -1665,15 +2161,34 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                 health.note_deadline_miss()
                 _metrics.record_fault("deadline_miss")
                 dev.abandon()
+                undecided = [i for r2 in outstanding for i in r2.idxs
+                             if not decided[i]]
+                outstanding.clear()
+                if try_reform(undecided):
+                    # A chip died under the in-flight wave: it re-issues
+                    # on the reformed rung.
+                    return True
                 stats["device_sick"] = True
-                fail(f"a device call on {lane_dev} missed its {budget:.1f} s "
-                     f"deadline", None)
+                fail(f"a device call on {stats['device']} missed its "
+                     f"{budget:.1f} s deadline", None)
             outstanding.pop(0)
             out, call_dt, err = res
             if out is None:
                 on_device_error(rec.idxs, err)
             else:
                 stats["device_seconds"] += call_dt
+                if rec.variant == 3:
+                    # Audited mesh chunk: [fold, per-shard partials].  The
+                    # audit runs before any of its verdicts publishes.
+                    folded, partials = out[0], out[1:]
+                    named = sentinel_check(rec, folded, partials)
+                    if named is not None:
+                        fail(f"sentinel audit of a mesh chunk on "
+                             f"{stats['device']} diverged: "
+                             + (f"chips {named} named" if named else
+                                "fold inconsistent, no chip named")
+                             + " (suspicion recorded)", None)
+                    out = folded
                 # EMA over the device CALL time per PADDED batch.
                 per_batch = call_dt / max(1, rec.padded_b)
                 ema_per_batch = per_batch if ema_is_prior else (
@@ -1742,22 +2257,27 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                 poll(block=not stole)
             else:
                 poll(block=True)
-        elif remaining:
-            # hybrid only: a forced-device call submits all it has
+        elif remaining and hybrid:
+            # The device is not competitive: the host lane takes a batch.
+            # A forced-device call whose in-flight chunks all finished in
+            # the poll above submits the rest on the next turn instead.
             host_verify_one(remaining.pop())
     return _finish(verdicts)
 
 
-def warm_device_shapes(verifier, rng=None, chunk: int = 8,
-                       device=None) -> None:
+def warm_device_shapes(verifier, rng=None, chunk: int = 8, device=None,
+                       mesh: int = 0) -> None:
     """Build and run, OUTSIDE the racing scheduler, the device shapes
     verify_many dispatches for batches shaped like `verifier`: the cold
     (chunk, N) shape and, with the device operand cache on, the
     head-resident and tables-resident shapes — so a call's first chunk
-    of each form is held to the normal deadline.  `device` None means
-    CUDA and raises without one; "cpu" warms the plain versions.  A batch
-    that fails staging warms nothing."""
+    of each form is held to the normal deadline.  `mesh` > 1 also warms
+    the cold mesh dispatch at that width and at its N/2 reformation rung
+    (on `device` as a virtual mesh when one is named, else on the cards).
+    `device` None means CUDA and raises without one; "cpu" warms the
+    plain versions.  A batch that fails staging warms nothing."""
     from .ops import msm
+    from .parallel import sharded_msm
 
     dev = _lane_device(device)
     try:
@@ -1770,6 +2290,16 @@ def warm_device_shapes(verifier, rng=None, chunk: int = 8,
         msm.dispatch_window_sums_many(
             np.stack([d] * chunk), np.stack([p] * chunk), dev).cpu()
         msm.mark_shape_completed(chunk, pad)
+        for rung in (_health.normalize_mesh(mesh),
+                     _health.normalize_mesh(mesh) // 2):
+            if rung < 2:
+                break
+            spad = sharded_msm.shard_pad(staged.n_device_terms, rung)
+            sd, sp = staged.device_operands(lambda n, spad=spad: spad)
+            sharded_msm.sharded_window_sums_many(
+                np.stack([sd] * chunk), np.stack([sp] * chunk), rung,
+                devices=_rung_placement(rung, device, None)).cpu()
+            msm.mark_shape_completed(chunk, spad, rung)
         if not _devcache.default_cache().enabled:
             return
         head = staged.head_tensor()

@@ -24,16 +24,24 @@ def staged_from_reference(coeffs, coeff_shifts, z_blob, raw_points, enc32,
       device-wire hint;
     * z_blob: bytes, the n blinders as 16-byte little-endian rows;
     * raw_points: (1+m+n, 128) uint8; enc32: (m+n, 32) uint8;
-      hints: (m+n,) uint8; keyset_blob: bytes or None."""
+      hints: (m+n,) uint8; keyset_blob: bytes or None.
+
+    A reference batch staged without encodings (enc32 and hints None)
+    carries across that way, and its device operands take the affine wire,
+    as the reference's do."""
     shifts = [(Point(*(int(c) for c in xyzt)), bytes(enc), int(hint))
               for xyzt, enc, hint in coeff_shifts]
+
+    def u8(a):
+        return None if a is None else np.ascontiguousarray(a, np.uint8)
+
     return StagedBatch(
         coeffs=[int(c) for c in coeffs],
         coeff_shifts=shifts,
         z_blob=bytes(z_blob),
-        raw_points=np.ascontiguousarray(raw_points, dtype=np.uint8),
-        enc32=np.ascontiguousarray(enc32, dtype=np.uint8),
-        hints=np.ascontiguousarray(hints, dtype=np.uint8),
+        raw_points=u8(raw_points),
+        enc32=u8(enc32),
+        hints=u8(hints),
         keyset_blob=None if keyset_blob is None else bytes(keyset_blob),
     )
 
@@ -64,3 +72,45 @@ def operands_to_device(digits, wire, device=None):
     — as tensors on `device` (None means CUDA), dtypes and layout kept."""
     dev = msm.resolve_device(device)
     return msm.as_tensor(digits, dev), msm.as_tensor(wire, dev)
+
+
+def mesh_chunk_from_reference(head_digits, r_digits, rwire, n_devices: int):
+    """A reference mesh-layout cached chunk — the (head digits, R digits)
+    pair the reference's scheduler builds for a resident keyset on a mesh,
+    and its R wire — as the operands of the port's
+    `sharded_window_sums_many_cached`, checked: head digits (B, PW,
+    D·n_head) with real digits in shard 0's columns only, R digits and
+    wire (B, PW, NR) and (B, 33, NR) splitting evenly over D shards.
+    Returns the three as contiguous numpy arrays."""
+    dh, dr, rw = (np.ascontiguousarray(x) for x in (head_digits, r_digits,
+                                                    rwire))
+    D = int(n_devices)
+    if dh.shape[-1] % D or dr.shape[-1] % D or rw.shape[-1] != dr.shape[-1]:
+        raise ValueError(f"the chunk does not split over {D} shards: head "
+                         f"{dh.shape}, R digits {dr.shape}, R wire "
+                         f"{rw.shape}")
+    if dh[..., dh.shape[-1] // D:].any():
+        raise ValueError("head digits outside shard 0's columns")
+    return dh, dr, rw
+
+
+def chip_registry_from_reference(states, registry=None):
+    """A reference ChipRegistry snapshot — its `chip_states()`, {chip:
+    {"state", "suspicion", ...}} — applied to the port's registry (the
+    process one when None): "dead" chips are marked dead, "quarantined"
+    and "probation" chips quarantined (the port has no probation: both
+    are out of placement), and every chip carries the snapshot's
+    suspicion score.  Returns the registry."""
+    from . import health
+
+    reg = health.chip_registry() if registry is None else registry
+    for chip, st in sorted(states.items()):
+        chip = int(chip)
+        score = float(st.get("suspicion", 0.0))
+        if score:
+            reg.record_suspicion(chip, score, "carried from the reference")
+        if st["state"] == "dead":
+            reg.mark_chip_dead(chip, reason="carried from the reference")
+        elif st["state"] in ("quarantined", "probation"):
+            reg.quarantine_chip(chip, "carried from the reference")
+    return reg

@@ -72,6 +72,12 @@ def _k(name, type, default, doc, choices=None):
 
 
 KNOBS: "dict[str, Knob]" = dict([
+    _k("ED25519_TPU_WIRE", "choice", "compressed",
+       "Device point wire: `compressed` (33 B/term, x recomputed on the "
+       "device by K1) or `affine` (80 B/term X‖Y limbs, T and Z by K6; no "
+       "production caller needs it: it is kept for A/B parity with the "
+       "JAX package).",
+       ("compressed", "affine")),
     _k("ED25519_TPU_DIGIT_WIRE", "choice", "packed",
        "Scalar digit wire: `packed` (two signed radix-16 digits/byte, "
        "17 B/term) or `plain` (one digit/byte).", ("packed", "plain")),
@@ -99,6 +105,18 @@ KNOBS: "dict[str, Knob]" = dict([
     _k("ED25519_TPU_DEVCACHE_TABLES", "opt-out", True,
        "Set to 0/false/no to disable the resident multiples-TABLES kind "
        "of the device operand cache; head residency is unaffected."),
+    _k("ED25519_TPU_SENTINEL_RATE", "float", 0.0,
+       "Sampled sentinel-audit rate over cold sharded chunk dispatches "
+       "(0..1): an audited chunk returns each shard's partial sums, one "
+       "sampled shard is recomputed on the host, and a divergence is "
+       "attributed to its chip; 0 disables auditing."),
+    _k("ED25519_TPU_SUSPICION_THRESHOLD", "float", 3.0,
+       "Decayed per-chip suspicion score at which the ChipRegistry "
+       "quarantines a chip (a sentinel divergence weighs 1.5, an "
+       "ambiguous dispatch error 0.25 per placement chip)."),
+    _k("ED25519_TPU_SUSPICION_HALF_LIFE", "float", 300.0,
+       "Half-life (registry-clock seconds) of per-chip suspicion "
+       "scores."),
 ])
 
 

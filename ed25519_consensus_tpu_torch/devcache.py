@@ -60,7 +60,7 @@ class ResidentKeyset:
     the build epoch, and one device tensor per device."""
 
     __slots__ = ("digest", "n_keys", "head_tensor", "head_hash", "epoch",
-                 "nbytes", "kind", "_device_refs", "_seq")
+                 "nbytes", "kind", "_device_refs", "_ref_chips", "_seq")
 
     def __init__(self, digest: bytes, n_keys: int, head_tensor,
                  epoch: int, kind: str = KIND_HEAD):
@@ -72,6 +72,9 @@ class ResidentKeyset:
         self.epoch = int(epoch)
         self.nbytes = int(head_tensor.nbytes)
         self._device_refs = {}  # str(torch.device) -> tensor
+        # str(torch.device) -> the chips whose shards read that copy (a
+        # virtual mesh's shards share one device's copy)
+        self._ref_chips = {}
         self._seq = 0  # last-used lookup sequence (cache-maintained)
 
     @property
@@ -85,12 +88,14 @@ class ResidentKeyset:
         return hashlib.sha256(
             self.head_tensor.tobytes()).digest() == self.head_hash
 
-    def device_ref(self, device):
+    def device_ref(self, device, chips=()):
         """The entry's tensor on `device`, copied from the host mirror on
-        first use and reused, so a steady-state hit moves no head bytes.
-        The copy is taken from a snapshot, never a view of the mirror.
-        Callers pass an indexed device ("cuda:0"), the key of the chip-drop
-        accounting."""
+        first use and reused, so a steady-state hit moves no head bytes —
+        one copy per distinct device, however many shards of a mesh read
+        it.  The copy is taken from a snapshot, never a view of the
+        mirror.  Callers pass an indexed device ("cuda:0"), the key of the
+        chip-drop accounting, and a mesh lane the `chips` of the shards
+        that read the copy."""
         import torch
 
         dev = torch.device(device)
@@ -99,13 +104,23 @@ class ResidentKeyset:
         if ref is None:
             ref = torch.from_numpy(np.array(self.head_tensor)).to(dev)
             self._device_refs[key] = ref
+        if chips:
+            self._ref_chips.setdefault(key, set()).update(
+                int(c) for c in chips)
         return ref
 
     def drop_refs_for_chip(self, chip: int) -> int:
-        """Drop the tensor held on CUDA device `chip`; the host mirror and
-        the pinned hash stay.  Returns the number of refs dropped."""
-        return int(self._device_refs.pop(f"cuda:{int(chip)}", None)
-                   is not None)
+        """Drop every copy that chip `chip` read: the one held on CUDA
+        device `chip`, and any copy a mesh placement including that chip
+        read (a virtual mesh's shared copy).  The host mirror and the
+        pinned hash stay.  Returns the number of copies dropped."""
+        chip = int(chip)
+        keys = [k for k in self._device_refs
+                if k == f"cuda:{chip}" or chip in self._ref_chips.get(k, ())]
+        for k in keys:
+            del self._device_refs[k]
+            self._ref_chips.pop(k, None)
+        return len(keys)
 
 
 class DeviceOperandCache:

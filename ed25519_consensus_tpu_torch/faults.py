@@ -4,13 +4,18 @@ A `FaultPlan` is a deterministic schedule mapping (site, call index) to an
 action; `install`ing one makes the dispatch boundaries consult it:
 
 * SITE_LANE — the `_DeviceLane` worker's dispatch (batch.py);
+* SITE_SHARDED — every sharded-mesh dispatch (parallel/sharded_msm.py);
+  the payload is each shard's chip id (parallel/mesh.shard_chips; None
+  reads as 0 .. mesh − 1);
 * SITE_DEVCACHE — the device operand cache's lookup (devcache.py); "call
   index" counts lookups and the payload is the cache itself.
 
 Fault classes: `ErrorOn` (the call raises), `TypedErrorOn` (raises one of
 the classifier's typed shapes), `StallFor` (virtual clocks advance, real
 clocks sleep), `CorruptSum` (the result comes back with flipped entries),
-`KillLane` (the worker thread dies mid-flight), and at the cache seam
+`KillLane` (the worker thread dies mid-flight), at the sharded seam
+`CorruptChipSum` (one chip corrupts its partial sum) and `ChipLoss` (chips
+die mid-wave, marked dead in the ChipRegistry), and at the cache seam
 `CorruptResidentEntry`, `EvictStorm` and `StaleEpochOn`.
 
 Every decision is a pure function of (plan seed, site, call index), so a
@@ -20,7 +25,9 @@ No fault class may ever change a verdict: an error past its retries, a
 stall past the deadline or a lane death fails the call (verify_many
 raises DeviceError and gives no verdict); a corrupted sum can at worst
 make the device claim
-"reject", which verify_many re-decides on the host; a corrupted, evicted
+"reject", which verify_many re-decides on the host, or — one chip's partial
+sum, audited — a divergence the sentinel catches (the call raises); a
+corrupted, evicted
 or stale resident entry is caught by the cache's epoch and hash checks and
 restages.  With no plan installed, `run_device_call` is one read and one
 `is None` check.
@@ -35,15 +42,17 @@ from contextlib import contextmanager
 import numpy as np
 
 __all__ = [
-    "SITE_LANE", "SITE_DEVCACHE", "InjectedFault", "TransientDispatchError",
-    "FatalChipError", "LaneDeathSignal", "Fault", "ErrorOn", "TypedErrorOn",
-    "StallFor", "CorruptSum", "KillLane",
+    "SITE_LANE", "SITE_SHARDED", "SITE_DEVCACHE", "InjectedFault",
+    "TransientDispatchError", "FatalChipError", "LaneDeathSignal", "Fault",
+    "ErrorOn", "TypedErrorOn", "StallFor", "CorruptSum", "CorruptChipSum",
+    "KillLane", "ChipLoss",
     "CorruptResidentEntry", "EvictStorm", "StaleEpochOn", "FaultPlan",
     "storm_plan", "devcache_plan", "typed_error_plan", "install",
     "uninstall", "injected", "run_device_call",
 ]
 
 SITE_LANE = "lane"
+SITE_SHARDED = "sharded"
 SITE_DEVCACHE = "devcache"
 
 
@@ -167,6 +176,26 @@ class StallFor(Fault):
             time.sleep(self.seconds)
 
 
+def _host_copy(out):
+    """A numpy copy of a result (an array, or a tensor on any device) and
+    the function that puts a corrupted copy back in the result's form."""
+    if hasattr(out, "detach"):  # a torch tensor: back on its device
+        import torch
+
+        arr = out.detach().cpu().numpy().copy()
+        return arr, lambda a: torch.from_numpy(a).to(out.device)
+    return np.array(out, copy=True), lambda a: a
+
+
+def _flip_rows(arr, rng, flips: int) -> None:
+    """Flip `flips` random low bits in every leading-axis slice of arr."""
+    rows = arr.reshape(arr.shape[0], -1) if arr.ndim > 1 \
+        else arr.reshape(1, -1)
+    for row in rows:
+        for _ in range(max(1, flips)):
+            row[rng.randrange(row.size)] ^= 1 << rng.randrange(12)
+
+
 class CorruptSum(Fault):
     """Complete the call, then flip `flips` entries in EVERY leading-axis
     slice of the result — a corrupted device sum.  Random corruption moves
@@ -178,15 +207,53 @@ class CorruptSum(Fault):
         self.flips = int(flips)
 
     def after(self, ctx, out):
-        arr = np.array(out, copy=True)
+        arr, back = _host_copy(out)
+        _flip_rows(arr, random.Random(_stable_seed(
+            ctx.plan.seed, ctx.site, ctx.index, "corrupt")), self.flips)
+        return back(arr)
+
+
+class CorruptChipSum(Fault):
+    """ONE chip of the mesh silently corrupts ITS partial window sums: the
+    call completes and the fold is poisoned by exactly that shard.
+
+    On a plain sharded result (B, 4, NLIMBS, 33) the fault flips entries
+    per batch slice, like CorruptSum.  On an AUDIT-form result (1 + D, B,
+    4, NLIMBS, 33) it corrupts the folded rows AND the chip's own partial,
+    so the sentinel's host recomputation of that shard diverges and names
+    the chip.  `flip_accept=True` overwrites them with identity window
+    sums instead — the device then claims ACCEPT for every batch, the
+    direction only the sentinel audit can see.  A chip outside the call's
+    placement corrupts nothing."""
+
+    def __init__(self, chip: int, on=0, site: str = SITE_SHARDED,
+                 flips: int = 4, flip_accept: bool = False):
+        super().__init__(on=on, site=site)
+        self.chip = int(chip)
+        self.flips = int(flips)
+        self.flip_accept = bool(flip_accept)
+
+    def _shard_of(self, ctx) -> "int | None":
+        ids = (tuple(ctx.payload) if ctx.payload
+               else tuple(range(ctx.mesh or 1)))
+        return ids.index(self.chip) if self.chip in ids else None
+
+    def after(self, ctx, out):
+        shard = self._shard_of(ctx)
+        if shard is None:
+            return out
+        arr, back = _host_copy(out)
         rng = random.Random(_stable_seed(
-            ctx.plan.seed, ctx.site, ctx.index, "corrupt"))
-        slices = arr.reshape(arr.shape[0], -1) if arr.ndim > 1 \
-            else arr.reshape(1, -1)
-        for row in slices:
-            for _ in range(max(1, self.flips)):
-                row[rng.randrange(row.size)] ^= 1 << rng.randrange(12)
-        return arr
+            ctx.plan.seed, ctx.site, ctx.index, "chip-corrupt", self.chip))
+        targets = [arr[0], arr[1 + shard]] if arr.ndim == 5 else [arr]
+        for t in targets:
+            if self.flip_accept:
+                t[...] = 0
+                t[..., 1, 0, :] = 1  # Y limb 0
+                t[..., 2, 0, :] = 1  # Z limb 0
+            else:
+                _flip_rows(t, rng, self.flips)
+        return back(arr)
 
 
 class KillLane(Fault):
@@ -203,6 +270,37 @@ class KillLane(Fault):
                 and self.advance:
             clock.advance(self.advance)
         raise LaneDeathSignal(f"injected lane death (call={ctx.index})")
+
+
+class ChipLoss(Fault):
+    """Chip(s) die AT the faulted dispatch: marked dead in the process
+    ChipRegistry, and the call raises a FatalChipError naming them (already
+    marked) — the shape of a card dropping out mid-wave, which takes the
+    whole sharded call down with it.  `chip` is one index or an iterable;
+    `heal_after` (registry-clock seconds) makes the loss transient.  The
+    scheduler then reforms the mesh onto the survivors and re-issues the
+    wave's undecided batches on the device."""
+
+    def __init__(self, chip, on=0, heal_after: "float | None" = None,
+                 site: str = SITE_SHARDED):
+        super().__init__(on=on, site=site)
+        self.chips = (tuple(int(c) for c in chip)
+                      if hasattr(chip, "__iter__") else (int(chip),))
+        self.heal_after = heal_after
+
+    def before(self, ctx):
+        from . import health as _health
+
+        reg = _health.chip_registry()
+        for c in self.chips:
+            reg.mark_chip_dead(
+                c, heal_after=self.heal_after,
+                reason=f"injected chip loss (site={ctx.site}, "
+                       f"call={ctx.index})")
+        raise FatalChipError(
+            f"injected chip loss: chips {list(self.chips)} died mid-wave "
+            f"(site={ctx.site}, call={ctx.index})",
+            chips=self.chips, heal_after=self.heal_after, chips_marked=True)
 
 
 class CorruptResidentEntry(Fault):
@@ -249,14 +347,15 @@ class StaleEpochOn(Fault):
 
 
 class _CallContext:
-    __slots__ = ("plan", "site", "index", "clock", "payload")
+    __slots__ = ("plan", "site", "index", "clock", "payload", "mesh")
 
-    def __init__(self, plan, site, index, clock, payload=None):
+    def __init__(self, plan, site, index, clock, payload=None, mesh=None):
         self.plan = plan
         self.site = site
         self.index = index
         self.clock = clock
         self.payload = payload
+        self.mesh = mesh
 
 
 class FaultPlan:
@@ -273,13 +372,13 @@ class FaultPlan:
         with self._lock:
             return self._counts.get(site, 0)
 
-    def run(self, site: str, fn, *, clock=None, payload=None):
+    def run(self, site: str, fn, *, clock=None, payload=None, mesh=None):
         with self._lock:
             idx = self._counts.get(site, 0)
             self._counts[site] = idx + 1
         fired = [f for f in self.faults
                  if f.site == site and f.fires_on(idx)]
-        ctx = _CallContext(self, site, idx, clock, payload)
+        ctx = _CallContext(self, site, idx, clock, payload, mesh)
         for f in fired:
             f.before(ctx)
         out = fn()
@@ -363,10 +462,12 @@ def injected(plan: FaultPlan):
         uninstall()
 
 
-def run_device_call(site: str, fn, *, clock=None, payload=None):
+def run_device_call(site: str, fn, *, clock=None, payload=None,
+                    mesh=None):
     """The seam the dispatch boundaries call: apply the active plan's
-    faults for this (site, call) around `fn`.  No plan → `fn()`."""
+    faults for this (site, call) around `fn`.  `mesh` is the sharded
+    dispatch's shard count.  No plan → `fn()`."""
     plan = _active[0]
     if plan is None:
         return fn()
-    return plan.run(site, fn, clock=clock, payload=payload)
+    return plan.run(site, fn, clock=clock, payload=payload, mesh=mesh)

@@ -1,7 +1,7 @@
 """Device health for the verify_many scheduler: one `DeviceHealth` per
 dispatch mode with an injectable monotonic `Clock`, the typed error
-classifier, the process `ChipRegistry` of reported chip liveness, and the
-residency-drop listeners the device operand cache hangs on.
+classifier, the process `ChipRegistry` of chip liveness and suspicion, and
+the residency-drop listeners the device operand cache hangs on.
 
 THREAD SEMANTICS:
 
@@ -26,9 +26,13 @@ import hashlib
 import threading
 import time
 
+from . import config as _config
+
 __all__ = [
     "Clock", "FakeClock", "SYSTEM_CLOCK", "DeviceHealth", "Backoff",
     "ChipRegistry", "chip_registry", "normalize_mesh", "health_for",
+    "SENTINEL_SUSPICION", "AMBIGUOUS_SUSPICION", "STATE_HEALTHY",
+    "STATE_SUSPECTED", "STATE_QUARANTINED",
     "reset_all", "any_lane_stuck",
     "register_residency_drop_listener", "notify_residency_drop",
     "register_chip_drop_listener", "notify_chip_drop",
@@ -118,7 +122,10 @@ def classify_device_error(err) -> ErrorVerdict:
             ERROR_AMBIGUOUS,
             reason=f"invalid-marker:{marker!r}:{type(err).__name__}")
     if _cuda_sticky(err):
+        # parallel/sharded_msm.py names the chips of the device that
+        # raised (`chips`); unnamed, the caller takes its placement.
         return ErrorVerdict(ERROR_FATAL,
+                            chips=getattr(err, "chips", ()) or (),
                             reason=f"cuda-sticky:{type(err).__name__}")
     if isinstance(err, TimeoutError):
         return ErrorVerdict(ERROR_TRANSIENT, reason="timeout")
@@ -227,21 +234,47 @@ def notify_chip_drop(chip: int, reason: str) -> None:
             pass
 
 
-class ChipRegistry:
-    """Process-wide REPORTED liveness of the CUDA devices (indices as
-    torch enumerates them): what the single lane's placement checks read.
+# Suspicion weights: a sentinel-audit divergence attributed to one chip,
+# and an ambiguous dispatch error smeared over every chip of the placement.
+SENTINEL_SUSPICION = 1.5
+AMBIGUOUS_SUSPICION = 0.25
 
-    `mark_chip_dead(chip, heal_after=None)` is a chip loss — a finite
-    `heal_after` (registry-clock seconds) rejoins the chip once the window
-    elapses, None is permanent (a sticky CUDA error: the context is gone
-    for the process).  Marking notifies the chip-drop listeners.  Reads
-    prune healed windows, so rejoin is a read, not a daemon.  Liveness
-    gates placement, never math."""
+STATE_HEALTHY = "healthy"
+STATE_SUSPECTED = "suspected"
+STATE_QUARANTINED = "quarantined"
+
+
+class ChipRegistry:
+    """Process-wide liveness and suspicion of the chips: CUDA indices as
+    torch enumerates them, or shard positions on a virtual mesh.  What
+    placement — the single lane's device, the mesh's reformation ladder —
+    reads.
+
+    * REPORTED liveness: `mark_chip_dead(chip, heal_after=None)` is a chip
+      loss — a finite `heal_after` (registry-clock seconds) rejoins the
+      chip once the window elapses, None is permanent (a sticky CUDA error:
+      the context is gone for the process).  Reads prune healed windows,
+      so rejoin is a read, not a daemon.
+    * DIAGNOSED suspicion: `record_suspicion(chip, weight, reason)` lands
+      evidence (SENTINEL_SUSPICION for an attributed sentinel divergence,
+      AMBIGUOUS_SUSPICION per placement chip for an ambiguous error).
+      Scores decay with the ED25519_TPU_SUSPICION_HALF_LIFE half-life on
+      the registry clock; crossing ED25519_TPU_SUSPICION_THRESHOLD
+      QUARANTINES the chip.  A quarantined chip stays out of placement
+      until `heal_chip` or `reset` (the probation probe that would let it
+      earn its way back is not ported yet).
+    * `excluded_chips()` = dead ∪ quarantined: what placement avoids.
+
+    Marking a chip dead or quarantining it notifies the chip-drop
+    listeners (devcache drops that chip's device copies).  Liveness and
+    suspicion gate placement, never math."""
 
     def __init__(self, clock: "Clock | None" = None):
         self.clock = clock if clock is not None else SYSTEM_CLOCK
         self._lock = threading.Lock()
         self._dead = {}  # chip index -> heal-at time (inf = permanent)
+        self._suspicion = {}  # chip -> [score, stamp] (decayed lazily)
+        self._quarantined = set()
 
     def set_clock(self, clock: "Clock | None") -> None:
         with self._lock:
@@ -259,17 +292,86 @@ class ChipRegistry:
         notify_chip_drop(chip, reason)
 
     def heal_chip(self, chip: int) -> None:
+        """Operator rejoin: the chip is alive and trusted again (its death,
+        quarantine and suspicion are cleared)."""
+        chip = int(chip)
         with self._lock:
-            self._dead.pop(int(chip), None)
+            self._dead.pop(chip, None)
+            self._quarantined.discard(chip)
+            self._suspicion.pop(chip, None)
+
+    def _decayed_locked(self, chip: int, now: float) -> float:
+        rec = self._suspicion.get(chip)
+        if rec is None:
+            return 0.0
+        score, stamp = rec
+        hl = _config.get("ED25519_TPU_SUSPICION_HALF_LIFE")
+        if hl > 0 and now > stamp:
+            score *= 0.5 ** ((now - stamp) / hl)
+        rec[0], rec[1] = score, now
+        if score < 1e-6:
+            del self._suspicion[chip]
+            return 0.0
+        return score
+
+    def suspicion(self, chip: int) -> float:
+        """The chip's current (decayed) suspicion score."""
+        with self._lock:
+            return self._decayed_locked(int(chip), self.clock.monotonic())
+
+    def record_suspicion(self, chip: int, weight: float,
+                         reason: str = "suspicion") -> str:
+        """Land one piece of evidence against `chip`: decay its score, add
+        `weight`; crossing the threshold QUARANTINES it (the chip-drop
+        listeners fire as for a chip loss).  Returns the chip's state."""
+        chip = int(chip)
+        quarantined_now = False
+        with self._lock:
+            now = self.clock.monotonic()
+            score = self._decayed_locked(chip, now) + float(weight)
+            self._suspicion[chip] = [score, now]
+            if (score >= _config.get("ED25519_TPU_SUSPICION_THRESHOLD")
+                    and chip not in self._quarantined):
+                self._quarantined.add(chip)
+                quarantined_now = True
+            state = (STATE_QUARANTINED if chip in self._quarantined
+                     else STATE_SUSPECTED)
+        if quarantined_now:
+            notify_chip_drop(chip, f"chip-quarantine: {reason}")
+        return state
+
+    def quarantine_chip(self, chip: int, reason: str = "quarantine") -> None:
+        """Quarantine `chip` outright, whatever its score (the chip-drop
+        listeners fire if it was not quarantined yet)."""
+        chip = int(chip)
+        with self._lock:
+            fresh = chip not in self._quarantined
+            self._quarantined.add(chip)
+        if fresh:
+            notify_chip_drop(chip, f"chip-quarantine: {reason}")
+
+    def chip_state(self, chip: int) -> str:
+        """healthy / suspected / quarantined (suspicion decays on read)."""
+        chip = int(chip)
+        with self._lock:
+            if chip in self._quarantined:
+                return STATE_QUARANTINED
+            return (STATE_SUSPECTED
+                    if self._decayed_locked(chip, self.clock.monotonic())
+                    else STATE_HEALTHY)
+
+    def quarantined_chips(self) -> "frozenset[int]":
+        with self._lock:
+            return frozenset(self._quarantined)
 
     def excluded_chips(self) -> "frozenset[int]":
-        """The chips placement must avoid right now (reported dead, heal
-        windows pruned)."""
+        """The chips placement must avoid right now: reported dead (heal
+        windows pruned) or quarantined."""
         with self._lock:
             now = self.clock.monotonic()
             for c in [c for c, t in self._dead.items() if now >= t]:
                 del self._dead[c]
-            return frozenset(self._dead)
+            return frozenset(self._dead) | frozenset(self._quarantined)
 
     def healthy_count(self, total: int) -> int:
         """How many of the chips [0, total) are placeable right now."""
@@ -284,14 +386,18 @@ class ChipRegistry:
         return tuple(out[:int(want)]) if len(out) >= int(want) else None
 
     def reset(self) -> None:
-        """Clear all chip-death state and restore the process clock."""
+        """Clear all chip-death, suspicion and quarantine state and restore
+        the process clock."""
         with self._lock:
             self._dead.clear()
+            self._suspicion.clear()
+            self._quarantined.clear()
             self.clock = SYSTEM_CLOCK
 
     def __repr__(self):
         with self._lock:
-            return f"ChipRegistry(dead={sorted(self._dead)})"
+            return (f"ChipRegistry(dead={sorted(self._dead)}, "
+                    f"quarantined={sorted(self._quarantined)})")
 
 
 _chip_registry = ChipRegistry()

@@ -10,7 +10,8 @@ pointers and the stream pass as `c_void_p`, and every C entry returns
 `cudaGetLastError()`, which `Kernel.launch` raises on as a `CudaError`
 carrying the code (health.classify_device_error reads it: a sticky error
 has poisoned the device's context).  Two kernels may share a source (K2
-and K2t live in window_sums.cu); a source builds once.
+and K2t live in window_sums.cu, K3 and K5 in fold_partials.cu); a source
+builds once.
 
 Each `Kernel` counts its launches: `launches` is incremented where the
 kernel is launched and nowhere else, so a run can show that the main path
@@ -113,6 +114,10 @@ KERNELS = {
                "window_sums_tables_launch",
                [_P, _I, _P, _I, _I, _P, _P, _I, _I, _P]),
         Kernel("build_tables", "build_tables.cu", "build_tables_launch",
+               [_P, _P, _I, _I, _P]),
+        Kernel("fold_shards", "fold_partials.cu", "fold_shards_launch",
+               [_P, _P, _I, _I, _P]),
+        Kernel("expand_affine", "expand_affine.cu", "expand_affine_launch",
                [_P, _P, _I, _I, _P]),
     )
 }

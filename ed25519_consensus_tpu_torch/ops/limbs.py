@@ -179,6 +179,32 @@ def identity_point_batch(n: int) -> np.ndarray:
     return out
 
 
+def pack_points_affine_from_raw(raw: np.ndarray) -> np.ndarray:
+    """Affine wire: (T, 128) uint8 raw rows with Z = 1 (what decompression
+    outputs) → (2, NLIMBS, T) int16 X‖Y limbs; T = X·Y and Z = 1 are
+    rebuilt on the device (ops/msm.py expand_affine_points)."""
+    return np.ascontiguousarray(pack_points_from_raw(raw)[:2])
+
+
+def pack_point_affine_batch(points) -> np.ndarray:
+    """Affine wire from host Points, which must have Z = 1
+    (edwards.Point.to_affine) → (2, NLIMBS, N) int32."""
+    from .field import P
+
+    for pt in points:
+        if pt.Z % P != 1:
+            raise ValueError("affine packing requires Z = 1 points")
+    return np.stack([pack_field_batch([pt.X % P for pt in points]),
+                     pack_field_batch([pt.Y % P for pt in points])])
+
+
+def identity_affine_batch(n: int) -> np.ndarray:
+    """(2, NLIMBS, n) int16 affine-wire identity batch (x = 0, y = 1)."""
+    out = np.zeros((2, NLIMBS, n), dtype=np.int16)
+    out[1, 0, :] = 1
+    return out
+
+
 def identity_wire_batch(n: int) -> np.ndarray:
     """(33, n) uint8 compressed-wire identity batch: the y = 1 encoding
     (byte 0 = 1) with hint 0 — decompresses on-device to (0, 1)."""

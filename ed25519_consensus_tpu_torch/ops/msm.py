@@ -35,6 +35,14 @@ or the tables-resident one (`dispatch_window_sums_many_tables`):
      on prebuilt tables: the resident head tables, shared across the
      batch, and K4's R tables; then K3.
 
+Two more kernels serve the affine wire and the sharded mesh
+(parallel/sharded_msm.py):
+
+  K6 `expand_affine` (`expand_affine_points`) — the affine wire, X‖Y limbs,
+     → extended points with Z = 1 and T = X·Y, in place of K1;
+  K5 `fold_shards` (`fold_shards`) — the cross-shard group fold of the
+     per-shard window sums gathered onto the placement's first device.
+
 The plain versions take the kernels' additions in the kernels' order, so
 kernel and plain version agree limb for limb.  Against the JAX package's
 window sums they agree as group elements (projectively), not limb for limb:
@@ -53,6 +61,7 @@ from .. import config as _config
 from . import _cuda
 from . import limbs
 from . import torch_edwards as E
+from . import torch_field as F
 from .edwards import Point, shift128
 from .limbs import NLIMBS, NWINDOWS, PACKED_WINDOWS
 from .torch_decompress import expand_compressed_points
@@ -453,6 +462,130 @@ def fold_partials(partials):
     return out
 
 
+# -- K5: the cross-shard fold ----------------------------------------------
+
+def _check_window_sums(ws, name: str, ndim: int):
+    if ws.dtype != torch.int32 or ws.ndim != ndim or \
+            tuple(ws.shape[-3:]) != (4, NLIMBS, NWINDOWS):
+        raise ValueError(f"{name} must be (..., 4, {NLIMBS}, {NWINDOWS}) "
+                         f"int32 of rank {ndim}, got {tuple(ws.shape)} "
+                         f"{ws.dtype}")
+
+
+def fold_shards_plain(gathered):
+    """Plain PyTorch version of K5: gathered per-shard window sums (D, B,
+    4, NLIMBS, 33) int32 → (B, 4, NLIMBS, 33) int32, shard 0 plus shards 1,
+    2, ... in order by complete addition (D − 1 additions; D = 0 gives the
+    identity), as csrc/fold_partials.cu fold_shards_kernel takes them."""
+    g = gathered.permute(0, 2, 3, 1, 4)  # (D, 4, NLIMBS, B, 33)
+    if not g.shape[0]:
+        out = torch.zeros(gathered.shape[1:], dtype=torch.int32,
+                          device=gathered.device)
+        out[:, 1, 0] = 1
+        out[:, 2, 0] = 1
+        return out
+    acc = g[0]
+    for d in range(1, g.shape[0]):
+        acc = E.point_add(acc, g[d])
+    return acc.permute(2, 0, 1, 3).contiguous()
+
+
+def fold_shards(gathered):
+    """K5 wrapper: launches fold_shards (csrc/fold_partials.cu) on a CUDA
+    tensor, runs `fold_shards_plain` on a CPU tensor.  A group fold by
+    complete additions — never an elementwise limb add."""
+    _check_window_sums(gathered, "gathered shard sums", 5)
+    if gathered.device.type == "cpu":
+        return fold_shards_plain(gathered)
+    if gathered.device.type != "cuda":
+        raise ValueError(f"unsupported device {gathered.device}")
+    gathered = gathered.contiguous()
+    D, B = gathered.shape[:2]
+    out = torch.empty((B, 4, NLIMBS, NWINDOWS), dtype=torch.int32,
+                      device=gathered.device)
+    if B:
+        _cuda.KERNELS["fold_shards"].launch(
+            gathered.device, gathered.data_ptr(), out.data_ptr(), D, B)
+    return out
+
+
+# -- K6: the affine point wire ---------------------------------------------
+
+def expand_affine_points_plain(points):
+    """Plain PyTorch version of K6: (B, 2, NLIMBS, N) int16 X‖Y limbs →
+    (B, 4, NLIMBS, N) int16 with Z = 1 and T = X·Y (one torch_field.mul;
+    the product's limbs stay inside |limb| ≤ 8191, so the int16 cast is
+    exact)."""
+    X = points[:, 0].to(torch.int32).transpose(0, 1)  # (NLIMBS, B, N)
+    Y = points[:, 1].to(torch.int32).transpose(0, 1)
+    T = F.mul(X, Y)
+    Z = torch.zeros_like(X)
+    Z[0] = 1
+    return torch.stack([X, Y, Z, T]).permute(2, 0, 1, 3).to(
+        torch.int16).contiguous()
+
+
+def _check_affine(points):
+    if points.dtype != torch.int16 or points.ndim != 4 \
+            or tuple(points.shape[1:3]) != (2, NLIMBS):
+        raise ValueError(f"affine points must be (B, 2, {NLIMBS}, N) int16, "
+                         f"got {tuple(points.shape)} {points.dtype}")
+
+
+def expand_affine_points(points):
+    """K6 wrapper: (B, 2, NLIMBS, N) int16 affine wire → (B, 4, NLIMBS, N)
+    int16 extended points.  Launches csrc/expand_affine.cu on a CUDA
+    tensor, runs `expand_affine_points_plain` on a CPU tensor."""
+    _check_affine(points)
+    if points.device.type == "cpu":
+        return expand_affine_points_plain(points)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    points = points.contiguous()
+    B, _, _, N = points.shape
+    out = torch.empty((B, 4, NLIMBS, N), dtype=torch.int16,
+                      device=points.device)
+    if B * N:
+        _cuda.KERNELS["expand_affine"].launch(
+            points.device, points.data_ptr(), out.data_ptr(), B, N)
+    return out
+
+
+def expand_affine_points_single(points):
+    """Unbatched affine expansion: (2, NLIMBS, N) → (4, NLIMBS, N)."""
+    return expand_affine_points(points[None])[0]
+
+
+# Device point wires, told apart by the batched points' second axis:
+#   "extended"   (B, 4, NLIMBS, N) int16 — X‖Y‖Z‖T limbs
+#   "affine"     (B, 2, NLIMBS, N) int16 — X‖Y limbs; Z and T by K6
+#   "compressed" (B, 33, N) uint8 — encodings + hint byte; x by K1
+def wire_of(points) -> str:
+    c = points.shape[1]
+    if c == 33:
+        return "compressed"
+    if c == 2:
+        return "affine"
+    return "extended"
+
+
+def expand_points(points, wire: "str | None" = None):
+    """Any batched point wire → (B, 4, NLIMBS, N) int16 extended points:
+    K1 for the compressed wire, K6 for the affine one."""
+    wire = wire_of(points) if wire is None else wire
+    if wire == "compressed":
+        return expand_compressed_points(points)
+    if wire == "affine":
+        return expand_affine_points(points)
+    return points
+
+
+def expand_points_single(points, wire: "str | None" = None):
+    """Unbatched wire expansion: (33, N) or (2 | 4, NLIMBS, N) →
+    (4, NLIMBS, N)."""
+    return expand_points(points[None], wire)[0]
+
+
 # -- the dispatch ----------------------------------------------------------
 
 def as_tensor(x, device):
@@ -463,17 +596,15 @@ def as_tensor(x, device):
 
 def dispatch_window_sums_many(digits, points, device=None):
     """One device call for B stacked batches: digits (B, 17, N) uint8
-    packed or (B, 33, N) int8 plain; points (B, 33, N) uint8 compressed or
-    (B, 4, NLIMBS, N) int16 extended (numpy arrays or tensors) →
-    (B, 4, NLIMBS, 33) int32 tensor on `device`.  On CUDA: K1 (compressed
-    points only), K2, K3."""
+    packed or (B, 33, N) int8 plain; points in any wire — (B, 33, N) uint8
+    compressed, (B, 2, NLIMBS, N) int16 affine or (B, 4, NLIMBS, N) int16
+    extended (numpy arrays or tensors) → (B, 4, NLIMBS, 33) int32 tensor on
+    `device`.  On CUDA: K1 (compressed) or K6 (affine), K2, K3."""
     dev = resolve_device(device)
     digits = as_tensor(digits, dev)
     points = as_tensor(points, dev)
     with DEVICE_CALL_LOCK:
-        if points.ndim == 3:
-            points = expand_compressed_points(points)
-        return fold_partials(window_partials(digits, points))
+        return fold_partials(window_partials(digits, expand_points(points)))
 
 
 def dispatch_window_sums(digits, points, device=None):

@@ -152,3 +152,75 @@ def test_verify_many_from_resident_tables(dev):
     finally:
         devcache.set_default_cache(None)
         batch._DeviceLane.reset_all()
+
+
+@pytest.mark.parametrize("n_shards", [1, 3])
+def test_fold_shards_matches_plain(dev, n_shards):
+    """K5 on per-shard window sums of real points and digits (B = 2)."""
+    B, N = 2, 128
+    parts = []
+    for k in range(n_shards):
+        d = np.random.default_rng(20 + k).integers(
+            -8, 8, size=(B, limbs.NWINDOWS, N)).astype(np.int8)
+        w = np.stack([_wire(N, 30 + k), _wire(N, 40 + k)])
+        parts.append(msm.dispatch_window_sums_many(d, w, dev))
+    gathered = torch.stack(parts)
+    before = _cuda.KERNELS["fold_shards"].launches
+    got = msm.fold_shards(gathered)
+    want = msm.fold_shards_plain(gathered)
+    torch.cuda.synchronize()
+    assert _cuda.KERNELS["fold_shards"].launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_expand_affine_matches_plain(dev):
+    """K6 on decompressed points and on limbs at the bound |limb| = 8191."""
+    pts = TD.expand_compressed_points(
+        torch.from_numpy(np.stack([_wire(300, 50)])).to(dev))[:, :2]
+    ext = torch.from_numpy(np.random.default_rng(51).choice(
+        np.array([-8191, 8191, -1, 0, 1], dtype=np.int16),
+        size=(1, 2, limbs.NLIMBS, 300))).to(dev)
+    for aff in (pts.contiguous(), ext):
+        before = _cuda.KERNELS["expand_affine"].launches
+        got = msm.expand_affine_points(aff)
+        want = msm.expand_affine_points_plain(aff)
+        torch.cuda.synchronize()
+        assert _cuda.KERNELS["expand_affine"].launches == before + 1
+        assert torch.equal(got, want)
+
+
+def test_virtual_mesh_on_the_card(dev):
+    """A 2-shard mesh with both shards on the card: the window sums equal
+    the single lane's as points, and verify_many(mesh=2) decides on it."""
+    from ed25519_consensus_tpu_torch.parallel import sharded_msm
+
+    rng = random.Random(52)
+    keys = [SigningKey.new(rng) for _ in range(4)]
+    entries = [(keys[i % 4].verification_key_bytes(),
+                keys[i % 4].sign(b"mesh-%d" % i), b"mesh-%d" % i)
+               for i in range(90)]
+    v = batch.Verifier()
+    v.queue_bulk(entries)
+    staged = v._stage(random.Random(53))
+    N = sharded_msm.shard_pad(staged.n_device_terms, 2)
+    d, w = staged.device_operands(lambda n: N)
+    mesh_ws = sharded_msm.sharded_window_sums_many(
+        d[None], w[None], 2, devices=[dev, dev]).cpu().numpy()
+    one_ws = msm.dispatch_window_sums_many(d[None], w[None],
+                                           dev).cpu().numpy()
+    assert msm.combine_window_sums(mesh_ws) == \
+        msm.combine_window_sums(one_ws)
+    vs = []
+    for b in range(3):
+        vb = batch.Verifier()
+        vb.queue_bulk(entries[30 * b:30 * (b + 1)])
+        vs.append(vb)
+    try:
+        assert batch.verify_many(vs, rng=rng, chunk=2, hybrid=False,
+                                 merge="never", mesh=2, device=dev,
+                                 sentinel_rate=1.0) == [True] * 3
+        st = batch.last_run_stats
+        assert st["mesh"] == 2 and st["sentinel"]["divergence"] == 0
+        assert st["sentinel"]["audits"] >= 1
+    finally:
+        batch._DeviceLane.reset_all()

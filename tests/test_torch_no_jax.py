@@ -2,8 +2,10 @@
 import neither `jax` nor anything of the JAX package `ed25519_consensus_tpu`
 (the port keeps its own copies of the host modules and of the host C++
 runtime), and its device entry points never fall back to the CPU unasked.
-The blocked-import run drives the native runtime and verify_many through
-resident tables as well.
+The blocked-import run drives the native runtime, verify_many through
+resident tables, and the sharded mesh (two shards on the CPU, the sentinel
+audit, the affine wire, the sharded backend) as well; the kernel sources in
+csrc/ include nothing outside the port.
 
 Careful with names: `ed25519_consensus_tpu_torch` starts with
 `ed25519_consensus_tpu`, so a blocked name is matched exactly or as a
@@ -100,6 +102,30 @@ for rep in range(3):
                              health=health.DeviceHealth(clock=clock)) \
         == [True, True]
 assert batch.last_run_stats["devcache"]["table_dispatch_hits"] == 1
+
+# The sharded mesh: two shards on the CPU, the sentinel auditing every
+# (cold) chunk, the affine wire, and the sharded backend.
+from ed25519_consensus_tpu_torch.parallel import sharded_msm
+
+devcache.set_default_cache(devcache.DeviceOperandCache(enabled=False))
+
+for wire in ("compressed", "affine"):
+    with config.override(ED25519_TPU_WIRE=wire):
+        vs = []
+        for j in range(2):
+            v = batch.Verifier()
+            v.queue_bulk(entries)
+            vs.append(v)
+        assert batch.verify_many(vs, rng=rng, chunk=2, hybrid=False,
+                                 merge="never", mesh=2, device="cpu",
+                                 sentinel_rate=1.0,
+                                 health=health.DeviceHealth(clock=clock)) \
+            == [True, True]
+        st = batch.last_run_stats
+        assert st["mesh"] == 2 and st["sentinel"]["audits"] >= 1
+routing._device_count[0] = 2
+bv.verify(rng=rng, backend="sharded", device="cpu")
+assert "sharded_msm" in sharded_msm.__name__
 batch._DeviceLane.reset_all()
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
@@ -149,7 +175,34 @@ def _imported_names(path: Path):
 def _port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    assert {"mesh.py", "sharded_msm.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     return files
+
+
+def _csrc_sources():
+    files = sorted(p for p in (PORT / "csrc").rglob("*")
+                   if p.suffix in (".cu", ".cuh", ".cpp", ".h"))
+    assert {"expand_affine.cu", "fold_partials.cu"} <= {f.name for f in files}
+    return files
+
+
+@pytest.mark.parametrize("path", _csrc_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_csrc_includes_stay_in_the_port(path):
+    """Every kernel and host source includes system headers (<...>) or its
+    own files beside it in csrc/ — nothing of the JAX package's tree."""
+    for line in path.read_text(encoding="utf-8").splitlines():
+        line = line.strip()
+        if not line.startswith("#include"):
+            continue
+        target = line[len("#include"):].strip()
+        if target.startswith("<"):
+            continue
+        assert target.startswith('"') and target.endswith('"'), line
+        name = target.strip('"')
+        assert (path.parent / name).resolve().is_relative_to(PORT), line
+        assert (path.parent / name).is_file(), line
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -181,6 +234,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: bv.verify_async()):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # the sharded backend and a mesh without a device need the cards too
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bv.verify(backend="sharded")
+    with pytest.raises(ValueError, match="CUDA devices"):
+        batch.verify_many([bv], mesh=2)
+    from ed25519_consensus_tpu_torch.parallel import sharded_msm
+    with pytest.raises(ValueError, match="CUDA devices"):
+        sharded_msm.sharded_window_sums_many(digits[None], wire[None], 2)
     # asked for the CPU, the same batch verifies
     bv.verify(backend="device", device="cpu")
     assert msm.dispatch_window_sums(digits, wire, device="cpu").shape == \
@@ -210,3 +271,9 @@ def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():
     with pytest.raises(ValueError):
         msm.fold_partials(torch.zeros((1, 1, 33, 4, limbs.NLIMBS),
                                       dtype=torch.int32, device=meta))
+    with pytest.raises(ValueError):
+        msm.fold_shards(torch.zeros((2, 1, 4, limbs.NLIMBS, 33),
+                                    dtype=torch.int32, device=meta))
+    with pytest.raises(ValueError):
+        msm.expand_affine_points(torch.zeros((1, 2, limbs.NLIMBS, 64),
+                                             dtype=torch.int16, device=meta))

@@ -602,14 +602,20 @@ def test_warm_device_shapes_runs_each_dispatch_form(cache_on, tables_on,
 # -- routing, entry points, per-signature verdicts -------------------------
 
 def test_mesh_routing_is_the_single_lane(monkeypatch):
+    """Auto routing with no card (or a device named) and mesh=1 are the
+    single lane; mesh=4 runs four shards on the device named, and raises
+    without one when fewer cards are visible."""
     vs = make_verifiers(3)
     assert many(vs, merge="never", mesh=None,
                 health=fake_health()) == expected(3)
     assert batch.last_run_stats["mesh"] == 0
     assert many(vs, merge="never", mesh=1,
                 health=fake_health()) == expected(3)
-    with pytest.raises(NotImplementedError, match="mesh=4"):
-        many(vs, mesh=4)
+    assert many(vs, merge="never", mesh=4,
+                health=fake_health()) == expected(3)
+    assert batch.last_run_stats["mesh"] == 4
+    with pytest.raises(ValueError, match="requested 4 CUDA devices"):
+        batch.verify_many(vs, mesh=4)
 
 
 def test_disable_device_runs_the_host_lane(monkeypatch):
@@ -673,6 +679,29 @@ def test_hybrid_defaults_decide_every_batch_once(monkeypatch):
     assert st["batches"] == 9 and st["sigs"] == 27
 
 
+def test_forced_device_never_decides_on_the_host_when_chunks_finish_early(
+        monkeypatch):
+    """hybrid=False: when both in-flight chunks finish before the scheduler
+    polls them, the rest is submitted to the device — no batch is decided
+    on the host (the host took one batch per such turn before)."""
+    real = batch._DeviceLane.submit
+
+    def submit_and_finish(self, *a, **k):
+        cid = real(self, *a, **k)
+        with self._cv:
+            while cid not in self._results:
+                self._cv.wait(0.01)
+        return cid
+
+    monkeypatch.setattr(batch._DeviceLane, "submit", submit_and_finish)
+    warm_shapes()
+    assert many(make_verifiers(7, bad={5}), chunk=1, hybrid=False,
+                merge="never", health=fake_health()) == expected(7, bad={5})
+    st = batch.last_run_stats
+    assert st["device_batches"] == 6 and st["device_rejects_confirmed"] == 1
+    assert st["host_batches"] == 1  # the reject's host confirmation only
+
+
 def test_config_knobs_parse(monkeypatch):
     from ed25519_consensus_tpu_torch import config
 
@@ -684,8 +713,17 @@ def test_config_knobs_parse(monkeypatch):
     assert config.get("ED25519_TPU_DISABLE_NATIVE") is False
     monkeypatch.setenv("ED25519_TPU_DEVCACHE", "no")
     assert config.get("ED25519_TPU_DEVCACHE") is False
-    with pytest.raises(KeyError):
-        config.get("ED25519_TPU_WIRE")  # no affine wire in the port yet
+    assert config.get("ED25519_TPU_WIRE") == "compressed"
+    monkeypatch.setenv("ED25519_TPU_WIRE", "Affine")
+    assert config.get("ED25519_TPU_WIRE") == "affine"
+    monkeypatch.setenv("ED25519_TPU_WIRE", "extended")  # not a wire choice
+    assert config.get("ED25519_TPU_WIRE") == "compressed"
+    monkeypatch.delenv("ED25519_TPU_WIRE")
+    monkeypatch.setenv("ED25519_TPU_SENTINEL_RATE", "often")
+    with pytest.raises(config.ConfigError,
+                       match="ED25519_TPU_SENTINEL_RATE"):
+        many(make_verifiers(1), merge="never")
+    monkeypatch.delenv("ED25519_TPU_SENTINEL_RATE")
     with config.override(ED25519_TPU_DIGIT_WIRE="plain"):
         staged = make_verifiers(1)[0]._stage(rng)
         digits, _ = staged.device_operands(msm.pad_lanes)
