@@ -24,10 +24,15 @@ card, drives the port's two paths, and times the kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --stress-tables REPS SECONDS
+    python3 chip_smoke.py --sanitize
+    python3 chip_smoke.py --cold-start [CHECKOUT ...]
 
 The second form only runs the cometbft128 per-commit stream again and again
 (`stress_tables_path`) and exits nonzero if the device ever rejected a batch
-the host accepts.
+the host accepts.  The third runs every kernel once at small shapes against
+its plain version, for compute-sanitizer (`sanitize_path`).  The fourth
+times a verdict path's first call with an empty kernel cache in each
+checkout named (default: this one), in the order given (`cold_start_path`).
 
 Exits nonzero, and prints no result, without a CUDA device, outside a
 checkout of the repository, when the native runtime does not build or fails
@@ -38,6 +43,7 @@ counts on the two paths, errors against the plain versions, times and
 bounds)."""
 
 import json
+import os
 import random
 import statistics
 import subprocess
@@ -394,12 +400,10 @@ def phase_main_path(report: dict, state: dict) -> None:
     if not all(oks):
         raise AssertionError("a stacked zcash10k batch was rejected")
     counts = _cuda.launch_counts()
-    log(f"single-batch path launches: {counts}")
-    for name, n in counts.items():
-        report[name]["launches"] = n
-        if n == 0 and name in SLICE0_KERNELS:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"single-batch path")
+    log(f"single-batch path launches: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    add_launches(report, counts)
+    need_launches("the single-batch path", counts, SLICE0_KERNELS)
     state["stack"] = (digits, wire)
     state["verifier"] = bv
     state["tampered"] = tampered
@@ -421,34 +425,57 @@ def k1_work(w):
             + flips * OPS_FE_MUL + negs * OPS_FE_ADD)
 
 
-def kernel_work(d, w, parts):
-    """(bytes, int32 ops) each kernel must move and do on these inputs:
-    digits d (B, 17, N) uint8, wire w (B, 33, N) uint8, K2's partials.
-    Counted from the data: K1 as k1_work; K2 builds a lane's table only up
-    to its largest |digit| and adds only the nonzero digits of a (chunk,
-    window), negating the negative ones; K3 takes nchunk - 1 additions per
-    (b, window)."""
+def window_work(dig, nchunk: int, chunk: int):
+    """(window additions, negated digits) of plain digits dig (B, nwin, N)
+    at `chunk` lanes a block: a (chunk, window) adds only its nonzero
+    digits."""
+    import torch
+
+    B, nwin, N = dig.shape
+    pad = nchunk * chunk - N
+    nnz = torch.nn.functional.pad((dig != 0).int(), (0, pad)).reshape(
+        B, nwin, nchunk, chunk).sum(dim=-1)
+    return int((nnz - 1).clamp(min=0).sum()), int((dig < 0).sum())
+
+
+def plain_digits(d):
     import torch
 
     from ed25519_consensus_tpu_torch.ops import msm
 
-    B, _, N = d.shape
-    nchunk = parts.shape[1]
-    k1 = k1_work(w)
-    dig = msm.expand_digits(d).int()  # (B, 33, N)
+    return msm.expand_digits(d).int() if d.dtype == torch.uint8 else d.int()
+
+
+def k2_work(d, nchunk: int, chunk: int = 64, part_bytes: int = 4):
+    """(bytes, int32 ops) a K2 form must move and do on digits d (B, 17, N)
+    uint8 or (B, nwin, N) int8: it builds a lane's table only up to its
+    largest |digit| and adds only the nonzero digits of a (chunk, window),
+    negating the negative ones; it reads the digits and the points once
+    and writes the partials."""
+    dig = plain_digits(d)
+    B, nwin, N = dig.shape
     table_adds = int((dig.abs().amax(dim=1) - 1).clamp(min=0).sum())
-    pad = nchunk * msm.CHUNK - N
-    nnz = torch.nn.functional.pad((dig != 0).int(), (0, pad)).reshape(
-        B, msm.NWINDOWS, nchunk, msm.CHUNK).sum(dim=-1)
-    window_adds = int((nnz - 1).clamp(min=0).sum())
-    neg_digits = int((dig < 0).sum())
-    k2 = (B * N * (17 + 160) + B * nchunk * 33 * 320,
-          (table_adds + window_adds) * OPS_GE_ADD
-          + neg_digits * 2 * OPS_FE_NEG)
-    k3 = (B * nchunk * 33 * 320 + B * 33 * 320,
-          B * 33 * max(nchunk - 1, 0) * OPS_GE_ADD)
-    return {"expand_compressed": k1, "window_sums": k2,
-            "fold_partials": k3}
+    window_adds, neg_digits = window_work(dig, nchunk, chunk)
+    return (d.numel() + B * N * 160 + B * nchunk * nwin * 80 * part_bytes,
+            (table_adds + window_adds) * OPS_GE_ADD
+            + neg_digits * 2 * OPS_FE_NEG)
+
+
+def fold_work(B: int, nchunk: int, nwin: int, part_bytes: int = 4):
+    """(bytes, int32 ops) of K3: nchunk - 1 additions per (b, window)."""
+    return (B * nchunk * nwin * 80 * part_bytes + B * nwin * 320,
+            B * nwin * max(nchunk - 1, 0) * OPS_GE_ADD)
+
+
+def kernel_work(d, w, parts):
+    """(bytes, int32 ops) each kernel must move and do on these inputs:
+    digits d (B, 17, N) uint8, wire w (B, 33, N) uint8, K2's partials.
+    Counted from the data: K1 as k1_work, K2 as k2_work, K3 as
+    fold_work."""
+    B, nchunk = parts.shape[:2]
+    return {"expand_compressed": k1_work(w),
+            "window_sums": k2_work(d, nchunk),
+            "fold_partials": fold_work(B, nchunk, 33)}
 
 
 def hold_and_time(report: dict, label: str, digits, wire,
@@ -1242,21 +1269,14 @@ def tables_work(d, head_tables, r_tables, parts):
     """(bytes, int32 ops) K2t must move and do on these inputs: the digits,
     the head tables once (shared across the batch when TH = 1), the R
     tables and the partials written; the window additions of the nonzero
-    digits and their negations."""
-    import torch
-
-    from ed25519_consensus_tpu_torch.ops import msm
-
-    B, _, N = d.shape
+    digits and their negations.  Only the stored entries 1.. are read
+    (copy_tables in window_sums.cuh): entry 0, the identity, is not."""
+    dig = plain_digits(d)
     nchunk = parts.shape[1]
-    dig = msm.expand_digits(d).int() if d.dtype == torch.uint8 else d.int()
-    pad = nchunk * msm.CHUNK - N
-    nnz = torch.nn.functional.pad((dig != 0).int(), (0, pad)).reshape(
-        B, msm.NWINDOWS, nchunk, msm.CHUNK).sum(dim=-1)
-    window_adds = int((nnz - 1).clamp(min=0).sum())
-    neg_digits = int((dig < 0).sum())
-    nbytes = (d.numel() + 2 * (head_tables.numel() + r_tables.numel())
-              + B * nchunk * 33 * 320)
+    window_adds, neg_digits = window_work(dig, nchunk, 64)
+    nbytes = (d.numel() + 2 * (head_tables[:, 1:].numel()
+                               + r_tables[:, 1:].numel())
+              + parts.numel() * parts.element_size())
     return nbytes, window_adds * OPS_GE_ADD + neg_digits * 2 * OPS_FE_NEG
 
 
@@ -1381,6 +1401,8 @@ def phase_tables_times(report: dict, state: dict) -> None:
         rwire = np.stack([o[1] for o in ops])
         host_tbl = staged[0].head_tables_tensor()
         hold_tables(report, label, digits, head, host_tbl, rwire, record)
+        if record:
+            state["tables_operands"] = (digits, host_tbl, rwire)
         # K4 on the head points against the host-built tables: exact
         # against its plain version, equal to the host tables as points
         hp = torch.from_numpy(head[None]).to(DEV)
@@ -1397,6 +1419,496 @@ def phase_tables_times(report: dict, state: dict) -> None:
             raise AssertionError("K4 disagrees with the host-built tables")
 
 
+# -- the kernel-lab path: every form of the window-sum kernel, the stage
+# -- profile and the micro-probes ------------------------------------------
+
+REPLACES = {
+    "expand_compressed": "ed25519_consensus_tpu/ops/jnp_decompress.py:151",
+    "window_sums": "ed25519_consensus_tpu/ops/pallas_msm.py:320",
+    "window_sums_tables": "ed25519_consensus_tpu/ops/pallas_msm.py:320",
+    "window_select_only": "ed25519_consensus_tpu/ops/pallas_msm.py:320",
+    "fold_partials": "ed25519_consensus_tpu/ops/pallas_msm.py:424",
+    "build_tables": "ed25519_consensus_tpu/ops/msm.py:194",
+    "fold_shards": "ed25519_consensus_tpu/parallel/sharded_msm.py:139",
+    "expand_affine": "ed25519_consensus_tpu/ops/msm.py:396",
+    "probe_chain": "tools/microbench_pallas.py:64",
+    "probe_fmul": "tools/microbench_pallas.py:101",
+}
+
+
+class Report(dict):
+    """The per-kernel JSON record: a row per kernel name, made at first
+    use with its source, the TPU kernel it replaces and no launches."""
+
+    def __missing__(self, name):
+        from ed25519_consensus_tpu_torch.ops import _cuda
+
+        base = _cuda.base_of(name)
+        row = {"name": name, "route": "cuda",
+               "source": "ed25519_consensus_tpu_torch/csrc/"
+                         + _cuda.kernel(base, name[len(base):]).source,
+               "replaces": REPLACES[base.split("-")[0]], "launches": 0,
+               "library_ms": None, "max_abs_err": 0}
+        self[name] = row
+        return row
+
+
+def add_launches(report: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        if n:
+            report[name]["launches"] += n
+
+
+def timed_result(fn, reps: int = 5):
+    """(fn()'s result, median ms of `reps` more runs): the first call is
+    the warm-up and the result held against the other version."""
+    out = fn()
+    sync()
+    return out, cuda_ms(lambda: fn(), reps)
+
+
+def hold_row(report: dict, name: str, kern, plain, work, plain_cache=None,
+             plain_key=None, plain_reps: int = 3) -> dict:
+    """Kernel `name` (kern()) against its plain version (plain()) on the
+    same inputs, exactly; then both timed (median of 5 and of
+    `plain_reps`, CUDA events) beside the bound of `work` = (bytes, int32
+    operations).  The row takes the numbers unless an earlier phase timed
+    it at the main path's shape.  Plain versions that compute the same
+    thing share one run through `plain_cache[plain_key]`."""
+    got, ms = timed_result(kern)
+    if plain_cache is not None and plain_key in plain_cache:
+        want, pms = plain_cache[plain_key]
+    else:
+        want, pms = timed_result(plain, plain_reps)
+        if plain_cache is not None:
+            plain_cache[plain_key] = (want, pms)
+    err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+    if err or got.shape != want.shape:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"max |diff| {err}, shapes {tuple(got.shape)} "
+                             f"{tuple(want.shape)}")
+    bms, by = bound_ms(*work)
+    row = report[name]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    if "ms" not in row:
+        row.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+    log(f"  {name:30s} kernel {ms:10.4f}  plain {pms:10.3f}  bound "
+        f"{bms:8.4f} ({by}, {work[1]:.4e} int32 ops, {work[0]:.4e} B); "
+        f"max |diff| 0")
+    return {"kernel_ms": ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by}
+
+
+def phase_variants(report: dict, state: dict) -> None:
+    """The kernel lab's variant sweep at B = 8, N = 12,288 with the launch
+    counts set to 0 just before it and read just after: every form
+    parity-gated against the exact host MSM and timed.  Then each form's
+    kernels on the sweep's operands against their plain versions (exact),
+    timed beside their bounds, with ptxas's registers and spills; the
+    `kernel_sweep` JSON line carries those beside the lab's own numbers."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import _cuda, msm
+    from ed25519_consensus_tpu_torch.tools import kernel_lab
+
+    dev = torch.device(DEV)
+    t = time.perf_counter()
+    operands = kernel_lab.sweep_operands(STACK_B, STACK_N, dev)
+    log(f"sweep operands (B={STACK_B}, N={STACK_N}, both radixes) and the "
+        f"exact host MSM in {time.perf_counter() - t:.1f} s")
+    _cuda.reset_launch_counts()
+    sweep = kernel_lab.exp_sweep(STACK_B, STACK_N, device=dev,
+                                 operands=operands, emit=False)
+    counts = _cuda.launch_counts()
+    add_launches(report, counts)
+    log(f"sweep launches: { {k: v for k, v in counts.items() if v} }")
+    res = sweep["kernel_sweep"]["results"]
+    failed = {n: r for n, r in res.items() if r.get("parity") != "ok"}
+    if failed:
+        raise AssertionError(f"sweep forms failed: {failed}")
+    state["sweep_operands"] = operands
+    ops, _ = operands
+    ptx = state.get("ptxas", {})
+    cache = {}
+    tables = {}
+    log("sweep forms vs plain versions at the sweep's shape (exact), then "
+        "times (kernel median of 5, plain of 3; CUDA events), ms:")
+    for name, entry, wb, kw, _pin in kernel_lab.SWEEP:
+        d, e = ops[wb]
+        base, suffix, chunk, W = kernel_lab.sweep_form(entry, wb, kw)
+        kname = base + suffix
+        fold = kw.get("fold_dtype", "int32")
+        psize = 2 if fold == "int16" else 4
+        nchunk = -(-STACK_N // chunk)
+        if entry == "tables_full":
+            if wb not in tables:
+                kt = "build_tables" + ("-r32" if wb == 5 else "")
+                pts1 = e[:1]
+                ntbl = msm._table_entries(wb)
+                tables[wb] = msm.multiples_tables(pts1, window_bits=wb)
+                hold_row(report, kt,
+                         lambda p=pts1, wb=wb: msm.multiples_tables(
+                             p, window_bits=wb),
+                         lambda p=pts1, wb=wb: msm.build_tables_plain(p, wb),
+                         (pts1.numel() * 2 * (1 + ntbl),
+                          STACK_N * (ntbl - 1) * OPS_GE_ADD),
+                         cache, ("K4", wb))
+            tb = tables[wb]
+
+            def kern(d=d, tb=tb, wb=wb, W=W):
+                return msm.window_partials_tables(d, tb, window_bits=wb,
+                                                  win_chunk=W)
+
+            def plain(d=d, tb=tb, wb=wb):
+                return msm.window_partials_tables_plain(d, tb,
+                                                        window_bits=wb)
+
+            parts = kern()
+            work = tables_work(d, tb, tb[..., :0], parts)
+            key = ("K2t", wb)
+        else:
+            kk = dict(kw)
+            kk["win_chunk"] = W
+
+            def kern(d=d, e=e, wb=wb, kk=kk):
+                return msm.window_partials(d, e, window_bits=wb, **kk)
+
+            pk = {k: v for k, v in kk.items() if k in ("tbl_dtype",
+                                                        "fold_dtype")}
+
+            def plain(d=d, e=e, wb=wb, pk=pk, chunk=chunk):
+                return msm.window_partials_plain(d, e, window_bits=wb,
+                                                 chunk=chunk, **pk)
+
+            parts = kern()
+            work = k2_work(d, nchunk, chunk, psize)
+            key = ("K2", wb, kk.get("tbl_dtype", "int16"), fold, chunk)
+        row = res[name]
+        row.update(kernel=kname, plain_max_abs_err=0,
+                   **hold_row(report, kname, kern, plain, work, cache, key))
+        kf = "fold_partials" + "".join(
+            tag for cond, tag in ((wb == 5, "-r32"),
+                                  (fold == "int16", "-i16fold")) if cond)
+        if kf not in cache:
+            p_plain = cache[key][0]
+            hold_row(report, kf, lambda p=parts: msm.fold_partials(p),
+                     lambda p=p_plain: msm.fold_partials_plain(p),
+                     fold_work(STACK_B, nchunk, msm.nwindows(wb), psize),
+                     cache, kf)
+        u = ptx.get(_cuda.kernel_symbol(base, suffix), {})
+        row.update(registers=u.get("registers"),
+                   spill_bytes=u.get("spill_stores", 0)
+                   + u.get("spill_loads", 0) if u else None)
+    print(json.dumps(sweep), flush=True)
+
+
+def phase_knobs(report: dict, state: dict) -> None:
+    """The main path's two kernel knobs: the stacked B = 8 zcash10k call
+    (`dispatch_window_sums_many`) under ED25519_TPU_WIN_CHUNK=11 and under
+    ED25519_TPU_PALLAS_BODY=hybrid, and the zcash10k resident-tables
+    dispatch under ED25519_TPU_WIN_CHUNK=11, each with the launch counts
+    set to 0 just before it and read just after: each must run the
+    matching instantiation and not the default, give window sums equal to
+    the unset knobs' limb for limb, and verdicts equal to the host's."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.config import override
+    from ed25519_consensus_tpu_torch.ops import _cuda, msm
+    from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+
+    digits, wire = state["stack"]
+    t_digits, t_head, t_rwire = state["tables_operands"]
+    want = msm.dispatch_window_sums_many(digits, wire, DEV)
+    want_t = msm.dispatch_window_sums_many_tables(t_digits, t_head, t_rwire,
+                                                  DEV)
+    cases = (
+        ({"ED25519_TPU_WIN_CHUNK": "11"}, "stacked", "window_sums-w11",
+         "window_sums"),
+        ({"ED25519_TPU_PALLAS_BODY": "hybrid"}, "stacked",
+         "window_sums-hybrid", "window_sums"),
+        ({"ED25519_TPU_WIN_CHUNK": "11"}, "tables", "window_sums_tables-w11",
+         "window_sums_tables"),
+    )
+    for env, path, kname, default in cases:
+        with override(**env):
+            _cuda.reset_launch_counts()
+            if path == "stacked":
+                ws = msm.dispatch_window_sums_many(digits, wire, DEV)
+            else:
+                ws = msm.dispatch_window_sums_many_tables(
+                    t_digits, t_head, t_rwire, DEV)
+            sync()
+            counts = _cuda.launch_counts()
+        add_launches(report, counts)
+        ref = want if path == "stacked" else want_t
+        host = ws.cpu().numpy()
+        oks = [msm.combine_window_sums(host[b:b + 1]).mul_by_cofactor()
+               .is_identity() for b in range(host.shape[0])]
+        log(f"knob {env} on the {path} B={host.shape[0]} call: launches "
+            f"{ {k: v for k, v in counts.items() if v} }; window sums equal "
+            f"the default's: {torch.equal(ws, ref)}; accepts {oks}")
+        if DEV != "cpu" and (counts.get(kname, 0) != 1
+                             or counts.get(default, 0)):
+            raise AssertionError(f"knob {env} did not run {kname} alone")
+        if not torch.equal(ws, ref) or not all(oks):
+            raise AssertionError(f"knob {env}: window sums or verdicts "
+                                 f"differ from the default's and the host's")
+    # the hybrid body's kernel row: the stacked call's operands
+    d = torch.from_numpy(digits).to(DEV)
+    pts = TD.expand_compressed_points(torch.from_numpy(wire).to(DEV))
+    nchunk = -(-pts.shape[-1] // 64)
+    hold_row(report, "window_sums-hybrid",
+             lambda: msm.window_partials(d, pts, body="hybrid"),
+             lambda: msm.window_partials_plain(d, pts),
+             k2_work(d, nchunk))
+
+
+def phase_profile_ledger(report: dict, state: dict) -> None:
+    """The stage profile (tools/microbench.py profile_ledger) at B = 8,
+    N = 12,288, with the launch counts set to 0 just before it and read
+    just after; its `device_program_profile` JSON line is printed on a
+    line of its own.  Then K2s against its plain version on the same
+    operands (exact), timed beside its bound."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import _cuda, msm
+    from ed25519_consensus_tpu_torch.tools import microbench
+
+    ops, _ = state["sweep_operands"]
+    d, e = ops[4]
+    _cuda.reset_launch_counts()
+    microbench.profile_ledger(STACK_B, STACK_N, device=torch.device(DEV),
+                              operands=(d, e))
+    counts = _cuda.launch_counts()
+    add_launches(report, counts)
+    need_launches("the stage profile", counts,
+                  ("window_sums", "window_sums_tables", "window_select_only",
+                   "fold_partials"))
+    tables = msm.multiples_tables(e)
+    dig = plain_digits(d)
+    nchunk = -(-STACK_N // 64)
+    out_bytes = STACK_B * nchunk * 33 * 2 * 80 * 4
+    hold_row(report, "window_select_only",
+             lambda: msm.select_only(d, tables),
+             lambda: msm.select_only_plain(d, tables),
+             (d.numel() + tables[:, 1:].numel() * 2 + out_bytes,
+              STACK_B * 33 * nchunk * 64 * 80 + int((dig < 0).sum()) * 40))
+
+
+def phase_probes(report: dict, state: dict) -> None:
+    """The micro-probes (tools/microbench.py) with the launch counts set to
+    0 just before them and read just after: ns per int32 operation and µs
+    per field multiply from the slope between two chain lengths.  Then each
+    probe's kernel at its longer chain against its plain version (exact),
+    timed beside its bound."""
+    import numpy as np
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import _cuda, probes
+    from ed25519_consensus_tpu_torch.tools import microbench
+
+    _cuda.reset_launch_counts()
+    state["probes"] = microbench.run_probes(torch.device(DEV))
+    counts = _cuda.launch_counts()
+    add_launches(report, counts)
+    need_launches("the micro-probes", counts,
+                  [f"probe_chain-{op}" for op in probes.CHAIN_OPS]
+                  + ["probe_fmul"])
+    S, L = 32, 128
+    x = torch.from_numpy(np.arange(S * L, dtype=np.int32).reshape(S, L)
+                         % 97).to(DEV)
+    for op in probes.CHAIN_OPS:
+        hold_row(report, f"probe_chain-{op}",
+                 lambda op=op: probes.chain(x, op, 512),
+                 lambda op=op: probes.chain_plain(x, op, 512),
+                 (8 * S * L, 512 * S * L))
+    xf = torch.from_numpy(np.arange(20 * S * L, dtype=np.int32)
+                          .reshape(20, S, L) % 1000).to(DEV)
+    hold_row(report, "probe_fmul", lambda: probes.fmul_chain(xf, 8),
+             lambda: probes.fmul_chain_plain(xf, 8),
+             (2 * 80 * S * L, 8 * S * L * OPS_FE_MUL))
+
+
+def sanitize_path() -> int:
+    """Every kernel once at small shapes, each against its plain version:
+    the run `compute-sanitizer` watches (python3 chip_smoke.py --sanitize
+    under --tool memcheck, racecheck, initcheck and synccheck; README).
+    K1, K2, K3, K4, K2t (TH = 1 and TH = B, the head boundary inside a
+    chunk), K5, K6; the cometbft128 tables chunk (B = 8, N = 448, 258 head
+    lanes: chunk 4 straddles the head/R boundary) through K1, K4, K2t and
+    K3; every sweep form of the kernel lab (K2, K2t, K3, K4 instantiations
+    and windows per block), K2s and the probes.  Returns the number of
+    kernels that differ."""
+    import numpy as np
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import limbs, msm, probes
+    from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+    from ed25519_consensus_tpu_torch.tools import kernel_lab
+
+    rng = random.Random(0x5A7)
+    bad = []
+
+    def check(label, got, want):
+        sync()
+        if got.shape != want.shape or not torch.equal(got.int(),
+                                                      want.int()):
+            bad.append(label)
+        log(f"  {label}: {'equal' if label not in bad else 'DIFFERS'}")
+
+    def wire(B, N):
+        w, _ = random_wire(B * N, rng)
+        return torch.from_numpy(np.ascontiguousarray(
+            w.reshape(33, B, N).transpose(1, 0, 2))).to(DEV)
+
+    B, N = 2, 200
+    w = wire(B, N)
+    pts = TD.expand_compressed_points(w)
+    check("K1 expand_compressed", pts, TD.expand_compressed_points_plain(w))
+    d = adversarial_digits(B, N, seed=9)
+    dp = torch.from_numpy(np.stack([limbs.pack_digit_planes(x)
+                                    for x in d])).to(DEV)
+    parts = msm.window_partials(dp, pts)
+    check("K2 window_sums", parts, msm.window_partials_plain(dp, pts))
+    check("K3 fold_partials", msm.fold_partials(parts),
+          msm.fold_partials_plain(parts))
+    tbl = msm.multiples_tables(pts)
+    check("K4 build_tables", tbl, msm.build_tables_plain(pts))
+    for th in (1, B):
+        head = tbl[:th, ..., :130].contiguous()
+        r = tbl[..., 130:].contiguous()
+        check(f"K2t window_sums_tables TH={th}",
+              msm.window_partials_tables(dp, head, r),
+              msm.window_partials_tables_plain(dp, head, r))
+    ws = msm.fold_partials(parts)
+    g = torch.stack([ws, ws])
+    check("K5 fold_shards", msm.fold_shards(g), msm.fold_shards_plain(g))
+    aff = pts[:, :2].contiguous()
+    check("K6 expand_affine", msm.expand_affine_points(aff),
+          msm.expand_affine_points_plain(aff))
+
+    # the cometbft128 tables chunk: 258 head lanes, 190 R lanes
+    B, N, n_head = 8, 448, 258
+    head_pts = TD.expand_compressed_points(wire(1, n_head))
+    head_tables = msm.multiples_tables(head_pts)
+    rw = wire(B, N - n_head)
+    r_pts = TD.expand_compressed_points(rw)
+    check("cometbft128 chunk K1 (R wire)", r_pts,
+          TD.expand_compressed_points_plain(rw))
+    r_tbl = msm.multiples_tables(r_pts)
+    check("cometbft128 chunk K4", r_tbl, msm.build_tables_plain(r_pts))
+    dc = torch.from_numpy(np.stack([
+        limbs.pack_digit_planes(x)
+        for x in adversarial_digits(B, N, 10)])).to(DEV)
+    pc = msm.window_partials_tables(dc, head_tables, r_tbl)
+    check("cometbft128 chunk K2t", pc,
+          msm.window_partials_tables_plain(dc, head_tables, r_tbl))
+    check("cometbft128 chunk K3", msm.fold_partials(pc),
+          msm.fold_partials_plain(pc))
+
+    # every sweep form at B = 2, N = 200, K2s and the probes
+    ops = {}
+    for wb in (4, 5):
+        _, _, dg, ext = kernel_lab.build_operands(200, B=2, window_bits=wb)
+        ops[wb] = (torch.from_numpy(dg).to(DEV),
+                   torch.from_numpy(ext).to(DEV))
+    for name, entry, wb, kw, _pin in kernel_lab.SWEEP:
+        dg, ext = ops[wb]
+        if entry == "tables_full":
+            t1 = msm.multiples_tables(ext[:1], window_bits=wb)
+            check(f"{name} K4", t1, msm.build_tables_plain(ext[:1], wb))
+            p = msm.window_partials_tables(dg, t1, window_bits=wb,
+                                           win_chunk=kw["win_chunk"])
+            want = msm.window_partials_tables_plain(dg, t1, window_bits=wb)
+        else:
+            kk = dict(kw)
+            chunk = kernel_lab.sweep_form(entry, wb, kk)[2]
+            p = msm.window_partials(dg, ext, window_bits=wb, **kk)
+            want = msm.window_partials_plain(
+                dg, ext, window_bits=wb, chunk=chunk,
+                **{k: v for k, v in kk.items()
+                   if k in ("tbl_dtype", "fold_dtype")})
+        check(f"{name} K2/K2t", p, want)
+        check(f"{name} K3", msm.fold_partials(p), msm.fold_partials_plain(p))
+    dg, ext = ops[4]
+    t2 = msm.multiples_tables(ext)
+    check("K2s window_select_only", msm.select_only(dg, t2),
+          msm.select_only_plain(dg, t2))
+    x = torch.from_numpy(np.arange(8 * 128, dtype=np.int32)
+                         .reshape(8, 128) % 97).to(DEV)
+    for op in probes.CHAIN_OPS:
+        check(f"probe_chain-{op}", probes.chain(x, op, 64),
+              probes.chain_plain(x, op, 64))
+    xf = torch.from_numpy(np.arange(20 * 8 * 128, dtype=np.int32)
+                          .reshape(20, 8, 128) % 1000).to(DEV)
+    check("probe_fmul", probes.fmul_chain(xf, 2),
+          probes.fmul_chain_plain(xf, 2))
+    log(f"sanitize: {len(bad)} kernels differ from their plain versions"
+        + (f": {bad}" if bad else ""))
+    return len(bad)
+
+
+COLD_START = r"""
+import json, random, sys, time
+import torch
+from ed25519_consensus_tpu_torch import SigningKey, batch
+
+rng = random.Random(7)
+keys = [SigningKey.new(rng) for _ in range(8)]
+
+
+def make():
+    bv = batch.Verifier()
+    for i in range(256):
+        sk = keys[i % 8]
+        msg = b"cold-start-%d" % i
+        bv.queue((sk.verification_key_bytes(), sk.sign(msg), msg))
+    return bv
+
+
+make().verify(backend="host")  # the native host runtime, built here
+torch.zeros(1, device="cuda")  # the CUDA context
+calls = []
+for _ in range(2):
+    vs = [make() for _ in range(2)]
+    t = time.perf_counter()
+    oks = batch.verify_many(vs, hybrid=False, merge="never", mesh=0)
+    calls.append(time.perf_counter() - t)
+    assert oks == [True, True], oks
+print(json.dumps({"first_call_s": calls[0], "second_call_s": calls[1]}))
+"""
+
+
+def cold_start_path(checkouts: list) -> int:
+    """A verdict path's first call with an empty kernel cache, in each
+    checkout of `checkouts` in turn: its `build/` (the kernel cache) is
+    removed, then a fresh process builds the native host runtime, makes
+    the CUDA context and times two `verify_many` calls on two 256-signature
+    batches, device only — the first builds and loads the kernels the
+    path needs, the second is warm.  Prints one `cold_start` line each."""
+    import shutil
+
+    for checkout in checkouts:
+        root = Path(checkout).resolve()
+        shutil.rmtree(root / "build", ignore_errors=True)
+        t = time.perf_counter()
+        p = subprocess.run([sys.executable, "-c", COLD_START], cwd=root,
+                           capture_output=True, text=True, timeout=600,
+                           env={**os.environ,
+                                "PYTHONPATH": str(root)})
+        wall = time.perf_counter() - t
+        if p.returncode:
+            log(f"cold start in {root} failed:\n{p.stdout}\n{p.stderr}")
+            return 1
+        row = json.loads(p.stdout.strip().splitlines()[-1])
+        libs = sorted(f.name.split("-")[0]
+                      for f in (root / "build").glob("*.so"))
+        print(json.dumps({"cold_start": {"checkout": str(root),
+                                         "process_s": wall, **row,
+                                         "built": libs}}), flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1410,6 +1922,8 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--cold-start"]:
+        return cold_start_path(sys.argv[2:] or [str(ROOT)])
     sys.path.insert(0, str(ROOT))
     from ed25519_consensus_tpu_torch.ops import _cuda
 
@@ -1424,33 +1938,23 @@ def main() -> int:
     times = ", ".join(f"{k} {r['seconds']:.1f} s" for k, r in built.items())
     log(f"build: {time.perf_counter() - t:.1f} s wall for {len(built)} "
         f"sources, one nvcc each, in parallel ({times})")
+    state = {"ptxas": {}}
     for name, r in built.items():
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        usage = _cuda.ptxas_usage(r["log"])
+        state["ptxas"].update(usage)
+        for sym, u in sorted(usage.items()):
+            log(f"  ptxas {name} {sym}: {u.get('registers')} registers, "
+                f"spill stores {u.get('spill_stores')} B, spill loads "
+                f"{u.get('spill_loads')} B")
 
-    state = {}
+    if sys.argv[1:2] == ["--sanitize"]:
+        return 1 if sanitize_path() else 0
     phase_native(state)
     if sys.argv[1:2] == ["--stress-tables"]:
         reps, seconds = int(sys.argv[2]), float(sys.argv[3])
         return 1 if stress_tables_path(reps, seconds) else 0
-    sources = {k.name: f"ed25519_consensus_tpu_torch/csrc/{k.source}"
-               for k in _cuda.KERNELS.values()}
-    replaces = {
-        "expand_compressed":
-            "ed25519_consensus_tpu/ops/jnp_decompress.py:151",
-        "window_sums": "ed25519_consensus_tpu/ops/pallas_msm.py:320",
-        "fold_partials": "ed25519_consensus_tpu/ops/pallas_msm.py:424",
-        "window_sums_tables": "ed25519_consensus_tpu/ops/pallas_msm.py:320",
-        "build_tables": "ed25519_consensus_tpu/ops/msm.py:194",
-        "fold_shards":
-            "ed25519_consensus_tpu/parallel/sharded_msm.py:139",
-        "expand_affine": "ed25519_consensus_tpu/ops/msm.py:396",
-    }
-    report = {name: {"name": name, "route": "cuda", "source": sources[name],
-                     "replaces": replaces[name], "library_ms": None,
-                     "max_abs_err": 0}
-              for name in sources}
+    report = Report()
+
     def timed(phase, *args):
         t = time.perf_counter()
         phase(*args)
@@ -1462,15 +1966,18 @@ def main() -> int:
     timed(phase_mesh, report, state)
     timed(phase_affine, report, state)
     for path in ("stream", "mesh", "affine"):
-        for name, n in state[f"{path}_launches"].items():
-            report[name]["launches"] += n
+        add_launches(report, state[f"{path}_launches"])
         log(f"{path} path launches (all passes): "
-            f"{state[f'{path}_launches']}")
+            f"{ {k: v for k, v in state[f'{path}_launches'].items() if v} }")
     timed(phase_times, report, state)
     timed(phase_tables_times, report, state)
     timed(phase_mesh_kernels, report, state)
     timed(phase_routing, state)
     timed(phase_profile, state)
+    timed(phase_variants, report, state)
+    timed(phase_knobs, report, state)
+    timed(phase_profile_ledger, report, state)
+    timed(phase_probes, report, state)
     from ed25519_consensus_tpu_torch import batch
 
     if not batch._DeviceLane.reset_all(timeout=60.0):
@@ -1479,9 +1986,17 @@ def main() -> int:
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]
+    rows = [row for row in report.values() if row["launches"]]
+    launched = {_cuda.base_of(row["name"]) for row in rows}
+    never = sorted(set(_cuda.INSTANTIATIONS) - launched)
+    untimed = [row["name"] for row in rows if any(k not in row for k in keys)]
+    if never or untimed:
+        raise AssertionError(f"instantiations never launched on a path: "
+                             f"{never}; kernels launched but not held and "
+                             f"timed: {untimed}")
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [{k: report[n][k] for k in keys}
-                                  for n in sources]}))
+    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+                                  for row in rows]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,6 +93,21 @@ KNOBS: "dict[str, Knob]" = dict([
     _k("ED25519_TPU_EMA_PRIOR", "float", 0.2,
        "Seconds-per-batch device turnaround prior before the first "
        "measurement (deadline budget is 3×EMA×batches, 2 s floor)."),
+    _k("ED25519_TPU_PALLAS_BODY", "choice", "rolled",
+       "Window-sum kernel body on the cold and head-resident dispatches: "
+       "`rolled` (loops, the default instantiation) or `hybrid` (the "
+       "lane and table-entry loops unrolled); the JAX package's removed "
+       "`unrolled` body, and anything else, falls back to `rolled`.  Kept "
+       "for parity with the JAX package's knob: on the H100 the hybrid "
+       "body measured slower than the default (PERF.md).",
+       ("rolled", "hybrid")),
+    _k("ED25519_TPU_WIN_CHUNK", "int", None,
+       "Windows per window-sum block (the JAX grid step's win_chunk); "
+       "must be a positive divisor of the window count (a non-divisor is "
+       "warned about and ignored at the dispatch).  Unset: every window "
+       "in one block.  Kept for parity with the JAX package's knob: on "
+       "the H100 every W below the window count measured slower than the "
+       "default (PERF.md)."),
     _k("ED25519_TPU_MIN_LANES", "int", None,
        "Floor on the padded device lane count, so many small batches "
        "share one padded shape; unset/0 keeps tight padding."),

@@ -1,7 +1,10 @@
-// K4 build_tables: the [0..8]P multiples tables of a batch of extended
-// points.  points (B, 4, 20, N) int16 → tables (B, 9, 4, 20, N) int16 with
-// entry 0 the identity and entry k = entry (k-1) + P by complete addition
-// (so entry 1 is identity + P, limb for limb what the reference computes).
+// K4 build_tables: the [0..NTBL-1]P multiples tables of a batch of extended
+// points.  points (B, 4, 20, N) int16 → tables (B, NTBL, 4, 20, N) int16
+// with entry 0 the identity and entry k = entry (k-1) + P by complete
+// addition (so entry 1 is identity + P, limb for limb what the reference
+// computes).  Instantiations: build_tables (NTBL = 9, radix 16, every
+// verdict path) and build_tables_r32 (NTBL = 17, the radix-32 variant's
+// [0..16]P tables, table_scan at window_bits=5).
 //
 // Replaces: ed25519_consensus_tpu/ops/msm.py:table_scan (the XLA scan inside
 // assemble_tables_operands, msm.py:626-647, which builds the R lanes' tables
@@ -13,8 +16,9 @@
 // schedule step for step, and the reference's int32 carry between scan
 // steps lies inside |limb| <= 8191, so its int16 cast is exact).
 //
-// Bound: int32 operations, 8 complete additions per lane (~9.4e3 int32
-// operations each) against 160 bytes read and 1,440 written per lane.
+// Bound: int32 operations, NTBL - 1 complete additions per lane (~9.4e3
+// int32 operations each) against 160 bytes read and 160 x NTBL written per
+// lane.
 //
 // Design: one thread per lane, everything in registers (the point and the
 // running entry, 160 int32), entries stored as they are produced.  Lanes
@@ -28,7 +32,6 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int NTBL = 9;
 constexpr int COORDS = 4 * FE_NLIMBS;
 
 __device__ __forceinline__ void store_point_i16(int16_t* dst, size_t stride,
@@ -42,9 +45,9 @@ __device__ __forceinline__ void store_point_i16(int16_t* dst, size_t stride,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-build_tables_kernel(const int16_t* __restrict__ points,
-                    int16_t* __restrict__ tables, int N) {
+template <int NTBL>
+__device__ __forceinline__ void build_tables_body(
+    const int16_t* __restrict__ points, int16_t* __restrict__ tables, int N) {
   const int n = blockIdx.x * THREADS + threadIdx.x;
   const int b = blockIdx.y;
   if (n >= N) return;
@@ -69,10 +72,21 @@ build_tables_kernel(const int16_t* __restrict__ points,
 
 }  // namespace
 
-extern "C" int build_tables_launch(const void* points, void* tables, int B,
-                                   int N, void* stream) {
-  dim3 grid((N + THREADS - 1) / THREADS, B);
-  build_tables_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)points, (int16_t*)tables, N);
-  return (int)cudaGetLastError();
-}
+// One instantiation: the kernel NAME_kernel and its C entry
+// NAME_launch(points, tables, B, N, stream).
+#define BUILD_TABLES(NAME, NTBL)                                              \
+  extern "C" __global__ void __launch_bounds__(THREADS)                      \
+      NAME##_kernel(const int16_t* __restrict__ points,                       \
+                    int16_t* __restrict__ tables, int N) {                    \
+    build_tables_body<NTBL>(points, tables, N);                               \
+  }                                                                           \
+  extern "C" int NAME##_launch(const void* points, void* tables, int B,       \
+                               int N, void* stream) {                         \
+    dim3 grid((N + THREADS - 1) / THREADS, B);                                \
+    NAME##_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(                \
+        (const int16_t*)points, (int16_t*)tables, N);                         \
+    return (int)cudaGetLastError();                                           \
+  }
+
+BUILD_TABLES(build_tables, 9)
+BUILD_TABLES(build_tables_r32, 17)

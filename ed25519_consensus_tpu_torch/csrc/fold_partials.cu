@@ -1,18 +1,23 @@
 // K3 fold_partials: folds K2's per-chunk window partials over the chunk
-// axis with complete additions, (B, nchunk, 33, 4, 20) int32 ->
-// (B, 4, 20, 33) int32 window sums.  K5 fold_shards (second entry point,
+// axis with complete additions, (B, nchunk, NWIN, 4, 20) PT ->
+// (B, 4, 20, NWIN) int32 window sums.  Instantiations (C entry, NWIN, PT):
+// fold_partials (33, int32), the default; fold_partials_i16fold (33,
+// int16), the int16-fold variant's partials; fold_partials_r32 (27,
+// int32), the radix-32 variant's.  K5 fold_shards (second entry point,
 // below): folds the sharded mesh's gathered per-shard window sums.
 //
 // Replaces: the XLA fold of the Pallas kernel's per-block partials,
 // ed25519_consensus_tpu/ops/pallas_msm.py:_compiled_pipeline (the
-// point_add trees at pallas_msm.py:424-451).  Plain PyTorch version:
+// point_add trees at pallas_msm.py:424-451; the int16 and 27-window forms
+// are the same fold over those variants' outputs).  Plain PyTorch version:
 // ops/msm.py fold_partials_plain, which takes the same additions in the
 // same order, so the two agree limb for limb.
 //
 // This is a group fold, never an elementwise limb add: atomics do not apply.
 //
 // Bound: int32 multiply-adds, ~9.4e3 int32 operations per addition and
-// nchunk - 1 additions per (b, w), against 320 bytes read per partial.
+// nchunk - 1 additions per (b, w), against 320 (160 for int16) bytes read
+// per partial.
 // Design: one 32-thread block per (w, b).  Thread t < nchunk starts from
 // partial t and adds partials t + 32, t + 64, ... in order; the
 // min(nchunk, 32) live accumulators then meet in a 5-level halving tree
@@ -30,7 +35,8 @@ constexpr int NWIN = 33;
 constexpr int COORDS = 4 * FE_NLIMBS;
 constexpr int THREADS = 32;
 
-__device__ __forceinline__ ge load_point_i32(const int32_t* src) {
+template <typename T>
+__device__ __forceinline__ ge load_point(const T* src) {
   ge p;
 #pragma unroll
   for (int i = 0; i < FE_NLIMBS; ++i) {
@@ -52,20 +58,20 @@ __device__ __forceinline__ void store_point_i32(int32_t* dst, const ge& p) {
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-fold_partials_kernel(const int32_t* __restrict__ partials,
-                     int32_t* __restrict__ out, int nchunk) {
+template <int NW, typename PT>
+__device__ __forceinline__ void fold_partials_body(
+    const PT* __restrict__ partials, int32_t* __restrict__ out, int nchunk) {
   __shared__ int32_t sh[THREADS * COORDS];
   const int w = blockIdx.x;
   const int b = blockIdx.y;
   const int t = threadIdx.x;
 
-  const int32_t* src = partials + ((size_t)b * nchunk * NWIN + w) * COORDS;
-  const size_t step = (size_t)NWIN * COORDS;  // one chunk
-  ge acc = t < nchunk ? load_point_i32(src + t * step) : ge_identity();
+  const PT* src = partials + ((size_t)b * nchunk * NW + w) * COORDS;
+  const size_t step = (size_t)NW * COORDS;  // one chunk
+  ge acc = t < nchunk ? load_point(src + t * step) : ge_identity();
 #pragma unroll 1
   for (int c = t + THREADS; c < nchunk; c += THREADS)
-    acc = ge_add(acc, load_point_i32(src + c * step));
+    acc = ge_add(acc, load_point(src + c * step));
   store_point_i32(sh + t * COORDS, acc);
   __syncthreads();
   // live: accumulators 0 .. live - 1 hold partials.
@@ -73,21 +79,21 @@ fold_partials_kernel(const int32_t* __restrict__ partials,
 #pragma unroll 1
   for (int s = THREADS / 2; s > 0; s >>= 1) {
     if (t < s && t + s < live) {
-      acc = ge_add(acc, load_point_i32(sh + (t + s) * COORDS));
+      acc = ge_add(acc, load_point(sh + (t + s) * COORDS));
       store_point_i32(sh + t * COORDS, acc);
     }
     if (live > s) live = s;
     __syncthreads();
   }
   if (t == 0) {
-    // (B, 4, 20, 33): coordinate-limb major, window minor.
-    int32_t* o = out + (size_t)b * COORDS * NWIN + w;
+    // (B, 4, 20, NW): coordinate-limb major, window minor.
+    int32_t* o = out + (size_t)b * COORDS * NW + w;
 #pragma unroll
     for (int i = 0; i < FE_NLIMBS; ++i) {
-      o[(0 * FE_NLIMBS + i) * NWIN] = acc.X.v[i];
-      o[(1 * FE_NLIMBS + i) * NWIN] = acc.Y.v[i];
-      o[(2 * FE_NLIMBS + i) * NWIN] = acc.Z.v[i];
-      o[(3 * FE_NLIMBS + i) * NWIN] = acc.T.v[i];
+      o[(0 * FE_NLIMBS + i) * NW] = acc.X.v[i];
+      o[(1 * FE_NLIMBS + i) * NW] = acc.Y.v[i];
+      o[(2 * FE_NLIMBS + i) * NW] = acc.Z.v[i];
+      o[(3 * FE_NLIMBS + i) * NW] = acc.T.v[i];
     }
   }
 }
@@ -143,19 +149,32 @@ fold_shards_kernel(const int32_t* __restrict__ gathered,
 
 }  // namespace
 
+// One instantiation of K3: the kernel NAME_kernel (unmangled, so ptxas's
+// report names it) and its C entry NAME_launch(partials, out, B, nchunk,
+// stream).
+#define FOLD_PARTIALS(NAME, NW, PT)                                           \
+  extern "C" __global__ void __launch_bounds__(THREADS)                      \
+      NAME##_kernel(const PT* __restrict__ partials,                          \
+                    int32_t* __restrict__ out, int nchunk) {                  \
+    fold_partials_body<NW, PT>(partials, out, nchunk);                        \
+  }                                                                           \
+  extern "C" int NAME##_launch(const void* partials, void* out, int B,        \
+                               int nchunk, void* stream) {                    \
+    dim3 grid(NW, B);                                                         \
+    NAME##_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(                \
+        (const PT*)partials, (int32_t*)out, nchunk);                          \
+    return (int)cudaGetLastError();                                           \
+  }
+
+FOLD_PARTIALS(fold_partials, 33, int32_t)
+FOLD_PARTIALS(fold_partials_i16fold, 33, int16_t)
+FOLD_PARTIALS(fold_partials_r32, 27, int32_t)
+
 extern "C" int fold_shards_launch(const void* gathered, void* out, int D,
                                   int B, void* stream) {
   const int threads = 64;
   const int blocks = (B * NWIN + threads - 1) / threads;
   fold_shards_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)gathered, (int32_t*)out, D, B);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fold_partials_launch(const void* partials, void* out, int B,
-                                    int nchunk, void* stream) {
-  dim3 grid(NWIN, B);
-  fold_partials_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)partials, (int32_t*)out, nchunk);
   return (int)cudaGetLastError();
 }

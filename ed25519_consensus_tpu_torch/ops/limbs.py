@@ -10,7 +10,8 @@ stage byte-identical operands):
 * Arrays are limb-major with the terms on the LAST axis: field element batch
   = (20, N), point batch = (4, 20, N) for extended coordinates (X, Y, Z, T).
 * Scalars ship as MSB-first signed radix-16 digit planes (33, N) int8, or
-  nibble-packed (17, N) uint8.
+  nibble-packed (17, N) uint8; the radix-32 kernel variant takes (27, N)
+  int8 planes.
 """
 
 import numpy as np
@@ -106,6 +107,21 @@ WINDOW_BITS = 4
 NWINDOWS = 33
 PACKED_WINDOWS = (NWINDOWS + 1) // 2  # nibble-packed digit planes
 
+# Signed radix-32, the kernel-variant axis `window_bits=5` (the JAX
+# package's ops/limbs.py:109-120): 26 five-bit windows cover the 128-bit
+# scalars, plus the carry window, so 27 planes; digits live in [-16, 15]
+# against a 17-entry [0..16]P table.  They do not fit a signed nibble, so
+# radix-32 has no packed digit wire: plain int8 planes only.
+WINDOW_BITS_R32 = 5
+NWINDOWS_R32 = 27
+
+
+def windows_for_bits(window_bits: int, scalar_bits: int = 128) -> int:
+    """Signed-digit plane count for `scalar_bits`-bit scalars at the given
+    window width: ceil(scalar_bits / window_bits) unsigned windows plus the
+    carry window of the signed recoding (33 at 4 bits, 27 at 5)."""
+    return -(-scalar_bits // window_bits) + 1
+
 
 def _recode_signed(d_le: np.ndarray, radix: int = 16) -> np.ndarray:
     """Unsigned little-endian radix digits (n, W) → signed digits
@@ -143,21 +159,27 @@ def pack_digit_planes(digits: np.ndarray) -> np.ndarray:
     return packed
 
 
-def pack_scalar_windows(scalars, nwindows: int = NWINDOWS) -> np.ndarray:
-    """Pack scalars (< 2^128) into MSB-first SIGNED radix-16 digit planes
-    (nwindows, N) int8, digits in [-8, 7] (vectorized via np.unpackbits
-    + carry recoding)."""
+def pack_scalar_windows(scalars, nwindows: int = NWINDOWS,
+                        window_bits: int = WINDOW_BITS) -> np.ndarray:
+    """Pack scalars (< 2^((nwindows-1)·window_bits)) into MSB-first SIGNED
+    radix-2^window_bits digit planes (nwindows, N) int8, digits in
+    [-2^(window_bits-1), 2^(window_bits-1) - 1] (vectorized via
+    np.unpackbits + carry recoding).  The default is the production
+    radix-16 wire; window_bits=5 with NWINDOWS_R32 planes is the radix-32
+    variant (the JAX package's ops/limbs.py:171-191)."""
     nub = nwindows - 1  # unsigned windows before recoding
-    nbytes = (nub * WINDOW_BITS + 7) // 8
+    nbytes = (nub * window_bits + 7) // 8
     for s in scalars:
-        if s >> (nub * WINDOW_BITS):
-            raise ValueError(f"scalar exceeds {nub} radix-16 windows")
-    bits = _ints_to_bits(scalars, nbytes)[:, : nub * WINDOW_BITS]
-    w = (1 << np.arange(WINDOW_BITS, dtype=np.int32)).astype(np.int32)
-    digits = bits.reshape(len(scalars), nub, WINDOW_BITS).astype(
+        if s >> (nub * window_bits):
+            raise ValueError(
+                f"scalar exceeds {nub} radix-{1 << window_bits} windows")
+    bits = _ints_to_bits(scalars, nbytes)[:, : nub * window_bits]
+    w = (1 << np.arange(window_bits, dtype=np.int32)).astype(np.int32)
+    digits = bits.reshape(len(scalars), nub, window_bits).astype(
         np.int32
     ) @ w  # (N, nub) little-endian window order
-    return np.ascontiguousarray(_recode_signed(digits)[:, ::-1].T)
+    return np.ascontiguousarray(
+        _recode_signed(digits, radix=1 << window_bits)[:, ::-1].T)
 
 
 def pack_u128_windows(zb: np.ndarray) -> np.ndarray:

@@ -43,6 +43,17 @@ Two more kernels serve the affine wire and the sharded mesh
   K5 `fold_shards` (`fold_shards`) — the cross-shard group fold of the
      per-shard window sums gathered onto the placement's first device.
 
+The kernel lab's forms (tools/kernel_lab.py, tools/microbench.py): K2 and
+K2t are templates over the Pallas kernel's variant axes — radix 32
+(`window_bits=5`: 27 plain digit planes, 17-entry tables from K4's r32
+form, folded by K3's 27-window form), int16 partials (`fold_dtype`), an
+int32 table (`tbl_dtype`), the unrolled `hybrid` body, 32 lanes a block
+(`chunk`) and W windows a block (`win_chunk`) — and K2s
+(`window_select_only`) is the select-only profile form.  `window_sums_many`
+and `window_sums_many_tables_full` reach every form; the dispatches read
+ED25519_TPU_WIN_CHUNK and ED25519_TPU_PALLAS_BODY, and with neither set
+they run the default K2 and K2t.
+
 The plain versions take the kernels' additions in the kernels' order, so
 kernel and plain version agree limb for limb.  Against the JAX package's
 window sums they agree as group elements (projectively), not limb for limb:
@@ -74,6 +85,8 @@ HALF = CHUNK // 2
 FOLD_THREADS = 32
 # Entries of a multiples table, [0..8]P.
 NTABLE = 9
+# Shared memory one block may take on an H100 (dynamic, after the opt-in).
+MAX_SHARED_BYTES = 232_448
 
 # Every device call (launches and the blocking fetch) holds this lock, so
 # two threads — the verify_many lane worker and a direct caller — never
@@ -139,10 +152,26 @@ def split_terms(scalars, points):
     return out_s, out_p
 
 
-def pack_msm_operands(scalars, points, n_lanes: int | None = None):
+def _table_entries(window_bits: int) -> int:
+    """Multiples-table length for a signed radix, [0..2^(wb-1)]P: 9 entries
+    at radix 16, 17 at radix 32 (the JAX package's ops/msm.py:187-191)."""
+    return (1 << (window_bits - 1)) + 1
+
+
+def nwindows(window_bits: int) -> int:
+    """Digit planes of the radix: 33 at window_bits=4, 27 at 5."""
+    if window_bits not in (limbs.WINDOW_BITS, limbs.WINDOW_BITS_R32):
+        raise ValueError(f"window_bits must be 4 or 5, got {window_bits!r}")
+    return limbs.windows_for_bits(window_bits)
+
+
+def pack_msm_operands(scalars, points, n_lanes: int | None = None,
+                      window_bits: int = limbs.WINDOW_BITS):
     """Pack 128-bit (scalars, host Points) into padded numpy operands:
-    digits (NWINDOWS, N) int8 and extended points (4, NLIMBS, N) int16,
-    N = pad_lanes(len).  Padding terms are scalar 0 on the identity."""
+    digits (nwin, N) int8 and extended points (4, NLIMBS, N) int16,
+    N = pad_lanes(len), nwin = nwindows(window_bits) (33 at the production
+    radix 16, 27 at the radix-32 variant).  Padding terms are scalar 0 on
+    the identity.  The JAX package's ops/msm.py:305-330."""
     scalars = [int(s) for s in scalars]
     if len(scalars) != len(points):
         raise ValueError("scalar/point length mismatch")
@@ -150,17 +179,21 @@ def pack_msm_operands(scalars, points, n_lanes: int | None = None):
     N = n_lanes if n_lanes is not None else pad_lanes(n)
     if N < n:
         raise ValueError("n_lanes must be ≥ len(scalars)")
-    digits = np.zeros((NWINDOWS, N), dtype=np.int8)
+    nwin = nwindows(window_bits)
+    digits = np.zeros((nwin, N), dtype=np.int8)
     pts = limbs.identity_point_batch(N)
     if n:
-        digits[:, :n] = limbs.pack_scalar_windows(scalars)
+        digits[:, :n] = limbs.pack_scalar_windows(scalars, nwin, window_bits)
         pts[..., :n] = limbs.pack_point_batch(points).astype(np.int16)
     return digits, pts
 
 
-def combine_window_sums(window_sums) -> Point:
+def combine_window_sums(window_sums,
+                        window_bits: int = limbs.WINDOW_BITS) -> Point:
     """Exact host Horner combine of the per-window sums (MSB first):
-    acc ← [16]acc + S_w.  Accepts a leading singleton batch axis."""
+    acc ← [2^wb]acc + S_w, so radix-32 sums take 5 doublings a window.
+    Accepts a leading singleton batch axis.  The JAX package's
+    ops/msm.py:333-352."""
     ws = np.asarray(window_sums)
     if ws.ndim == 4:
         if ws.shape[0] != 1:
@@ -168,7 +201,7 @@ def combine_window_sums(window_sums) -> Point:
         ws = ws[0]
     acc = Point(0, 1, 1, 0)
     for w in range(ws.shape[-1]):
-        for _ in range(limbs.WINDOW_BITS):
+        for _ in range(window_bits):
             acc = acc.double()
         acc = acc.add(limbs.unpack_point(ws[..., w]))
     return acc
@@ -191,15 +224,18 @@ def expand_digits(digits):
     return torch.cat([head, lo[..., half:, :]], dim=-2).to(torch.int8)
 
 
-def _check_digits(digits, B: int, N: int) -> bool:
-    """Validates a digit wire; returns True for the packed form."""
-    if digits.dtype == torch.uint8:
+def _check_digits(digits, B: int, N: int,
+                  window_bits: int = limbs.WINDOW_BITS) -> bool:
+    """Validates a digit wire; returns True for the packed form (radix 16
+    only: radix-32 digits do not fit a nibble)."""
+    if digits.dtype == torch.uint8 and window_bits == limbs.WINDOW_BITS:
         rows, packed = PACKED_WINDOWS, True
     elif digits.dtype == torch.int8:
-        rows, packed = NWINDOWS, False
+        rows, packed = nwindows(window_bits), False
     else:
-        raise ValueError(f"digits must be uint8 (packed) or int8 (plain), "
-                         f"got {digits.dtype}")
+        raise ValueError(f"digits must be uint8 (packed, radix 16) or int8 "
+                         f"(plain), got {digits.dtype} at window_bits="
+                         f"{window_bits}")
     if tuple(digits.shape) != (B, rows, N):
         raise ValueError(f"digits must be {(B, rows, N)}, got "
                          f"{tuple(digits.shape)}")
@@ -213,53 +249,156 @@ def _check_points(points):
                          f"{tuple(points.shape)} {points.dtype}")
 
 
+# -- the window-sum kernel forms -------------------------------------------
+#
+# K2, K2t and K2s are templates (csrc/window_sums.cuh) over the variant axes
+# of the Pallas kernel (ed25519_consensus_tpu/ops/pallas_msm.py:159-338):
+# window_bits, tbl_dtype, fold_dtype, body (rolled | hybrid), chunk (lanes
+# a block, the JAX `tile`) and win_chunk (windows a block, a launch
+# argument).  A form's kernel name is its kind plus a tag for every axis off
+# the default ("window_sums-r32-w9", "window_sums-i16fold-w11"); only the
+# forms in _cuda.INSTANTIATIONS are built, at the windows per block that
+# _cuda.BLOCK_FORMS allows, and any other raises ValueError on the card
+# and on the CPU alike — nothing falls back to another form.
+
+_PART_DTYPES = {"int32": torch.int32, "int16": torch.int16}
+
+
+def k2_shared_bytes(window_bits: int, tbl_dtype: str, fold_dtype: str,
+                    chunk: int, win_chunk: int) -> int:
+    """Shared memory of one window-sum block: the stored entries (entry
+    stride padded by one 32-bit word), the W windows' digits and the W
+    points of the half-chunk exchange (csrc/window_sums.cuh
+    Cfg::smem_bytes)."""
+    tsz = 2 if tbl_dtype == "int16" else 4
+    psz = 4 if fold_dtype == "int32" else 2
+    stride = 4 * NLIMBS * chunk + 4 // tsz
+    return ((_table_entries(window_bits) - 1) * stride * tsz
+            + win_chunk * chunk + win_chunk * 4 * NLIMBS * psz)
+
+
+def kernel_form(kind: str, window_bits: int = limbs.WINDOW_BITS,
+                tbl_dtype: str = "int16", fold_dtype: str = "int32",
+                body: str = "rolled", chunk: int = CHUNK,
+                win_chunk: "int | None" = None):
+    """(base, suffix, chunk, win_chunk) of a window-sum form of `kind`
+    ("window_sums", "window_sums_tables", "window_select_only"): `base`
+    the instantiation, `suffix` "-w<W>" when W < nwin.  Radix-32 with an
+    int32 table takes 32 lanes a block: at 64 its table alone is 328 KB.
+    Raises ValueError for a form that is not built or whose block does not
+    fit the card's 227 KB of shared memory."""
+    nwin = nwindows(window_bits)
+    if tbl_dtype not in ("int16", "int32"):
+        raise ValueError(f"tbl_dtype must be int16 or int32: {tbl_dtype!r}")
+    if fold_dtype not in _PART_DTYPES:
+        raise ValueError(f"fold_dtype must be int32 or int16: "
+                         f"{fold_dtype!r}")
+    if body not in ("rolled", "hybrid"):
+        raise ValueError(f"body must be rolled or hybrid: {body!r}")
+    if chunk not in (32, 64):
+        raise ValueError(f"chunk must be 32 or 64 lanes: {chunk!r}")
+    W = nwin if win_chunk is None else int(win_chunk)
+    _check_win_chunk(nwin, W)
+    if window_bits == limbs.WINDOW_BITS_R32 and tbl_dtype == "int32":
+        chunk = 32
+    smem = k2_shared_bytes(window_bits, tbl_dtype, fold_dtype, chunk, W)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"{kind} at window_bits={window_bits}, tbl_dtype="
+                         f"{tbl_dtype}, {chunk} lanes needs {smem} B of "
+                         f"shared memory a block; the card has "
+                         f"{MAX_SHARED_BYTES}")
+    tags = [tag for cond, tag in (
+        (window_bits == limbs.WINDOW_BITS_R32, "r32"),
+        (tbl_dtype == "int32", "i32tbl"),
+        (fold_dtype == "int16", "i16fold"),
+        (body == "hybrid", "hybrid"),
+        (chunk != CHUNK, f"c{chunk}")) if cond]
+    base = "-".join([kind] + tags)
+    if base not in _cuda.INSTANTIATIONS:
+        raise ValueError(f"no kernel is built for {base} (window_bits="
+                         f"{window_bits}, tbl_dtype={tbl_dtype}, fold_dtype="
+                         f"{fold_dtype}, body={body}, chunk={chunk}); built: "
+                         f"{sorted(b for b in _cuda.INSTANTIATIONS if b.startswith(kind))}")
+    if not _cuda.block_form_built(base, W == nwin):
+        raise ValueError(f"no kernel is built for {base} at {W} windows a "
+                         f"block: it holds only the form with every window "
+                         f"in one block")
+    return base, "" if W == nwin else f"-w{W}", chunk, W
+
+
+def _check_win_chunk(nwin: int, win_chunk) -> None:
+    if win_chunk is not None and (win_chunk <= 0 or nwin % win_chunk):
+        raise ValueError(f"win_chunk {win_chunk!r} must be a positive "
+                         f"divisor of {nwin} windows")
+
+
 # -- K2: per-chunk window partials -----------------------------------------
 
-def window_partials_plain(digits, points):
-    """Plain PyTorch version of K2: digits (B, 17, N) uint8 or (B, 33, N)
-    int8, points (B, 4, NLIMBS, N) int16 → partials (B, nchunk, 33, 4,
-    NLIMBS) int32.  Same tables (T1 = P, Tk = T(k-1) + P, stored int16),
-    same selection, same addition order as csrc/window_sums.cu."""
+def window_partials_plain(digits, points, *,
+                          window_bits: int = limbs.WINDOW_BITS,
+                          tbl_dtype: str = "int16",
+                          fold_dtype: str = "int32",
+                          win_chunk: "int | None" = None,
+                          chunk: int = CHUNK):
+    """Plain PyTorch version of K2: digits (B, 17, N) uint8 or (B, nwin, N)
+    int8, points (B, 4, NLIMBS, N) int16 → partials (B, nchunk, nwin, 4,
+    NLIMBS), int32 or int16 (`fold_dtype`).  Same tables (T1 = P, Tk =
+    T(k−1) + P, stored as `tbl_dtype`), same selection, same addition order
+    as csrc/window_sums.cuh at `chunk` lanes a block.  `win_chunk` (W
+    windows a block) only decides which block computes a window, not its
+    additions, so every W gives the same limbs: the plain version checks W
+    and computes all windows at once.  The JAX counterpart: the in-kernel
+    body of ops/pallas_msm.py:220-318."""
     B, _, _, N = points.shape
-    if _check_digits(digits, B, N):
+    if _check_digits(digits, B, N, window_bits):
         digits = expand_digits(digits)
-    Np = -(-N // CHUNK) * CHUNK
+    Np = -(-N // chunk) * chunk
     pts = torch.zeros((4, NLIMBS, B, Np), dtype=torch.int32,
                       device=points.device)
     pts[1, 0] = 1
     pts[2, 0] = 1
     pts[..., :N] = points.permute(1, 2, 0, 3)
-    # tables: (9, 4, NLIMBS, B, Np), entry 0 the identity
+    # tables: (NTBL, 4, NLIMBS, B, Np), entry 0 the identity
     ents = [E.identity_like(pts), pts]
-    for _ in range(7):
-        ents.append(E.point_add(ents[-1], pts).to(torch.int16)
-                    .to(torch.int32))
-    return _partials_from_tables(torch.stack(ents), digits, N)
+    for _ in range(_table_entries(window_bits) - 2):
+        e = E.point_add(ents[-1], pts)
+        ents.append(e.to(torch.int16).to(torch.int32)
+                    if tbl_dtype == "int16" else e)
+    _check_win_chunk(digits.shape[1], win_chunk)
+    return _partials_from_tables(torch.stack(ents), digits, N, chunk,
+                                 fold_dtype)
 
 
-def _partials_from_tables(tbl, digits, N: int):
+def _partials_from_tables(tbl, digits, N: int, chunk: int = CHUNK,
+                          fold_dtype: str = "int32"):
     """The window phase shared by K2's and K2t's plain versions: tables
-    (9, 4, NLIMBS, B, Np) int32 with entry 0 the identity and every lane
-    past N the identity, plain digits (B, 33, N) → (B, nchunk, 33, 4,
-    NLIMBS) int32, each half-chunk summed lane by lane, then the halves."""
+    (NTBL, 4, NLIMBS, B, Np) int32 with entry 0 the identity and every lane
+    past N the identity, plain digits (B, nwin, N) → (B, nchunk, nwin, 4,
+    NLIMBS), each half-chunk summed lane by lane, then the halves through
+    the exchange (int16 when `fold_dtype` is int16)."""
     B, Np = tbl.shape[3], tbl.shape[4]
-    nchunk = Np // CHUNK
-    dig = torch.zeros((B, NWINDOWS, Np), dtype=torch.int32,
-                      device=tbl.device)
+    nwin = digits.shape[1]
+    half = chunk // 2
+    nchunk = Np // chunk
+    dig = torch.zeros((B, nwin, Np), dtype=torch.int32, device=tbl.device)
     dig[..., :N] = digits
-    sel = _select(tbl, dig)  # (4, NLIMBS, B, 33, Np)
-    sel = sel.reshape(4, NLIMBS, B, NWINDOWS, nchunk, 2, HALF).permute(
+    sel = _select(tbl, dig)  # (4, NLIMBS, B, nwin, Np)
+    sel = sel.reshape(4, NLIMBS, B, nwin, nchunk, 2, half).permute(
         0, 1, 2, 4, 3, 5, 6)
     acc = sel[..., 0]
-    for lane in range(1, HALF):
+    for lane in range(1, half):
         acc = E.point_add(acc, sel[..., lane])
-    acc = E.point_add(acc[..., 0], acc[..., 1])  # (4, NLIMBS, B, nchunk, 33)
-    return acc.permute(2, 3, 4, 0, 1).contiguous()
+    other = acc[..., 1]
+    if fold_dtype == "int16":
+        other = other.to(torch.int16).to(torch.int32)
+    acc = E.point_add(acc[..., 0], other)  # (4, NLIMBS, B, nchunk, nwin)
+    return acc.permute(2, 3, 4, 0, 1).to(_PART_DTYPES[fold_dtype]) \
+        .contiguous()
 
 
 def _select(tbl, dig):
-    """sign(d)·T[|d|] for every (b, w, lane) of tables (9, 4, NLIMBS, B,
-    Np) and digits (B, 33, Np): (4, NLIMBS, B, 33, Np) int32, X and T
+    """sign(d)·T[|d|] for every (b, w, lane) of tables (NTBL, 4, NLIMBS, B,
+    Np) and digits (B, nwin, Np): (4, NLIMBS, B, nwin, Np) int32, X and T
     negated for negative digits."""
     idx = dig.abs().long().unsqueeze(0).unsqueeze(0).expand(
         (4, NLIMBS) + tuple(dig.shape))
@@ -270,157 +409,258 @@ def _select(tbl, dig):
     return sel
 
 
-def window_partials(digits, points):
-    """K2 wrapper: launches csrc/window_sums.cu on CUDA tensors, runs
-    `window_partials_plain` on CPU tensors."""
+def window_partials(digits, points, *, window_bits: int = limbs.WINDOW_BITS,
+                    tbl_dtype: str = "int16", fold_dtype: str = "int32",
+                    win_chunk: "int | None" = None, body: str = "rolled",
+                    chunk: int = CHUNK):
+    """K2 wrapper: launches the instantiation of csrc/window_sums.cuh that
+    `kernel_form` names on CUDA tensors, runs `window_partials_plain` on
+    CPU tensors.  The defaults are the main path's K2 (window_sums.cu);
+    `win_chunk=None` means every window in one block."""
     _check_points(points)
     B, _, _, N = points.shape
-    packed = _check_digits(digits, B, N)
+    packed = _check_digits(digits, B, N, window_bits)
+    base, suffix, chunk, W = kernel_form(
+        "window_sums", window_bits, tbl_dtype, fold_dtype, body, chunk,
+        win_chunk)
     if points.device.type == "cpu" and digits.device.type == "cpu":
-        return window_partials_plain(digits, points)
+        return window_partials_plain(
+            digits, points, window_bits=window_bits, tbl_dtype=tbl_dtype,
+            fold_dtype=fold_dtype, win_chunk=W, chunk=chunk)
     if points.device.type != "cuda" or digits.device != points.device:
         raise ValueError(f"digits on {digits.device} and points on "
                          f"{points.device}: both must be on one CUDA "
                          f"device or both on the CPU")
     digits, points = digits.contiguous(), points.contiguous()
-    nchunk = -(-N // CHUNK)
-    out = torch.empty((B, nchunk, NWINDOWS, 4, NLIMBS), dtype=torch.int32,
-                      device=points.device)
+    nchunk = -(-N // chunk)
+    out = torch.empty((B, nchunk, nwindows(window_bits), 4, NLIMBS),
+                      dtype=_PART_DTYPES[fold_dtype], device=points.device)
     if B * nchunk:
-        _cuda.KERNELS["window_sums"].launch(
+        _cuda.kernel(base, suffix).launch(
             points.device, digits.data_ptr(), int(packed),
-            points.data_ptr(), out.data_ptr(), B, N)
+            points.data_ptr(), out.data_ptr(), B, N, W)
     return out
 
 
-# -- K2t: window partials from prebuilt tables ----------------------------
+# -- K2t and K2s: window partials from prebuilt tables ---------------------
 
-def _check_tables(tables, name: str):
+def _check_tables(tables, name: str, window_bits: int = limbs.WINDOW_BITS):
+    n_tbl = _table_entries(window_bits)
     if tables.dtype != torch.int16 or tables.ndim != 5 or \
-            tuple(tables.shape[1:4]) != (NTABLE, 4, NLIMBS):
-        raise ValueError(f"{name} must be (*, {NTABLE}, 4, {NLIMBS}, n) "
+            tuple(tables.shape[1:4]) != (n_tbl, 4, NLIMBS):
+        raise ValueError(f"{name} must be (*, {n_tbl}, 4, {NLIMBS}, n) "
                          f"int16, got {tuple(tables.shape)} {tables.dtype}")
 
 
-def _tables_operands(digits, head_tables, r_tables):
+def _tables_operands(digits, head_tables, r_tables,
+                     window_bits: int = limbs.WINDOW_BITS):
     """Validates K2t's operands; returns (B, n_head, N, packed, r_tables)
     with an empty R table tensor standing in for None."""
-    _check_tables(head_tables, "head_tables")
+    _check_tables(head_tables, "head_tables", window_bits)
     B = digits.shape[0]
     n_head = head_tables.shape[4]
     if r_tables is None:
-        r_tables = torch.empty((B, NTABLE, 4, NLIMBS, 0), dtype=torch.int16,
-                               device=head_tables.device)
-    _check_tables(r_tables, "r_tables")
+        r_tables = torch.empty(
+            (B, _table_entries(window_bits), 4, NLIMBS, 0),
+            dtype=torch.int16, device=head_tables.device)
+    _check_tables(r_tables, "r_tables", window_bits)
     N = n_head + r_tables.shape[4]
     if head_tables.shape[0] not in (1, B) or r_tables.shape[0] != B:
         raise ValueError(f"head tables batch {head_tables.shape[0]} and R "
                          f"tables batch {r_tables.shape[0]} do not fit "
                          f"B = {B} (head: 1 or B; R: B)")
-    packed = _check_digits(digits, B, N)
+    packed = _check_digits(digits, B, N, window_bits)
     return B, n_head, N, packed, r_tables
 
 
-def window_partials_tables_plain(digits, head_tables, r_tables=None):
-    """Plain PyTorch version of K2t: digits (B, 17 | 33, N), head tables
-    (TH, 9, 4, NLIMBS, n_head) int16 with TH ∈ {1, B}, R tables (B, 9, 4,
-    NLIMBS, N − n_head) int16 (None when n_head = N) → partials (B, nchunk,
-    33, 4, NLIMBS) int32.  The same selection and additions as K2's plain
-    version on the given tables; entry 0 is taken as the identity, never
-    read from the tensors (the kernel never stores or reads it)."""
-    B, n_head, N, packed, r_tables = _tables_operands(
-        digits, head_tables, r_tables)
-    if packed:
-        digits = expand_digits(digits)
-    Np = -(-N // CHUNK) * CHUNK
-    tbl = torch.zeros((NTABLE, 4, NLIMBS, B, Np), dtype=torch.int32,
+def _tables_tensor(head_tables, r_tables, B: int, N: int, chunk: int):
+    """The blocks' view of the tables: (NTBL, 4, NLIMBS, B, Np) int32,
+    head lanes then R lanes, the identity in entry 0 and past lane N
+    (entry 0 of the tensors is never read, as the kernels never read it)."""
+    n_tbl, n_head = head_tables.shape[1], head_tables.shape[4]
+    Np = -(-N // chunk) * chunk
+    tbl = torch.zeros((n_tbl, 4, NLIMBS, B, Np), dtype=torch.int32,
                       device=r_tables.device)
     tbl[:, 1:3, 0] = 1  # the identity, kept in entry 0 and past lane N
     tbl[1:, ..., :n_head] = head_tables[:, 1:].permute(1, 2, 3, 0, 4)
     tbl[1:, ..., n_head:N] = r_tables[:, 1:].permute(1, 2, 3, 0, 4)
-    return _partials_from_tables(tbl, digits, N)
+    return tbl
 
 
-def window_partials_tables(digits, head_tables, r_tables=None):
-    """K2t wrapper: launches window_sums_tables (csrc/window_sums.cu) on
-    CUDA tensors, runs `window_partials_tables_plain` on CPU tensors.
-    TH = 1 head tables are shared by every batch (batch stride 0)."""
-    B, n_head, N, packed, r_tables = _tables_operands(
-        digits, head_tables, r_tables)
+def _tables_devices(digits, head_tables, r_tables) -> bool:
+    """True for operands all on the CPU; raises unless they are all on one
+    CUDA device."""
     devs = {digits.device, head_tables.device, r_tables.device}
     if devs == {torch.device("cpu")}:
-        return window_partials_tables_plain(digits, head_tables, r_tables)
+        return True
     if len(devs) != 1 or digits.device.type != "cuda":
         raise ValueError(f"digits, head tables and R tables on {devs}: all "
                          f"must be on one CUDA device or all on the CPU")
+    return False
+
+
+def window_partials_tables_plain(digits, head_tables, r_tables=None, *,
+                                 window_bits: int = limbs.WINDOW_BITS,
+                                 fold_dtype: str = "int32",
+                                 win_chunk: "int | None" = None):
+    """Plain PyTorch version of K2t: digits (B, 17 | nwin, N), head tables
+    (TH, NTBL, 4, NLIMBS, n_head) int16 with TH ∈ {1, B}, R tables (B,
+    NTBL, 4, NLIMBS, N − n_head) int16 (None when n_head = N) → partials
+    (B, nchunk, nwin, 4, NLIMBS).  The same selection and additions as K2's
+    plain version on the given tables; entry 0 is taken as the identity,
+    never read from the tensors (the kernel never stores or reads it).
+    The JAX counterpart: ops/pallas_msm.py:275-285 (tables_in)."""
+    B, n_head, N, packed, r_tables = _tables_operands(
+        digits, head_tables, r_tables, window_bits)
+    if packed:
+        digits = expand_digits(digits)
+    _check_win_chunk(digits.shape[1], win_chunk)
+    tbl = _tables_tensor(head_tables, r_tables, B, N, CHUNK)
+    return _partials_from_tables(tbl, digits, N, CHUNK, fold_dtype)
+
+
+def window_partials_tables(digits, head_tables, r_tables=None, *,
+                           window_bits: int = limbs.WINDOW_BITS,
+                           fold_dtype: str = "int32",
+                           win_chunk: "int | None" = None):
+    """K2t wrapper: launches the window_sums_tables instantiation
+    (csrc/window_sums.cu, window_sums_r32.cu) on CUDA tensors, runs
+    `window_partials_tables_plain` on CPU tensors.  TH = 1 head tables are
+    shared by every batch (batch stride 0)."""
+    B, n_head, N, packed, r_tables = _tables_operands(
+        digits, head_tables, r_tables, window_bits)
+    base, suffix, _, W = kernel_form(
+        "window_sums_tables", window_bits, fold_dtype=fold_dtype,
+        win_chunk=win_chunk)
+    if _tables_devices(digits, head_tables, r_tables):
+        return window_partials_tables_plain(
+            digits, head_tables, r_tables, window_bits=window_bits,
+            fold_dtype=fold_dtype, win_chunk=W)
     digits = digits.contiguous()
     head_tables = head_tables.contiguous()
     r_tables = r_tables.contiguous()
     nchunk = -(-N // CHUNK)
-    out = torch.empty((B, nchunk, NWINDOWS, 4, NLIMBS), dtype=torch.int32,
-                      device=digits.device)
+    out = torch.empty((B, nchunk, nwindows(window_bits), 4, NLIMBS),
+                      dtype=_PART_DTYPES[fold_dtype], device=digits.device)
     if B * nchunk:
-        _cuda.KERNELS["window_sums_tables"].launch(
+        _cuda.kernel(base, suffix).launch(
             digits.device, digits.data_ptr(), int(packed),
             head_tables.data_ptr(), int(head_tables.shape[0] != 1),
-            n_head, r_tables.data_ptr(), out.data_ptr(), B, N)
+            n_head, r_tables.data_ptr(), out.data_ptr(), B, N, W)
+    return out
+
+
+def select_only_plain(digits, head_tables, r_tables=None):
+    """Plain PyTorch version of K2s: K2t's operands → (B, nchunk, 33, 2,
+    80) int32, for window w and chunk half h the limb-wise XOR over the
+    half's lanes of sign(d)·T[|d|] (the identity for d = 0).  A profile
+    form only (the JAX package's select_only, ops/pallas_msm.py:200-204,
+    :251-253): it never reaches a verdict."""
+    B, n_head, N, packed, r_tables = _tables_operands(
+        digits, head_tables, r_tables)
+    if packed:
+        digits = expand_digits(digits)
+    tbl = _tables_tensor(head_tables, r_tables, B, N, CHUNK)
+    Np = tbl.shape[4]
+    dig = torch.zeros((B, NWINDOWS, Np), dtype=torch.int32,
+                      device=tbl.device)
+    dig[..., :N] = digits
+    sel = _select(tbl, dig).reshape(4, NLIMBS, B, NWINDOWS, Np // CHUNK, 2,
+                                    HALF)
+    x = sel[..., 0]
+    for lane in range(1, HALF):
+        x = x ^ sel[..., lane]
+    return x.permute(2, 4, 3, 5, 0, 1).reshape(
+        B, Np // CHUNK, NWINDOWS, 2, 4 * NLIMBS).contiguous()
+
+
+def select_only(digits, head_tables, r_tables=None, *,
+                win_chunk: "int | None" = None):
+    """K2s wrapper: launches window_select_only (csrc/window_sums_lab.cu)
+    on CUDA tensors, runs `select_only_plain` on CPU tensors."""
+    B, n_head, N, packed, r_tables = _tables_operands(
+        digits, head_tables, r_tables)
+    base, suffix, _, W = kernel_form("window_select_only",
+                                     win_chunk=win_chunk)
+    if _tables_devices(digits, head_tables, r_tables):
+        return select_only_plain(digits, head_tables, r_tables)
+    digits = digits.contiguous()
+    head_tables = head_tables.contiguous()
+    r_tables = r_tables.contiguous()
+    nchunk = -(-N // CHUNK)
+    out = torch.empty((B, nchunk, NWINDOWS, 2, 4 * NLIMBS),
+                      dtype=torch.int32, device=digits.device)
+    if B * nchunk:
+        _cuda.kernel(base, suffix).launch(
+            digits.device, digits.data_ptr(), int(packed),
+            head_tables.data_ptr(), int(head_tables.shape[0] != 1),
+            n_head, r_tables.data_ptr(), out.data_ptr(), B, N, W)
     return out
 
 
 # -- K4: multiples tables --------------------------------------------------
 
-def build_tables_plain(points):
+def build_tables_plain(points, window_bits: int = limbs.WINDOW_BITS):
     """Plain PyTorch version of K4: extended points (B, 4, NLIMBS, N) int16
-    → tables (B, 9, 4, NLIMBS, N) int16, entry 0 the identity, entry k =
-    entry (k−1) + P — the reference's table_scan, step for step."""
+    → tables (B, NTBL, 4, NLIMBS, N) int16, entry 0 the identity, entry k =
+    entry (k−1) + P — the reference's table_scan (ops/msm.py:194-220),
+    step for step, with NTBL = 9 or 17 by `window_bits`."""
     pts = points.permute(1, 2, 0, 3).to(torch.int32)  # (4, NLIMBS, B, N)
     ents = [E.identity_like(pts)]
-    for _ in range(NTABLE - 1):
+    for _ in range(_table_entries(window_bits) - 1):
         ents.append(E.point_add(ents[-1], pts))
     return torch.stack(ents).to(torch.int16).permute(3, 0, 1, 2, 4) \
         .contiguous()
 
 
-def multiples_tables(points):
-    """K4 wrapper: launches build_tables (csrc/build_tables.cu) on a CUDA
-    tensor, runs `build_tables_plain` on a CPU tensor."""
+def multiples_tables(points, window_bits: int = limbs.WINDOW_BITS):
+    """K4 wrapper: launches build_tables (9 entries) or build_tables_r32
+    (17, csrc/build_tables.cu) on a CUDA tensor, runs `build_tables_plain`
+    on a CPU tensor."""
     _check_points(points)
+    n_tbl = _table_entries(window_bits)
+    nwindows(window_bits)
     if points.device.type == "cpu":
-        return build_tables_plain(points)
+        return build_tables_plain(points, window_bits)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     points = points.contiguous()
     B, _, _, N = points.shape
-    out = torch.empty((B, NTABLE, 4, NLIMBS, N), dtype=torch.int16,
+    out = torch.empty((B, n_tbl, 4, NLIMBS, N), dtype=torch.int16,
                       device=points.device)
     if B * N:
-        _cuda.KERNELS["build_tables"].launch(
+        _cuda.kernel("build_tables" if window_bits == limbs.WINDOW_BITS
+                     else "build_tables-r32").launch(
             points.device, points.data_ptr(), out.data_ptr(), B, N)
     return out
 
 
-def build_multiples_tables(points, device=None):
+def build_multiples_tables(points, device=None,
+                           window_bits: int = limbs.WINDOW_BITS):
     """The multiples tables of a batch of extended points, (B, 4, NLIMBS,
-    N) int16 (numpy or tensor) → (B, 9, 4, NLIMBS, N) int16 tensor on
+    N) int16 (numpy or tensor) → (B, NTBL, 4, NLIMBS, N) int16 tensor on
     `device` (None means CUDA): row 0 the identity, row k the exact [k]P,
-    equal byte for byte to the reference's build_multiples_tables."""
-    return multiples_tables(as_tensor(points, resolve_device(device)))
+    equal byte for byte to the reference's build_multiples_tables
+    (ops/msm.py:626-635)."""
+    return multiples_tables(as_tensor(points, resolve_device(device)),
+                            window_bits)
 
 
 # -- K3: fold of the chunk partials ----------------------------------------
 
 def fold_partials_plain(partials):
-    """Plain PyTorch version of K3: (B, nchunk, 33, 4, NLIMBS) int32 →
-    (B, 4, NLIMBS, 33) int32.  Same order as csrc/fold_partials.cu:
-    accumulator t < FOLD_THREADS starts from chunk t and adds chunks
-    t + 32, t + 64, ...; the live accumulators then meet in a halving tree.
-    nchunk - 1 additions per (b, window); no chunks give the identity."""
-    B, nchunk = partials.shape[:2]
-    p = partials.permute(3, 4, 0, 2, 1)  # (4, NLIMBS, B, 33, nchunk)
+    """Plain PyTorch version of K3: (B, nchunk, nwin, 4, NLIMBS) int32 or
+    int16 → (B, 4, NLIMBS, nwin) int32.  Same order as
+    csrc/fold_partials.cu: accumulator t < FOLD_THREADS starts from chunk t
+    and adds chunks t + 32, t + 64, ...; the live accumulators then meet in
+    a halving tree.  nchunk - 1 additions per (b, window); no chunks give
+    the identity."""
+    B, nchunk, nwin = partials.shape[:3]
+    p = partials.to(torch.int32).permute(3, 4, 0, 2, 1)  # (4, NLIMBS, B, nwin, nchunk)
     T = FOLD_THREADS
     live = min(nchunk, T)
     if not live:
-        out = torch.zeros((B, 4, NLIMBS, NWINDOWS), dtype=torch.int32,
+        out = torch.zeros((B, 4, NLIMBS, nwin), dtype=torch.int32,
                           device=p.device)
         out[:, 1, 0] = 1
         out[:, 2, 0] = 1
@@ -441,23 +681,31 @@ def fold_partials_plain(partials):
 
 
 def fold_partials(partials):
-    """K3 wrapper: launches csrc/fold_partials.cu on a CUDA tensor, runs
-    `fold_partials_plain` on a CPU tensor."""
-    if partials.dtype != torch.int32 or partials.ndim != 5 or \
-            tuple(partials.shape[2:]) != (NWINDOWS, 4, NLIMBS):
-        raise ValueError(f"partials must be (B, nchunk, {NWINDOWS}, 4, "
-                         f"{NLIMBS}) int32, got {tuple(partials.shape)} "
-                         f"{partials.dtype}")
+    """K3 wrapper: launches csrc/fold_partials.cu on a CUDA tensor — the
+    instantiation for 33 or 27 windows of int32 or int16 partials — and
+    runs `fold_partials_plain` on a CPU tensor."""
+    if partials.dtype not in (torch.int32, torch.int16) or \
+            partials.ndim != 5 or partials.shape[2] not in (
+                NWINDOWS, limbs.NWINDOWS_R32) or \
+            tuple(partials.shape[3:]) != (4, NLIMBS):
+        raise ValueError(f"partials must be (B, nchunk, 33 | 27, 4, "
+                         f"{NLIMBS}) int32 or int16, got "
+                         f"{tuple(partials.shape)} {partials.dtype}")
+    base = "-".join(["fold_partials"] + [tag for cond, tag in (
+        (partials.shape[2] == limbs.NWINDOWS_R32, "r32"),
+        (partials.dtype == torch.int16, "i16fold")) if cond])
+    if base not in _cuda.INSTANTIATIONS:
+        raise ValueError(f"no kernel is built for {base}")
     if partials.device.type == "cpu":
         return fold_partials_plain(partials)
     if partials.device.type != "cuda":
         raise ValueError(f"unsupported device {partials.device}")
     partials = partials.contiguous()
-    B, nchunk = partials.shape[:2]
-    out = torch.empty((B, 4, NLIMBS, NWINDOWS), dtype=torch.int32,
+    B, nchunk, nwin = partials.shape[:3]
+    out = torch.empty((B, 4, NLIMBS, nwin), dtype=torch.int32,
                       device=partials.device)
     if B:
-        _cuda.KERNELS["fold_partials"].launch(
+        _cuda.kernel(base).launch(
             partials.device, partials.data_ptr(), out.data_ptr(), B, nchunk)
     return out
 
@@ -594,17 +842,112 @@ def as_tensor(x, device):
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def auto_win_chunk(nwin: int) -> int:
+    """Windows per window-sum block for the dispatches, read on every
+    call: ED25519_TPU_WIN_CHUNK when it is a positive divisor of `nwin` (a
+    non-divisor is warned about and ignored; a non-integer raises
+    ConfigError at the read), else `nwin` — every window in one block, the
+    port's default and the launch every verdict path has run since K2 was
+    written.  The JAX package's counterpart (ops/pallas_msm.py:456-477)
+    defaults to 11 or 9 windows a grid step, a cost measured on a TPU,
+    which is not carried over (PERF.md)."""
+    import warnings
+
+    w = _config.get("ED25519_TPU_WIN_CHUNK")
+    if w is not None:
+        if w > 0 and nwin % w == 0:
+            return w
+        warnings.warn(f"ED25519_TPU_WIN_CHUNK={w!r} ignored: must be a "
+                      f"positive divisor of {nwin}", stacklevel=2)
+    return nwin
+
+
+def body_style() -> str:
+    """The window-sum kernel body, ED25519_TPU_PALLAS_BODY, read on every
+    call: `rolled` (default) or `hybrid` (unrolled loops); `unrolled` and
+    anything else fall back to `rolled`, as in the JAX package
+    (config.py:144-148, ops/pallas_msm.py:342-363)."""
+    return _config.get("ED25519_TPU_PALLAS_BODY")
+
+
+def window_sums_many(digits, points, *, window_bits: int = limbs.WINDOW_BITS,
+                     fold_dtype: str = "int32", tbl_dtype: str = "int16",
+                     win_chunk: "int | None" = None, body: "str | None" = None,
+                     chunk: int = CHUNK, device=None):
+    """B stacked batches in one device call with any window-sum form — the
+    counterpart of the JAX package's pallas_window_sums_many
+    (ops/pallas_msm.py:480-508; its `tile` is `chunk` here): digits (B, 17,
+    N) uint8 packed or (B, nwin, N) int8 plain (radix 32: plain only),
+    points in any wire (numpy arrays or tensors) → (B, 4, NLIMBS, nwin)
+    int32 tensor on `device` (None means CUDA).  `win_chunk` None reads
+    ED25519_TPU_WIN_CHUNK (`auto_win_chunk`), `body` None reads
+    ED25519_TPU_PALLAS_BODY.  On CUDA: K1 or K6 for a point wire, the K2
+    form, the matching K3; a form that is not built or does not fit raises
+    ValueError before any launch."""
+    dev = resolve_device(device)
+    nwin = nwindows(window_bits)
+    if win_chunk is None:
+        win_chunk = auto_win_chunk(nwin)
+    if body is None:
+        body = body_style()
+    kernel_form("window_sums", window_bits, tbl_dtype, fold_dtype, body,
+                chunk, win_chunk)
+    digits = as_tensor(digits, dev)
+    points = as_tensor(points, dev)
+    with DEVICE_CALL_LOCK:
+        return fold_partials(window_partials(
+            digits, expand_points(points), window_bits=window_bits,
+            tbl_dtype=tbl_dtype, fold_dtype=fold_dtype,
+            win_chunk=win_chunk, body=body, chunk=chunk))
+
+
+def window_sums_many_tables_full(digits, tables, *,
+                                 window_bits: int = limbs.WINDOW_BITS,
+                                 fold_dtype: str = "int32",
+                                 win_chunk: "int | None" = None,
+                                 device=None):
+    """B stacked batches from FULL prebuilt multiples tables — the
+    counterpart of pallas_window_sums_many_tables_full
+    (ops/pallas_msm.py:511-536): digits (B, 17 | nwin, N), tables (TB,
+    NTBL, 4, NLIMBS, N) int16 with TB ∈ {1, B} (TB = 1 shares one table
+    across the batch) → (B, 4, NLIMBS, nwin) int32 on `device`.  K2t (no R
+    lanes) and K3; the body is always rolled, as in the JAX package, and
+    `win_chunk` None reads ED25519_TPU_WIN_CHUNK."""
+    dev = resolve_device(device)
+    if win_chunk is None:
+        win_chunk = auto_win_chunk(nwindows(window_bits))
+    digits = as_tensor(digits, dev)
+    tables = as_tensor(tables, dev)
+    with DEVICE_CALL_LOCK:
+        return fold_partials(window_partials_tables(
+            digits, tables, window_bits=window_bits, fold_dtype=fold_dtype,
+            win_chunk=win_chunk))
+
+
+def window_select_only(digits, tables, *, win_chunk: "int | None" = None,
+                       device=None):
+    """The select-only profile form (K2s) on full tables, (B, 17 | 33, N)
+    digits and (TB, 9, 4, NLIMBS, N) tables → (B, nchunk, 33, 2, 80)
+    int32 on `device`: the select time of K2t without its additions, for
+    tools/microbench.py's stage profile (the JAX package's select_only,
+    ops/pallas_msm.py:200-204).  Never on a verdict path."""
+    dev = resolve_device(device)
+    digits = as_tensor(digits, dev)
+    tables = as_tensor(tables, dev)
+    with DEVICE_CALL_LOCK:
+        return select_only(digits, tables, win_chunk=win_chunk)
+
+
 def dispatch_window_sums_many(digits, points, device=None):
     """One device call for B stacked batches: digits (B, 17, N) uint8
     packed or (B, 33, N) int8 plain; points in any wire — (B, 33, N) uint8
     compressed, (B, 2, NLIMBS, N) int16 affine or (B, 4, NLIMBS, N) int16
     extended (numpy arrays or tensors) → (B, 4, NLIMBS, 33) int32 tensor on
-    `device`.  On CUDA: K1 (compressed) or K6 (affine), K2, K3."""
-    dev = resolve_device(device)
-    digits = as_tensor(digits, dev)
-    points = as_tensor(points, dev)
-    with DEVICE_CALL_LOCK:
-        return fold_partials(window_partials(digits, expand_points(points)))
+    `device`.  On CUDA: K1 (compressed) or K6 (affine), K2, K3.  Reads
+    ED25519_TPU_WIN_CHUNK and ED25519_TPU_PALLAS_BODY on every call, as
+    the JAX package's dispatch does (ops/msm.py:518-541); unset, the
+    default K2."""
+    return window_sums_many(digits, points, device=device)
 
 
 def dispatch_window_sums(digits, points, device=None):
@@ -632,7 +975,9 @@ def dispatch_window_sums_many_cached(digits, head, rwire, device=None):
         r_pts = expand_compressed_points(rwire)
         pts = torch.cat([head[None].expand(rwire.shape[0], -1, -1, -1),
                          r_pts], dim=-1)
-        return fold_partials(window_partials(digits, pts))
+        return fold_partials(window_partials(
+            digits, pts, win_chunk=auto_win_chunk(NWINDOWS),
+            body=body_style()))
 
 
 def dispatch_window_sums_many_tables(digits, head_tables, rwire,
@@ -642,7 +987,9 @@ def dispatch_window_sums_many_tables(digits, head_tables, rwire,
     the entry's (9, 4, NLIMBS, n_head) int16 tensor, `rwire` (B, 33, n_r)
     → (B, 4, NLIMBS, 33) int32.  K1 expands the R wire, K4 builds the R
     lanes' tables, K2t sums the windows with the head tables shared across
-    the batch (TH = 1), K3 folds.  The head tables are never rebuilt."""
+    the batch (TH = 1), K3 folds.  The head tables are never rebuilt.
+    Reads ED25519_TPU_WIN_CHUNK on every call; the body is always rolled,
+    as in the JAX package's tables pipeline (ops/pallas_msm.py:538-568)."""
     dev = resolve_device(device)
     digits = as_tensor(digits, dev)
     head_tables = as_tensor(head_tables, dev)
@@ -650,7 +997,8 @@ def dispatch_window_sums_many_tables(digits, head_tables, rwire,
     with DEVICE_CALL_LOCK:
         r_tbl = multiples_tables(expand_compressed_points(rwire))
         return fold_partials(window_partials_tables(
-            digits, head_tables[None], r_tbl))
+            digits, head_tables[None], r_tbl,
+            win_chunk=auto_win_chunk(NWINDOWS)))
 
 
 class PendingMSM:

@@ -224,3 +224,145 @@ def test_virtual_mesh_on_the_card(dev):
         assert st["sentinel"]["audits"] >= 1
     finally:
         batch._DeviceLane.reset_all()
+
+
+# -- the kernel lab's forms (slice 3) ---------------------------------------
+
+def _digits(window_bits, B, N, seed):
+    half = 1 << (window_bits - 1)
+    d = np.random.default_rng(seed).integers(
+        -half, half, size=(B, msm.nwindows(window_bits), N)).astype(np.int8)
+    d[:, :, :20] = -half
+    d[:, :, 20:40] = half - 1
+    return d
+
+
+K2_FORMS = [
+    (4, {"win_chunk": 11}), (4, {"win_chunk": 3}), (4, {"win_chunk": 1}),
+    (4, {"fold_dtype": "int16", "win_chunk": 11}),
+    (4, {"tbl_dtype": "int32"}), (4, {"tbl_dtype": "int32", "chunk": 32}),
+    (4, {"body": "hybrid"}), (4, {"body": "hybrid", "win_chunk": 3}),
+    (5, {}), (5, {"win_chunk": 9}), (5, {"tbl_dtype": "int32"}),
+]
+
+
+@pytest.mark.parametrize("window_bits,kw", K2_FORMS,
+                         ids=[f"r{1 << wb}-" + "-".join(
+                             f"{k}={v}" for k, v in kw.items())
+                             for wb, kw in K2_FORMS])
+def test_window_sum_forms_match_plain(dev, window_bits, kw):
+    """Every K2 instantiation and several windows per block, at a ragged
+    shape, against its plain version (exact), and K3 of the form's
+    partials; the launch is counted under the form's own name."""
+    B, N = 2, 200
+    d = torch.from_numpy(_digits(window_bits, B, N, 60)).to(dev)
+    pts = TD.expand_compressed_points(
+        torch.from_numpy(np.stack([_wire(N, 61), _wire(N, 62)])).to(dev))
+    base, suffix, chunk, _ = msm.kernel_form(
+        "window_sums", window_bits, kw.get("tbl_dtype", "int16"),
+        kw.get("fold_dtype", "int32"), kw.get("body", "rolled"),
+        kw.get("chunk", 64), kw.get("win_chunk"))
+    k = _cuda.kernel(base, suffix)
+    before = k.launches
+    got = msm.window_partials(d, pts, window_bits=window_bits, **kw)
+    want = msm.window_partials_plain(
+        d, pts, window_bits=window_bits, chunk=chunk,
+        **{n: v for n, v in kw.items() if n in ("tbl_dtype", "fold_dtype")})
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(msm.fold_partials(got), msm.fold_partials_plain(want))
+
+
+@pytest.mark.parametrize("window_bits", [4, 5])
+def test_tables_forms_and_select_only_match_plain(dev, window_bits):
+    """K4 at 9 and 17 entries, K2t at both radixes (W = 11 at radix 16,
+    the head boundary inside a chunk) and K2s against their plain
+    versions."""
+    B, N, n_head = 2, 200, 70
+    pts = TD.expand_compressed_points(
+        torch.from_numpy(np.stack([_wire(N, 63), _wire(N, 64)])).to(dev))
+    tables = msm.multiples_tables(pts, window_bits)
+    assert torch.equal(tables, msm.build_tables_plain(pts, window_bits))
+    d = torch.from_numpy(_digits(window_bits, B, N, 65)).to(dev)
+    head = tables[..., :n_head].contiguous()
+    r = tables[..., n_head:].contiguous()
+    W = 11 if window_bits == 4 else None
+    got = msm.window_partials_tables(d, head, r, window_bits=window_bits,
+                                     win_chunk=W)
+    assert torch.equal(got, msm.window_partials_tables_plain(
+        d, head, r, window_bits=window_bits))
+    if window_bits == 4:
+        assert torch.equal(msm.select_only(d, tables[:1]),
+                           msm.select_only_plain(d, tables[:1]))
+
+
+def test_probes_match_plain(dev):
+    from ed25519_consensus_tpu_torch.ops import probes
+
+    x = torch.from_numpy(np.arange(8 * 128, dtype=np.int32)
+                         .reshape(8, 128) % 97).to(dev)
+    for op in probes.CHAIN_OPS:
+        assert torch.equal(probes.chain(x, op, 64),
+                           probes.chain_plain(x, op, 64))
+    xf = torch.from_numpy(np.arange(20 * 8 * 128, dtype=np.int32)
+                          .reshape(20, 8, 128) % 1000).to(dev)
+    assert torch.equal(probes.fmul_chain(xf, 3),
+                       probes.fmul_chain_plain(xf, 3))
+
+
+@pytest.mark.parametrize("env,name", [
+    ({"ED25519_TPU_WIN_CHUNK": "11"}, "window_sums-w11"),
+    ({"ED25519_TPU_PALLAS_BODY": "hybrid"}, "window_sums-hybrid"),
+    ({"ED25519_TPU_PALLAS_BODY": "unrolled"}, "window_sums"),
+])
+def test_knobs_drive_the_main_path(dev, monkeypatch, env, name):
+    """The stacked dispatch runs the instantiation the knobs name, with the
+    default's window sums."""
+    B, N = 2, 128
+    d = _digits(4, B, N, 66)
+    w = np.stack([_wire(N, 67), _wire(N, 68)])
+    want = msm.dispatch_window_sums_many(d, w, dev)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    before = _cuda.launch_counts()
+    got = msm.dispatch_window_sums_many(d, w, dev)
+    torch.cuda.synchronize()
+    after = _cuda.launch_counts()
+    assert after[name] == before.get(name, 0) + 1
+    assert name == "window_sums" or \
+        after["window_sums"] == before["window_sums"]
+    assert torch.equal(got, want)
+
+
+def test_single_form_entries_refuse_other_windows(dev):
+    """An instantiation that holds only its every-window kernel refuses
+    fewer windows a block at its C entry as well (cudaErrorInvalidValue,
+    launching nothing), and the int16-fold form, which holds only its
+    any-W kernel, runs every window in one block equal to its plain
+    version."""
+    B, N = 1, 128
+    d = torch.from_numpy(_digits(4, B, N, 69)).to(dev)
+    pts = TD.expand_compressed_points(
+        torch.from_numpy(_wire(N, 70)[None]).to(dev))
+    out = torch.empty((B, 2, 33, 4, limbs.NLIMBS), dtype=torch.int32,
+                      device=dev)
+    k = _cuda.KERNELS["window_sums-i32tbl"]
+    before = k.launches
+    with pytest.raises(_cuda.CudaError) as err:
+        k.launch(pts.device, d.data_ptr(), 0, pts.data_ptr(),
+                 out.data_ptr(), B, N, 11)
+    assert err.value.cuda_error == 1 and k.launches == before
+    got = msm.window_partials(d, pts, fold_dtype="int16")
+    assert torch.equal(got, msm.window_partials_plain(d, pts,
+                                                      fold_dtype="int16"))
+
+
+def test_unbuilt_forms_raise_on_the_card(dev):
+    d = torch.zeros((1, 27, 64), dtype=torch.int8, device=dev)
+    pts = torch.zeros((1, 4, limbs.NLIMBS, 64), dtype=torch.int16,
+                      device=dev)
+    with pytest.raises(ValueError, match="no kernel is built"):
+        msm.window_partials(d, pts, window_bits=5, fold_dtype="int16")
+    with pytest.raises(ValueError, match="divisor"):
+        msm.window_partials(d, pts, window_bits=5, win_chunk=11)

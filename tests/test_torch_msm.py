@@ -259,6 +259,15 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError):
         msm.window_partials(torch.zeros((1, 17, 63), dtype=torch.uint8),
                             pts)
+    # int16 partials are the int16-fold form's (K3's fold_partials_i16fold);
+    # other types, other window counts and the radix-32 int16 form (not
+    # built) are refused
     with pytest.raises(ValueError):
         msm.fold_partials(torch.zeros((1, 2, 33, 4, limbs.NLIMBS),
+                                      dtype=torch.int8))
+    with pytest.raises(ValueError):
+        msm.fold_partials(torch.zeros((1, 2, 30, 4, limbs.NLIMBS),
+                                      dtype=torch.int32))
+    with pytest.raises(ValueError):
+        msm.fold_partials(torch.zeros((1, 2, 27, 4, limbs.NLIMBS),
                                       dtype=torch.int16))

@@ -3,9 +3,10 @@ import neither `jax` nor anything of the JAX package `ed25519_consensus_tpu`
 (the port keeps its own copies of the host modules and of the host C++
 runtime), and its device entry points never fall back to the CPU unasked.
 The blocked-import run drives the native runtime, verify_many through
-resident tables, and the sharded mesh (two shards on the CPU, the sentinel
-audit, the affine wire, the sharded backend) as well; the kernel sources in
-csrc/ include nothing outside the port.
+resident tables, the sharded mesh (two shards on the CPU, the sentinel
+audit, the affine wire, the sharded backend) and the kernel lab's tools
+(tools/kernel_lab.py, tools/microbench.py, the probes) as well; the kernel
+sources in csrc/, probes.cu among them, include nothing outside the port.
 
 Careful with names: `ed25519_consensus_tpu_torch` starts with
 `ed25519_consensus_tpu`, so a blocked name is matched exactly or as a
@@ -126,6 +127,20 @@ for wire in ("compressed", "affine"):
 routing._device_count[0] = 2
 bv.verify(rng=rng, backend="sharded", device="cpu")
 assert "sharded_msm" in sharded_msm.__name__
+
+# The kernel lab's tools and forms on the CPU: a radix-32 variant against
+# the exact host MSM, the stage profile and the probes.
+import torch
+
+from ed25519_consensus_tpu_torch.ops import probes
+from ed25519_consensus_tpu_torch.tools import kernel_lab, microbench
+
+assert kernel_lab.exp_variant("radix32", device="cpu", sizes=(64, 128),
+                              reps=1, window_bits=5, win_chunk=9)
+microbench.profile_ledger(1, 64, reps=1, device="cpu")
+x = torch.arange(256, dtype=torch.int32).reshape(2, 128)
+assert torch.equal(probes.chain(x, "madd", 5),
+                   probes.chain_plain(x, "madd", 5))
 batch._DeviceLane.reset_all()
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
@@ -177,13 +192,17 @@ def _port_sources():
     assert len(files) > 15
     assert {"mesh.py", "sharded_msm.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
+    assert {"kernel_lab.py", "microbench.py"} <= {
+        f.name for f in files if f.parent.name == "tools"}
     return files
 
 
 def _csrc_sources():
     files = sorted(p for p in (PORT / "csrc").rglob("*")
                    if p.suffix in (".cu", ".cuh", ".cpp", ".h"))
-    assert {"expand_affine.cu", "fold_partials.cu"} <= {f.name for f in files}
+    assert {"expand_affine.cu", "fold_partials.cu", "probes.cu",
+            "window_sums.cuh", "window_sums_r32.cu", "window_sums_w.cu"} <= {
+        f.name for f in files}
     return files
 
 
