@@ -21,6 +21,11 @@ card, drives the port's two paths, and times the kernels.
   K1).  K5 and K6 are held against their plain versions on the operands
   those paths gave them, and the routing model's constants `a` and `b`
   are measured.
+* The lab: the 20-limb K2 and K2t (`-l20`) timed in turns with the default
+  K2 and K2t (window_sums_u32.cuh) on the main path's operands; the
+  self-test of their field arithmetic (probe_fe8) against the exact-
+  integer model, with the SASS of each operation counted; the kernel
+  lab's sweep, the two knobs, the stage profile and the probes.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --stress-tables REPS SECONDS
@@ -61,6 +66,9 @@ ROOT = Path(__file__).resolve().parent
 # 1.98 GHz boost clock (H100 SXM data sheet) = 33.5e12 int32 ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 128 * 132 * 1.98e9
+# Integer multiply-adds (IMAD) issue at half that rate, 64 a clock an SM:
+# a second bound for work rich in multiplies (the 20-limb field products).
+IMAD_PER_S = 64 * 132 * 1.98e9
 
 # int32 instructions per field operation, from csrc/fe25519.cuh, a
 # multiply-add counting as one.  A carry step is 4 per limb (add the
@@ -77,6 +85,31 @@ OPS_FE_SQ = 210 + 19 + OPS_MUL_TAIL
 OPS_FE_ADD = 20 + OPS_CARRY
 OPS_FE_NEG = 20
 OPS_GE_ADD = 9 * OPS_FE_MUL + 9 * OPS_FE_ADD
+# The same operations in csrc/fe25519_u32.cuh (8 x 32-bit words, carry
+# chains), counted by hand from the source, a multiply-add or a 64-bit
+# multiply counting as one; tools/ptxas_report.py and the fe8 phase count
+# the SASS beside them.  fe8_add: a chain of 8 and its carry word,
+# 38 * carry, a chain of 8 and its carry word, the last multiply-add (20,
+# 2 on the multiply pipe); fe8_sub the same with two ands and a subtract
+# (21); fe8_neg is fe8_sub.  fe8_mul: row 0, 8 mul.wide and a chain of 8;
+# rows 1..7, 8 mul.wide, a chain of 8 and its carry word, a chain of 8
+# (25 each); the reduction, 8 mul.wide, 17 chain additions, 38 * top, a
+# chain of 8 and its carry word, the last multiply-add (36): 227
+# operations, of which 74 on the multiply pipe.  A complete addition is 9
+# products, 5 adds and 4 subtracts.  The conversions: fe8_from_limbs20
+# ~5 a limb into the 64-bit accumulator, 7 word shifts and 23 for the
+# fold (130); fe8_to_limbs20_canonical 11 + 18 for the residue, 40 for
+# the fields and 76 for the balanced split (145).
+OPS8_FE_ADD = 20
+MADS8_FE_ADD = 2
+OPS8_FE_SUB = 21
+OPS8_FE_MUL = 16 + 7 * 25 + 36
+MADS8_FE_MUL = 64 + 8 + 2
+OPS8_GE_ADD = 9 * OPS8_FE_MUL + 5 * OPS8_FE_ADD + 4 * OPS8_FE_SUB
+MADS8_GE_ADD = 9 * MADS8_FE_MUL + 5 * MADS8_FE_ADD
+OPS8_FROM_LIMBS20 = 130
+OPS8_TO_CANONICAL = 145
+MADS8_TO_CANONICAL = 1 + 19
 # K1 per lane (csrc/expand_compressed.cu): squarings y^2, v^2, (v^3)^2 and
 # the 251 of the pow22523 ladder; multiplies d*y^2, v^2*v, v^6*v, u*v^7,
 # the ladder's 11, u*v^3, *t1 and x*y; plus u and v.  The flip multiply
@@ -135,9 +168,46 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float) -> "tuple[float, str]":
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+class Work(tuple):
+    """(bytes, int32 operations, integer multiply-adds, operations at the
+    20-limb price) a kernel must move and do on its inputs: complete
+    additions and field products priced at the 8 x 32-bit arithmetic
+    (the least the card is known to need), the last for the 20-limb bound
+    beside it."""
+
+    def __new__(cls, nbytes, ops, mads=0, ops_l20=None):
+        return super().__new__(cls, (nbytes, ops, mads,
+                                     ops if ops_l20 is None else ops_l20))
+
+
+def adds_work(nbytes, adds, extra_ops=0, extra_mads=0,
+              extra_l20=None) -> Work:
+    """Work of `adds` complete additions plus other operations."""
+    return Work(nbytes, adds * OPS8_GE_ADD + extra_ops,
+                adds * MADS8_GE_ADD + extra_mads,
+                adds * OPS_GE_ADD + (extra_ops if extra_l20 is None
+                                     else extra_l20))
+
+
+def bound_ms(work) -> "tuple[float, str]":
+    """The least time for `work`: the larger of its bytes over the HBM
+    rate and its operations over the issue rate of their type (all int32
+    operations over 33.5e12/s, the multiply-adds alone over 16.7e12/s)."""
+    w = Work(*work)
+    tb = w[0] / HBM_BYTES_PER_S
+    to = max(w[1] / INT32_OPS_PER_S, w[2] / IMAD_PER_S)
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def bound_note(work) -> str:
+    """The log's account of a bound: which pipe, and the 20-limb bound (every
+    operation at the 20-limb price over the issue rate) beside it."""
+    w = Work(*work)
+    which = ("multiply-adds" if w[2] / IMAD_PER_S > w[1] / INT32_OPS_PER_S
+             else "all int32 ops")
+    old = max(w[0] / HBM_BYTES_PER_S, w[3] / INT32_OPS_PER_S) * 1e3
+    return (f"{w[1]:.4e} int32 ops, {w[2]:.4e} multiply-adds ({which} "
+            f"bound the ops), {w[0]:.4e} B; 20-limb bound {old:.4f} ms")
 
 
 def random_wire(n: int, rng):
@@ -404,25 +474,127 @@ def phase_main_path(report: dict, state: dict) -> None:
         f"{ {k: v for k, v in counts.items() if v} }")
     add_launches(report, counts)
     need_launches("the single-batch path", counts, SLICE0_KERNELS)
+    no_lab_forms("the single-batch path", counts)
     state["stack"] = (digits, wire)
     state["verifier"] = bv
     state["tampered"] = tampered
     state["adv"] = adv
 
 
-def k1_work(w):
-    """(bytes, int32 ops) K1 must move and do on the wire w (B, 33, N)
-    uint8: it expands every lane, with the flip multiply and the neg
-    subtraction counted from the hints."""
+# RFC 8032 section 7.1 TEST 1-3 (tests/test_torch_batch.py): (pk, sig, msg)
+# hex.
+RFC8032 = [
+    ("d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a",
+     "e5564300c360ac729086e2cc806e828a84877f1eb8e5d974d873e065224901555fb8821"
+     "590a33bacc61e39701cf9b46bd25bf5f0595bbe24655141438e7a100b", ""),
+    ("3d4017c3e843895a92b70aa74d1b7ebc9c982ccf2ec4968cc0cd55f12af4660c",
+     "92a009a9f0d4cab8720e820b5f642540a2b27b5416503f8fb3762223ebdb69da085ac1e"
+     "43e15996e458f3613d0f11d8c387b2eaeb4302aeeb00d291612bb0c00", "72"),
+    ("fc51cd8e6218a1a38da47ed00230f0580816ed13ba3303ac5deb911548908025",
+     "6291d657deec24024827e69c3abe01a30ce548a284743a445e3680d7db5ac3ac18ff9b5"
+     "38d16f290ae67f760984dc6594a7c15e9716ed28dc027beceea1ec40a", "af82"),
+]
+
+
+def host_single_verdict(entry) -> bool:
+    """The host's ZIP215 verdict on one (vk, sig, msg) entry of bytes."""
+    from ed25519_consensus_tpu_torch import Signature, VerificationKey
+
+    vk, sig, msg = entry
+    try:
+        VerificationKey.from_bytes(vk).verify(Signature.from_bytes(sig), msg)
+    except Exception:  # noqa: BLE001 - any refusal is a False verdict
+        return False
+    return True
+
+
+def phase_vectors(report: dict) -> None:
+    """The RFC 8032 vectors (and each with its message tampered) and the
+    256 cases of the legacy corpus (tests/data/legacy_oracle_corpus.json:
+    the ZIP215 matrix, non-canonical and small-order keys, random valid
+    and invalid signatures), one signature a batch (as
+    batch.verify_single_many builds them), through verify_many on the card,
+    device only and per batch, with the launch counts set to 0 just before
+    it and read just after: every verdict equals the host's ZIP215
+    verdict (the CPU tests hold the host rules against the JAX
+    package's).  A batch whose bytes do not stage is False on the host
+    rules before any device call."""
+    from ed25519_consensus_tpu_torch import Signature, batch
+    from ed25519_consensus_tpu_torch.ops import _cuda
+    from ed25519_consensus_tpu_torch.verification_key import \
+        VerificationKeyBytes
+
+    entries = []
+    for pk, sig, msg in RFC8032:
+        m = bytes.fromhex(msg)
+        entries.append((bytes.fromhex(pk), bytes.fromhex(sig), m))
+        entries.append((bytes.fromhex(pk), bytes.fromhex(sig),
+                        m + b"tampered"))
+    corpus = json.loads((ROOT / "tests" / "data" /
+                         "legacy_oracle_corpus.json").read_text())
+    entries += [(bytes.fromhex(c["vk"]), bytes.fromhex(c["sig"]),
+                 bytes.fromhex(c["msg"])) for c in corpus["cases"]]
+    host = [host_single_verdict(e) for e in entries]
+    verifiers = []
+    for vk, sig, msg in entries:
+        v = batch.Verifier()
+        try:
+            v.queue((VerificationKeyBytes(vk), Signature.from_bytes(sig),
+                     msg))
+        except Exception:  # noqa: BLE001 - malformed bytes: verdict False
+            v.batch_size = 1
+            v.invalidate("malformed wire bytes")
+        verifiers.append(v)
+    batch.reset_device_health()
+    _cuda.reset_launch_counts()
+    got = batch.verify_many(verifiers, rng=random.Random(17),
+                            merge="never", hybrid=False, mesh=0,
+                            device=DEV)
+    counts = _cuda.launch_counts()
+    add_launches(report, counts)
+    st = batch.last_run_stats
+    log(f"RFC 8032 vectors (3 + 3 tampered) and the legacy corpus "
+        f"({len(corpus['cases'])} cases), one signature a batch, through "
+        f"verify_many (merge=never, hybrid=False): "
+        f"{sum(got)} accepted, {len(got) - sum(got)} rejected, equal to "
+        f"the host: {got == host}; device batches "
+        f"{st.get('device_batches')}, rejects confirmed "
+        f"{st.get('device_rejects_confirmed')}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if got != host:
+        bad = [i for i, (a, b) in enumerate(zip(got, host)) if a != b]
+        raise AssertionError(f"per-signature device verdicts differ from "
+                             f"the host at {bad}")
+    need_launches("the vectors", counts, SLICE0_KERNELS)
+    no_lab_forms("the vectors", counts)
+
+
+def no_lab_forms(label: str, counts: dict) -> None:
+    """Fails if a verdict path launched a 20-limb (-l20) window-sum kernel:
+    every verdict path runs the default K2 and K2t."""
+    lab = [k for k, v in counts.items() if v and "-l20" in k]
+    if lab:
+        raise AssertionError(f"{label} launched the lab's {lab}")
+
+
+def k1_work(w) -> Work:
+    """Work K1 must do on the wire w (B, 33, N) uint8: it expands every
+    lane, with the flip multiply and the neg subtraction counted from the
+    hints; its squarings and multiplies priced as fe8_mul (field products
+    only: the 8 x 32-bit arithmetic's conversions are ~1 % beside them)."""
     B, _, N = w.shape
     hints = w[:, 32].int()
     flips = int((hints & 1).sum())
     negs = int(((hints >> 1) & 1).sum())
-    return (B * N * (33 + 160),
-            B * N * (K1_SQS_PER_LANE * OPS_FE_SQ
-                     + K1_MULS_PER_LANE * OPS_FE_MUL
-                     + K1_ADDS_PER_LANE * OPS_FE_ADD)
-            + flips * OPS_FE_MUL + negs * OPS_FE_ADD)
+    lanes = B * N
+    muls = lanes * (K1_SQS_PER_LANE + K1_MULS_PER_LANE) + flips
+    adds = lanes * K1_ADDS_PER_LANE + negs
+    return Work(lanes * (33 + 160), muls * OPS8_FE_MUL + adds * OPS8_FE_ADD,
+                muls * MADS8_FE_MUL,
+                lanes * (K1_SQS_PER_LANE * OPS_FE_SQ
+                         + K1_MULS_PER_LANE * OPS_FE_MUL
+                         + K1_ADDS_PER_LANE * OPS_FE_ADD)
+                + flips * OPS_FE_MUL + negs * OPS_FE_ADD)
 
 
 def window_work(dig, nchunk: int, chunk: int):
@@ -446,29 +618,42 @@ def plain_digits(d):
     return msm.expand_digits(d).int() if d.dtype == torch.uint8 else d.int()
 
 
-def k2_work(d, nchunk: int, chunk: int = 64, part_bytes: int = 4):
-    """(bytes, int32 ops) a K2 form must move and do on digits d (B, 17, N)
-    uint8 or (B, nwin, N) int8: it builds a lane's table only up to its
-    largest |digit| and adds only the nonzero digits of a (chunk, window),
-    negating the negative ones; it reads the digits and the points once
-    and writes the partials."""
+def conversions(points_in: int, points_out: int) -> "tuple[int, int]":
+    """(ops, multiply-adds) of converting `points_in` limb points to the
+    8 x 32-bit words and `points_out` back to limbs (4 coordinates each)."""
+    return (4 * (points_in * OPS8_FROM_LIMBS20
+                 + points_out * OPS8_TO_CANONICAL),
+            4 * points_out * MADS8_TO_CANONICAL)
+
+
+def k2_work(d, nchunk: int, chunk: int = 64, part_bytes: int = 4) -> Work:
+    """Work a K2 form must do on digits d (B, 17, N) uint8 or (B, nwin, N)
+    int8: it builds a lane's table only up to its largest |digit| and adds
+    only the nonzero digits of a (chunk, window); it reads the digits and
+    the points once (converting each point) and writes the partials
+    (converting each).  A negation costs nothing in ge8_add (its sign
+    swaps operands); at the 20-limb price it cost two."""
     dig = plain_digits(d)
     B, nwin, N = dig.shape
     table_adds = int((dig.abs().amax(dim=1) - 1).clamp(min=0).sum())
     window_adds, neg_digits = window_work(dig, nchunk, chunk)
-    return (d.numel() + B * N * 160 + B * nchunk * nwin * 80 * part_bytes,
-            (table_adds + window_adds) * OPS_GE_ADD
-            + neg_digits * 2 * OPS_FE_NEG)
+    conv, conv_mads = conversions(B * N, B * nchunk * nwin)
+    return adds_work(d.numel() + B * N * 160
+                     + B * nchunk * nwin * 80 * part_bytes,
+                     table_adds + window_adds, conv, conv_mads,
+                     neg_digits * 2 * OPS_FE_NEG)
 
 
-def fold_work(B: int, nchunk: int, nwin: int, part_bytes: int = 4):
-    """(bytes, int32 ops) of K3: nchunk - 1 additions per (b, window)."""
-    return (B * nchunk * nwin * 80 * part_bytes + B * nwin * 320,
-            B * nwin * max(nchunk - 1, 0) * OPS_GE_ADD)
+def fold_work(B: int, nchunk: int, nwin: int, part_bytes: int = 4) -> Work:
+    """Work of K3: nchunk - 1 additions per (b, window), each partial
+    converted in and each window sum out."""
+    conv, conv_mads = conversions(B * nchunk * nwin, B * nwin)
+    return adds_work(B * nchunk * nwin * 80 * part_bytes + B * nwin * 320,
+                     B * nwin * max(nchunk - 1, 0), conv, conv_mads, 0)
 
 
 def kernel_work(d, w, parts):
-    """(bytes, int32 ops) each kernel must move and do on these inputs:
+    """The Work each kernel must do on these inputs:
     digits d (B, 17, N) uint8, wire w (B, 33, N) uint8, K2's partials.
     Counted from the data: K1 as k1_work, K2 as k2_work, K3 as
     fold_work."""
@@ -515,13 +700,12 @@ def hold_and_time(report: dict, label: str, digits, wire,
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
         if not timed:
             continue
-        nbytes, ops = work[name]
         ms = cuda_ms(kern)
         pms = cuda_ms(plain)
-        bms, by = bound_ms(nbytes, ops)
+        bms, by = bound_ms(work[name])
         log(f"  {label} B={B} N={N} {name:18s} kernel {ms:10.3f}  plain "
-            f"{pms:10.3f}  bound {bms:8.4f} ({by}, {ops:.4e} int32 ops, "
-            f"{nbytes:.4e} B)")
+            f"{pms:10.3f}  bound {bms:8.4f} ({by}; "
+            f"{bound_note(work[name])})")
         if B == STACK_B:
             report[name].update(ms=ms, plain_ms=pms, bound_ms=bms,
                                 bound_by=by)
@@ -1177,15 +1361,17 @@ def phase_mesh_kernels(report: dict, state: dict) -> None:
     cases = {
         "fold_shards": (lambda: msm.fold_shards(g),
                         lambda: msm.fold_shards_plain(g),
-                        (D * B * 33 * 320 + B * 33 * 320,
-                         B * 33 * max(D - 1, 0) * OPS_GE_ADD),
+                        adds_work(D * B * 33 * 320 + B * 33 * 320,
+                                  B * 33 * max(D - 1, 0),
+                                  *conversions(D * B * 33, B * 33), 0),
                         f"D={D} B={B}"),
         "expand_affine": (lambda: msm.expand_affine_points(a),
                           lambda: msm.expand_affine_points_plain(a),
-                          (Ba * Na * (80 + 160), Ba * Na * OPS_FE_MUL),
+                          Work(Ba * Na * (80 + 160), Ba * Na * OPS8_FE_MUL,
+                               Ba * Na * MADS8_FE_MUL, Ba * Na * OPS_FE_MUL),
                           f"B={Ba} N={Na}"),
     }
-    for name, (kern, plain, (nbytes, ops), shape) in cases.items():
+    for name, (kern, plain, work, shape) in cases.items():
         got, want = kern(), plain()
         sync()
         err = int((got.int() - want.int()).abs().max())
@@ -1194,10 +1380,9 @@ def phase_mesh_kernels(report: dict, state: dict) -> None:
                                  f"({shape}): {err}")
         ms = cuda_ms(kern)
         pms = cuda_ms(plain)
-        bms, by = bound_ms(nbytes, ops)
+        bms, by = bound_ms(work)
         log(f"  {shape} {name:14s} kernel {ms:10.4f}  plain {pms:10.3f}  "
-            f"bound {bms:8.5f} ({by}, {ops:.4e} int32 ops, {nbytes:.4e} B)"
-            f"; max |diff| 0")
+            f"bound {bms:8.5f} ({by}; {bound_note(work)}); max |diff| 0")
         report[name].update(max_abs_err=err, ms=ms, plain_ms=pms,
                             bound_ms=bms, bound_by=by)
     # One pod100k shard's operands as the D = 4 mesh gives them.
@@ -1265,19 +1450,24 @@ def phase_routing(state: dict) -> None:
     state["routing"] = {"a": a, "b": b, "placement": label}
 
 
-def tables_work(d, head_tables, r_tables, parts):
-    """(bytes, int32 ops) K2t must move and do on these inputs: the digits,
-    the head tables once (shared across the batch when TH = 1), the R
-    tables and the partials written; the window additions of the nonzero
-    digits and their negations.  Only the stored entries 1.. are read
-    (copy_tables in window_sums.cuh): entry 0, the identity, is not."""
+def tables_work(d, head_tables, r_tables, parts) -> Work:
+    """Work K2t must do on these inputs: the digits, the head tables once
+    (shared across the batch when TH = 1), the R tables and the partials
+    written; the window additions of the nonzero digits, each stored
+    table entry converted once and each partial out.  Only the stored
+    entries 1.. are read (the copy in window_sums_u32.cuh and
+    window_sums.cuh): entry 0, the identity, is not."""
     dig = plain_digits(d)
+    B, nwin, _ = dig.shape
     nchunk = parts.shape[1]
     window_adds, neg_digits = window_work(dig, nchunk, 64)
+    entries = (head_tables[:, 1:].numel() + r_tables[:, 1:].numel()) // 80
     nbytes = (d.numel() + 2 * (head_tables[:, 1:].numel()
                                + r_tables[:, 1:].numel())
               + parts.numel() * parts.element_size())
-    return nbytes, window_adds * OPS_GE_ADD + neg_digits * 2 * OPS_FE_NEG
+    conv, conv_mads = conversions(entries, B * nchunk * nwin)
+    return adds_work(nbytes, window_adds, conv, conv_mads,
+                     neg_digits * 2 * OPS_FE_NEG)
 
 
 def hold_tables(report: dict, label: str, digits, head, head_tables,
@@ -1340,15 +1530,16 @@ def hold_tables(report: dict, label: str, digits, head, head_tables,
         f"TH = B{', full-tables form' if same_points else ''}) equal their "
         f"plain versions (max |diff| 0); K2t's window sums equal the "
         f"head-resident dispatch's as points")
-    nb_k4 = r_pts.numel() * 2 + r_tbl.numel() * 2
-    ops_k4 = B * r_pts.shape[-1] * (msm.NTABLE - 1) * OPS_GE_ADD
+    nr = B * r_pts.shape[-1]
+    k4 = adds_work(r_pts.numel() * 2 + r_tbl.numel() * 2,
+                   nr * (msm.NTABLE - 1),
+                   *conversions(nr, nr * msm.NTABLE), 0)
     cases = {
         "expand_compressed R wire": (
             lambda: TD.expand_compressed_points(rw),
             lambda: TD.expand_compressed_points_plain(rw), k1_work(rw)),
         "build_tables": (lambda: msm.multiples_tables(r_pts),
-                         lambda: msm.build_tables_plain(r_pts),
-                         (nb_k4, ops_k4)),
+                         lambda: msm.build_tables_plain(r_pts), k4),
         "window_sums_tables": (
             lambda: msm.window_partials_tables(d, ht, r_tbl),
             lambda: msm.window_partials_tables_plain(d, ht, r_tbl),
@@ -1361,13 +1552,12 @@ def hold_tables(report: dict, label: str, digits, head, head_tables,
             lambda: msm.window_partials_tables(d, full),
             lambda: msm.window_partials_tables_plain(d, full),
             tables_work(d, full, r_tbl[..., :0], parts))
-    for name, (kern, plain, (nbytes, ops)) in cases.items():
+    for name, (kern, plain, work) in cases.items():
         ms = cuda_ms(kern)
         pms = cuda_ms(plain)
-        bms, by = bound_ms(nbytes, ops)
+        bms, by = bound_ms(work)
         log(f"  {label} B={B} N={N} {name:18s} kernel {ms:10.3f}  plain "
-            f"{pms:10.3f}  bound {bms:8.4f} ({by}, {ops:.4e} int32 ops, "
-            f"{nbytes:.4e} B)")
+            f"{pms:10.3f}  bound {bms:8.4f} ({by}; {bound_note(work)})")
         if record and name in report:
             report[name].update(ms=ms, plain_ms=pms, bound_ms=bms,
                                 bound_by=by)
@@ -1433,6 +1623,9 @@ REPLACES = {
     "expand_affine": "ed25519_consensus_tpu/ops/msm.py:396",
     "probe_chain": "tools/microbench_pallas.py:64",
     "probe_fmul": "tools/microbench_pallas.py:101",
+    # the self-test of K2's and K2t's field arithmetic, which replaces the
+    # TPU's field arithmetic (jnp_field.mul)
+    "probe_fe8": "ed25519_consensus_tpu/ops/jnp_field.py:91",
 }
 
 
@@ -1471,8 +1664,8 @@ def hold_row(report: dict, name: str, kern, plain, work, plain_cache=None,
              plain_key=None, plain_reps: int = 3) -> dict:
     """Kernel `name` (kern()) against its plain version (plain()) on the
     same inputs, exactly; then both timed (median of 5 and of
-    `plain_reps`, CUDA events) beside the bound of `work` = (bytes, int32
-    operations).  The row takes the numbers unless an earlier phase timed
+    `plain_reps`, CUDA events) beside the bound of `work` (a Work, or
+    (bytes, int32 operations)).  The row takes the numbers unless an earlier phase timed
     it at the main path's shape.  Plain versions that compute the same
     thing share one run through `plain_cache[plain_key]`."""
     got, ms = timed_result(kern)
@@ -1487,14 +1680,13 @@ def hold_row(report: dict, name: str, kern, plain, work, plain_cache=None,
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"max |diff| {err}, shapes {tuple(got.shape)} "
                              f"{tuple(want.shape)}")
-    bms, by = bound_ms(*work)
+    bms, by = bound_ms(work)
     row = report[name]
     row["max_abs_err"] = max(row["max_abs_err"], err)
     if "ms" not in row:
         row.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
     log(f"  {name:30s} kernel {ms:10.4f}  plain {pms:10.3f}  bound "
-        f"{bms:8.4f} ({by}, {work[1]:.4e} int32 ops, {work[0]:.4e} B); "
-        f"max |diff| 0")
+        f"{bms:8.4f} ({by}; {bound_note(work)}); max |diff| 0")
     return {"kernel_ms": ms, "plain_ms": pms, "bound_ms": bms,
             "bound_by": by}
 
@@ -1550,22 +1742,26 @@ def phase_variants(report: dict, state: dict) -> None:
                          lambda p=pts1, wb=wb: msm.multiples_tables(
                              p, window_bits=wb),
                          lambda p=pts1, wb=wb: msm.build_tables_plain(p, wb),
-                         (pts1.numel() * 2 * (1 + ntbl),
-                          STACK_N * (ntbl - 1) * OPS_GE_ADD),
+                         adds_work(pts1.numel() * 2 * (1 + ntbl),
+                                   STACK_N * (ntbl - 1),
+                                   *conversions(STACK_N, STACK_N * ntbl),
+                                   0),
                          cache, ("K4", wb))
             tb = tables[wb]
 
-            def kern(d=d, tb=tb, wb=wb, W=W):
-                return msm.window_partials_tables(d, tb, window_bits=wb,
-                                                  win_chunk=W)
+            arith = kw.get("arith", "u32")
 
-            def plain(d=d, tb=tb, wb=wb):
-                return msm.window_partials_tables_plain(d, tb,
-                                                        window_bits=wb)
+            def kern(d=d, tb=tb, wb=wb, W=W, arith=arith):
+                return msm.window_partials_tables(d, tb, window_bits=wb,
+                                                  win_chunk=W, arith=arith)
+
+            def plain(d=d, tb=tb, wb=wb, W=W, arith=arith):
+                return msm.window_partials_tables_plain(
+                    d, tb, window_bits=wb, win_chunk=W, arith=arith)
 
             parts = kern()
             work = tables_work(d, tb, tb[..., :0], parts)
-            key = ("K2t", wb)
+            key = ("K2t", wb, msm.u32_form(wb, win_chunk=W, arith=arith))
         else:
             kk = dict(kw)
             kk["win_chunk"] = W
@@ -1573,8 +1769,9 @@ def phase_variants(report: dict, state: dict) -> None:
             def kern(d=d, e=e, wb=wb, kk=kk):
                 return msm.window_partials(d, e, window_bits=wb, **kk)
 
-            pk = {k: v for k, v in kk.items() if k in ("tbl_dtype",
-                                                        "fold_dtype")}
+            pk = {k: v for k, v in kk.items()
+                  if k in ("tbl_dtype", "fold_dtype", "body", "arith",
+                           "win_chunk")}
 
             def plain(d=d, e=e, wb=wb, pk=pk, chunk=chunk):
                 return msm.window_partials_plain(d, e, window_bits=wb,
@@ -1582,7 +1779,10 @@ def phase_variants(report: dict, state: dict) -> None:
 
             parts = kern()
             work = k2_work(d, nchunk, chunk, psize)
-            key = ("K2", wb, kk.get("tbl_dtype", "int16"), fold, chunk)
+            key = ("K2", wb, kk.get("tbl_dtype", "int16"), fold, chunk,
+                   msm.u32_form(wb, kk.get("tbl_dtype", "int16"), fold,
+                                kk.get("body", "rolled"), chunk, W,
+                                kk.get("arith", "u32")))
         row = res[name]
         row.update(kernel=kname, plain_max_abs_err=0,
                    **hold_row(report, kname, kern, plain, work, cache, key))
@@ -1608,12 +1808,14 @@ def phase_knobs(report: dict, state: dict) -> None:
     ED25519_TPU_PALLAS_BODY=hybrid, and the zcash10k resident-tables
     dispatch under ED25519_TPU_WIN_CHUNK=11, each with the launch counts
     set to 0 just before it and read just after: each must run the
-    matching instantiation and not the default, give window sums equal to
-    the unset knobs' limb for limb, and verdicts equal to the host's."""
+    matching instantiation (the 20-limb kernels, `-l20`: the default K2 and
+    K2t hold no other form) and not the default, give window sums equal to
+    the unset knobs' as points (another order of additions), and verdicts
+    equal to the host's."""
     import torch
 
     from ed25519_consensus_tpu_torch.config import override
-    from ed25519_consensus_tpu_torch.ops import _cuda, msm
+    from ed25519_consensus_tpu_torch.ops import _cuda, limbs, msm
     from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
 
     digits, wire = state["stack"]
@@ -1622,12 +1824,12 @@ def phase_knobs(report: dict, state: dict) -> None:
     want_t = msm.dispatch_window_sums_many_tables(t_digits, t_head, t_rwire,
                                                   DEV)
     cases = (
-        ({"ED25519_TPU_WIN_CHUNK": "11"}, "stacked", "window_sums-w11",
+        ({"ED25519_TPU_WIN_CHUNK": "11"}, "stacked", "window_sums-l20-w11",
          "window_sums"),
         ({"ED25519_TPU_PALLAS_BODY": "hybrid"}, "stacked",
          "window_sums-hybrid", "window_sums"),
-        ({"ED25519_TPU_WIN_CHUNK": "11"}, "tables", "window_sums_tables-w11",
-         "window_sums_tables"),
+        ({"ED25519_TPU_WIN_CHUNK": "11"}, "tables",
+         "window_sums_tables-l20-w11", "window_sums_tables"),
     )
     for env, path, kname, default in cases:
         with override(**env):
@@ -1640,17 +1842,20 @@ def phase_knobs(report: dict, state: dict) -> None:
             sync()
             counts = _cuda.launch_counts()
         add_launches(report, counts)
-        ref = want if path == "stacked" else want_t
+        ref = (want if path == "stacked" else want_t).cpu().numpy()
         host = ws.cpu().numpy()
+        same = all(limbs.unpack_point(host[b, ..., w]) ==
+                   limbs.unpack_point(ref[b, ..., w])
+                   for b in range(host.shape[0]) for w in range(33))
         oks = [msm.combine_window_sums(host[b:b + 1]).mul_by_cofactor()
                .is_identity() for b in range(host.shape[0])]
         log(f"knob {env} on the {path} B={host.shape[0]} call: launches "
             f"{ {k: v for k, v in counts.items() if v} }; window sums equal "
-            f"the default's: {torch.equal(ws, ref)}; accepts {oks}")
+            f"the default's as points: {same}; accepts {oks}")
         if DEV != "cpu" and (counts.get(kname, 0) != 1
                              or counts.get(default, 0)):
             raise AssertionError(f"knob {env} did not run {kname} alone")
-        if not torch.equal(ws, ref) or not all(oks):
+        if not same or not all(oks):
             raise AssertionError(f"knob {env}: window sums or verdicts "
                                  f"differ from the default's and the host's")
     # the hybrid body's kernel row: the stacked call's operands
@@ -1659,7 +1864,7 @@ def phase_knobs(report: dict, state: dict) -> None:
     nchunk = -(-pts.shape[-1] // 64)
     hold_row(report, "window_sums-hybrid",
              lambda: msm.window_partials(d, pts, body="hybrid"),
-             lambda: msm.window_partials_plain(d, pts),
+             lambda: msm.window_partials_plain(d, pts, body="hybrid"),
              k2_work(d, nchunk))
 
 
@@ -1682,7 +1887,8 @@ def phase_profile_ledger(report: dict, state: dict) -> None:
     counts = _cuda.launch_counts()
     add_launches(report, counts)
     need_launches("the stage profile", counts,
-                  ("window_sums", "window_sums_tables", "window_select_only",
+                  ("window_sums", "window_sums_tables",
+                   "window_sums_tables-l20", "window_select_only",
                    "fold_partials"))
     tables = msm.multiples_tables(e)
     dig = plain_digits(d)
@@ -1727,6 +1933,125 @@ def phase_probes(report: dict, state: dict) -> None:
     hold_row(report, "probe_fmul", lambda: probes.fmul_chain(xf, 8),
              lambda: probes.fmul_chain_plain(xf, 8),
              (2 * 80 * S * L, 8 * S * L * OPS_FE_MUL))
+
+
+def phase_old_new(state: dict) -> None:
+    """The 20-limb K2 and K2t (`-l20`) and the default K2 and K2t
+    (window_sums_u32.cuh), timed in turns on the same operands — old, new,
+    new, old, three rounds, each time the median of 5 CUDA-event runs —
+    the stacked zcash10k call (B = 8, N = 12,288) for K2 and the zcash10k
+    resident-tables chunk (B = 8, N = 10,176, 130 head lanes) for K2t.
+    Each pair's window sums, folded by K3, are equal as points.  Prints
+    one `old_new` JSON line."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import limbs, msm
+    from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+
+    digits, wire = state["stack"]
+    d = torch.from_numpy(digits).to(DEV)
+    pts = TD.expand_compressed_points(torch.from_numpy(wire).to(DEV))
+    t_digits, t_head, t_rwire = state["tables_operands"]
+    dt = torch.from_numpy(t_digits).to(DEV)
+    ht = torch.from_numpy(t_head).to(DEV)[None]
+    rt = msm.multiples_tables(TD.expand_compressed_points(
+        torch.from_numpy(t_rwire).to(DEV)))
+    pairs = {
+        "window_sums": (
+            lambda: msm.window_partials(d, pts, arith="l20"),
+            lambda: msm.window_partials(d, pts)),
+        "window_sums_tables": (
+            lambda: msm.window_partials_tables(dt, ht, rt, arith="l20"),
+            lambda: msm.window_partials_tables(dt, ht, rt)),
+    }
+    out = {}
+    log("old (-l20) and new K2 / K2t in turns (old, new, new, old) x 3, "
+        "each the median of 5 (CUDA events), ms:")
+    for name, (old, new) in pairs.items():
+        a = msm.fold_partials(old()).cpu().numpy()
+        b = msm.fold_partials(new()).cpu().numpy()
+        if not all(limbs.unpack_point(a[i, ..., w]) ==
+                   limbs.unpack_point(b[i, ..., w])
+                   for i in range(a.shape[0]) for w in range(33)):
+            raise AssertionError(f"{name}: the -l20 and the new kernel's "
+                                 f"window sums differ as points")
+        times = {"old": [], "new": []}
+        for _ in range(3):
+            for which, fn in (("old", old), ("new", new), ("new", new),
+                              ("old", old)):
+                times[which].append(cuda_ms(fn))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        log(f"  {name}: old {med['old']:.4f} ms {times['old']}, new "
+            f"{med['new']:.4f} ms {times['new']}; old / new "
+            f"{med['old'] / med['new']:.3f}; window sums equal as points")
+        out[name] = {"old_ms": times["old"], "new_ms": times["new"],
+                     "old_median_ms": med["old"],
+                     "new_median_ms": med["new"]}
+    print(json.dumps({"old_new": out}), flush=True)
+    state["old_new"] = out
+
+
+def phase_fe8(report: dict, state: dict) -> None:
+    """The self-test of K2's and K2t's field arithmetic (probe_fe8, csrc/
+    probes.cu) on every pair of the edge operands (0, 1, p − 1, p, p + 1,
+    2^255 − 1, 2^256 − 1, 2^256 − 19k, ...), the limbs20 vectors at ±8191
+    and 256 random rows, with the launch counts set to 0 just before it
+    and read just after: every output word equal to ops/fe_u32.py's, the
+    exact-integer model; timed beside its bound.  Then the instructions of
+    each operation in the built kernel's SASS (`cuobjdump -sass`, where
+    the toolkit has it) beside the hand counts the bounds use."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import _cuda, probes
+    from ed25519_consensus_tpu_torch.tools import ptxas_report
+
+    x = torch.from_numpy(probes.fe8_operands(n_random=256)).to(DEV)
+    _cuda.reset_launch_counts()
+    got = probes.fe8_selftest(x)
+    sync()
+    counts = _cuda.launch_counts()
+    add_launches(report, counts)
+    need_launches("the fe8 self-test", counts, ("probe_fe8",))
+    want = probes.fe8_selftest_plain(x.cpu())
+    blocks = {"add": (0, 8), "sub": (8, 16), "neg": (16, 24),
+              "mul": (24, 32), "from_limbs20": (32, 40),
+              "to_limbs20_canonical": (40, 60), "ge8_add": (60, 92),
+              "ge8_add neg": (92, 124)}
+    g = got.cpu()
+    bad = {k: int((g[:, a:b] != want[:, a:b]).any(dim=1).sum())
+           for k, (a, b) in blocks.items()}
+    log(f"probe_fe8 on {x.shape[0]} rows ({len(probes.FE8_EDGES) ** 2} "
+        f"edge pairs): rows differing from the model, by operation: {bad}")
+    if any(bad.values()):
+        raise AssertionError("the fe8 self-test differs from the model")
+    rows = x.shape[0]
+    ops = (OPS8_FE_ADD + 2 * OPS8_FE_SUB + OPS8_FE_MUL + OPS8_FROM_LIMBS20
+           + OPS8_TO_CANONICAL + 2 * OPS8_GE_ADD)
+    mads = (MADS8_FE_ADD + MADS8_FE_MUL + MADS8_TO_CANONICAL + 1
+            + 2 * MADS8_GE_ADD)
+    hold_row(report, "probe_fe8", lambda: probes.fe8_selftest(x),
+             lambda: probes.fe8_selftest_plain(x.cpu()).to(DEV),
+             Work(rows * (probes.FE8_IN + probes.FE8_OUT) * 4, rows * ops,
+                  rows * mads), plain_reps=1)
+    hand = {"st_fe8_add": (OPS8_FE_ADD, MADS8_FE_ADD),
+            "st_fe8_sub": (OPS8_FE_SUB, 0),
+            "st_fe8_neg": (OPS8_FE_SUB, 0),
+            "st_fe8_mul": (OPS8_FE_MUL, MADS8_FE_MUL),
+            "st_fe8_from_limbs20": (OPS8_FROM_LIMBS20, 1),
+            "st_fe8_to_limbs20_canonical": (OPS8_TO_CANONICAL,
+                                            MADS8_TO_CANONICAL),
+            "st_ge8_add": (OPS8_GE_ADD, MADS8_GE_ADD)}
+    sass = ptxas_report.sass_counts(_cuda.library_path("probes.cu"))
+    if sass is None:
+        log("SASS counts: no cuobjdump found (not measured)")
+        return
+    for fn, (ops_h, mads_h) in hand.items():
+        c = sass.get(fn, {})
+        log(f"  SASS {fn}: {c.get('instructions')} instructions, "
+            f"{c.get('imad')} IMAD (hand count {ops_h} operations, "
+            f"{mads_h} multiply-adds; the SASS adds the out-of-line call's "
+            f"moves, loads and stores)")
+    state["sass"] = sass
 
 
 def sanitize_path() -> int:
@@ -1817,9 +2142,13 @@ def sanitize_path() -> int:
         if entry == "tables_full":
             t1 = msm.multiples_tables(ext[:1], window_bits=wb)
             check(f"{name} K4", t1, msm.build_tables_plain(ext[:1], wb))
+            arith = kw.get("arith", "u32")
             p = msm.window_partials_tables(dg, t1, window_bits=wb,
-                                           win_chunk=kw["win_chunk"])
-            want = msm.window_partials_tables_plain(dg, t1, window_bits=wb)
+                                           win_chunk=kw["win_chunk"],
+                                           arith=arith)
+            want = msm.window_partials_tables_plain(
+                dg, t1, window_bits=wb, win_chunk=kw["win_chunk"],
+                arith=arith)
         else:
             kk = dict(kw)
             chunk = kernel_lab.sweep_form(entry, wb, kk)[2]
@@ -1827,7 +2156,8 @@ def sanitize_path() -> int:
             want = msm.window_partials_plain(
                 dg, ext, window_bits=wb, chunk=chunk,
                 **{k: v for k, v in kk.items()
-                   if k in ("tbl_dtype", "fold_dtype")})
+                   if k in ("tbl_dtype", "fold_dtype", "body", "arith",
+                            "win_chunk")})
         check(f"{name} K2/K2t", p, want)
         check(f"{name} K3", msm.fold_partials(p), msm.fold_partials_plain(p))
     dg, ext = ops[4]
@@ -1843,6 +2173,9 @@ def sanitize_path() -> int:
                           .reshape(20, 8, 128) % 1000).to(DEV)
     check("probe_fmul", probes.fmul_chain(xf, 2),
           probes.fmul_chain_plain(xf, 2))
+    xs = torch.from_numpy(probes.fe8_operands(n_random=8)).to(DEV)
+    check("probe_fe8", probes.fe8_selftest(xs),
+          probes.fe8_selftest_plain(xs.cpu()).to(DEV))
     log(f"sanitize: {len(bad)} kernels differ from their plain versions"
         + (f": {bad}" if bad else ""))
     return len(bad)
@@ -1925,7 +2258,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--cold-start"]:
         return cold_start_path(sys.argv[2:] or [str(ROOT)])
     sys.path.insert(0, str(ROOT))
-    from ed25519_consensus_tpu_torch.ops import _cuda
+    from ed25519_consensus_tpu_torch.ops import _cuda, msm
 
     t0 = time.perf_counter()
     smi = smi_line()
@@ -1946,6 +2279,18 @@ def main() -> int:
             log(f"  ptxas {name} {sym}: {u.get('registers')} registers, "
                 f"spill stores {u.get('spill_stores')} B, spill loads "
                 f"{u.get('spill_loads')} B")
+    from ed25519_consensus_tpu_torch.tools import ptxas_report
+
+    for sym in ptxas_report.U32_KERNELS:
+        u = state["ptxas"].get(sym)
+        if u:
+            occ = ptxas_report.occupancy(u["registers"])
+            log(f"  {sym}: {u['registers']} registers x "
+                f"{msm.U32_THREADS} threads, "
+                f"{msm.U32_SHARED_BYTES} B shared a block: {occ['blocks']} "
+                f"blocks = {occ['warps']} resident warps an SM (limited by "
+                f"{occ['limited_by']}); spills "
+                f"{u.get('spill_stores', 0) + u.get('spill_loads', 0)} B")
 
     if sys.argv[1:2] == ["--sanitize"]:
         return 1 if sanitize_path() else 0
@@ -1965,7 +2310,9 @@ def main() -> int:
     timed(phase_stream, report, state)
     timed(phase_mesh, report, state)
     timed(phase_affine, report, state)
+    timed(phase_vectors, report)
     for path in ("stream", "mesh", "affine"):
+        no_lab_forms(f"the {path} path", state[f"{path}_launches"])
         add_launches(report, state[f"{path}_launches"])
         log(f"{path} path launches (all passes): "
             f"{ {k: v for k, v in state[f'{path}_launches'].items() if v} }")
@@ -1974,6 +2321,8 @@ def main() -> int:
     timed(phase_mesh_kernels, report, state)
     timed(phase_routing, state)
     timed(phase_profile, state)
+    timed(phase_old_new, state)
+    timed(phase_fe8, report, state)
     timed(phase_variants, report, state)
     timed(phase_knobs, report, state)
     timed(phase_profile_ledger, report, state)

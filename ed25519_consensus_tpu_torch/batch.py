@@ -937,7 +937,7 @@ class _DeviceLane:
                 # A caller injected a different health/clock (tests):
                 # retire the old worker (its queue drains to the poison
                 # sentinel) and build a lane on the new one.
-                inst._q.put(None)
+                inst._stop()
                 inst._abandoned = True
                 if inst._thread.is_alive() \
                         and inst not in cls._abandoned_instances:
@@ -1007,6 +1007,12 @@ class _DeviceLane:
         self._cv = threading.Condition()
         self._next_id = 0
         self._abandoned = False
+        # The chunk whose dispatch raised and whose error the caller has
+        # not yet read (`wait`) or dropped (`discard`): until then the
+        # worker starts no other chunk, so a sticky error is never
+        # followed by a launch into its poisoned context.
+        self._held_error = None
+        self._stopping = False
         self._thread = threading.Thread(
             target=self._run, daemon=True, name="ed25519-device-lane")
         self._thread.start()
@@ -1042,6 +1048,14 @@ class _DeviceLane:
                 del self._results[cid]
             else:
                 self._discarded.add(cid)
+            self._release_error(cid)
+
+    def _release_error(self, cid: int) -> None:
+        """Under self._cv: the caller has read or dropped chunk `cid`; if
+        its dispatch raised, the worker may go on."""
+        if self._held_error == cid:
+            self._held_error = None
+            self._cv.notify_all()
 
     def started_at(self, cid: int):
         """Monotonic time the worker ENTERED the device call for `cid`, or
@@ -1060,9 +1074,12 @@ class _DeviceLane:
             while cid not in self._results:
                 left = end - clock.monotonic()
                 if left <= 0:
-                    return (self._results.pop(cid)
-                            if cid in self._results else _PENDING)
+                    if cid not in self._results:
+                        return _PENDING
+                    self._release_error(cid)
+                    return self._results.pop(cid)
                 self._cv.wait(0.01 if clock.virtual else left)
+            self._release_error(cid)
             return self._results.pop(cid)
 
     def abandon(self) -> None:
@@ -1076,9 +1093,18 @@ class _DeviceLane:
         self._health.mark_lane_stuck()
 
     def shutdown(self, timeout: float = 5.0) -> None:
-        """Stop the worker before interpreter teardown."""
-        self._q.put(None)
+        """Stop the worker before interpreter teardown (a worker held
+        after an unread error stops without dispatching again)."""
+        self._stop()
         self._thread.join(timeout)
+
+    def _stop(self) -> None:
+        """Queue the poison sentinel; a worker held after an unread error
+        leaves at once."""
+        with self._cv:
+            self._stopping = True
+            self._cv.notify_all()
+        self._q.put(None)
 
     def _dispatch(self, digits, pts, cached, tables, audit):
         """(the chunk's fetch, its (batches, lanes, variant) shape key).
@@ -1152,6 +1178,14 @@ class _DeviceLane:
                 return
             cid, digits, pts, cached, tables, audit = item
             with self._cv:
+                # After a dispatch that raised, no other chunk starts
+                # until the caller has read that error or dropped its
+                # chunk: the next launch could go into a context the
+                # error poisoned.
+                while self._held_error is not None:
+                    if self._stopping:
+                        return
+                    self._cv.wait()
                 if cid in self._discarded:
                     # the caller no longer wants it: don't spend a device
                     # call on it
@@ -1196,6 +1230,8 @@ class _DeviceLane:
                     self._discarded.discard(cid)
                 else:
                     self._results[cid] = (out, call_dt, err)
+                    if err is not None:
+                        self._held_error = cid
                 self._cv.notify_all()
 
 
@@ -2205,64 +2241,72 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         t_host = sorted(_host_times)[len(_host_times) // 2]
         return ema_per_batch < 1.3 * t_host
 
-    probed = False
-    while remaining or outstanding:
-        if remaining and not outstanding and not probed:
-            # probe: 2 real batches padded to the full chunk in hybrid
-            # mode; forced-device callers' first chunk IS the probe.
-            submit(size=min(2, chunk) if hybrid else chunk)
-            probed = True
-            stats["probed"] = True
-        while (remaining and len(outstanding) < 2
-               and (not hybrid or (not ema_is_prior
-                                   and device_competitive()))):
-            submit()
-        poll(block=False)
-        if hybrid and remaining and outstanding:
-            host_verify_one(remaining.pop())
-        elif outstanding:
-            if hybrid:
-                # Nothing left in the pool: RACE the in-flight chunks,
-                # re-verifying their batches on the host (last chunk
-                # first), dropping any chunk the host fully overtakes.
-                stole = False
-                for ci in range(len(outstanding) - 1, -1, -1):
-                    rec = outstanding[ci]
-                    undecided = [i for i in rec.idxs if not decided[i]]
-                    if not undecided:
-                        continue
-                    host_verify_one(undecided[-1])
-                    stole = True
-                    if len(undecided) == 1:  # chunk fully overtaken
-                        # Before dropping an unmeasured young probe,
-                        # grace-wait briefly for its timing: the EMA is
-                        # what stops pointless re-probing.
-                        res = _PENDING
-                        grace = health.young_probe_grace
-                        t_start = dev.started_at(rec.cid)
-                        elapsed = now() - (t_start if t_start is not None
-                                           else rec.t0)
-                        if ema_is_prior and elapsed < grace:
-                            res = dev.wait(rec.cid, grace - elapsed)
-                        outstanding.pop(ci)
-                        if res is _PENDING:
-                            dev.discard(rec.cid)
-                        elif res[0] is None:
-                            on_device_error(rec.idxs, res[2])
-                        else:
-                            ema_per_batch = res[1] / max(1, rec.padded_b)
-                            ema_is_prior = False
-                            stats["device_measured"] = True
-                    break
-                poll(block=not stole)
-            else:
-                poll(block=True)
-        elif remaining and hybrid:
-            # The device is not competitive: the host lane takes a batch.
-            # A forced-device call whose in-flight chunks all finished in
-            # the poll above submits the rest on the next turn instead.
-            host_verify_one(remaining.pop())
-    return _finish(verdicts)
+    try:
+        probed = False
+        while remaining or outstanding:
+            if remaining and not outstanding and not probed:
+                # probe: 2 real batches padded to the full chunk in hybrid
+                # mode; forced-device callers' first chunk IS the probe.
+                submit(size=min(2, chunk) if hybrid else chunk)
+                probed = True
+                stats["probed"] = True
+            while (remaining and len(outstanding) < 2
+                   and (not hybrid or (not ema_is_prior
+                                       and device_competitive()))):
+                submit()
+            poll(block=False)
+            if hybrid and remaining and outstanding:
+                host_verify_one(remaining.pop())
+            elif outstanding:
+                if hybrid:
+                    # Nothing left in the pool: RACE the in-flight chunks,
+                    # re-verifying their batches on the host (last chunk
+                    # first), dropping any chunk the host fully overtakes.
+                    stole = False
+                    for ci in range(len(outstanding) - 1, -1, -1):
+                        rec = outstanding[ci]
+                        undecided = [i for i in rec.idxs if not decided[i]]
+                        if not undecided:
+                            continue
+                        host_verify_one(undecided[-1])
+                        stole = True
+                        if len(undecided) == 1:  # chunk fully overtaken
+                            # Before dropping an unmeasured young probe,
+                            # grace-wait briefly for its timing: the EMA is
+                            # what stops pointless re-probing.
+                            res = _PENDING
+                            grace = health.young_probe_grace
+                            t_start = dev.started_at(rec.cid)
+                            elapsed = now() - (t_start if t_start is not None
+                                               else rec.t0)
+                            if ema_is_prior and elapsed < grace:
+                                res = dev.wait(rec.cid, grace - elapsed)
+                            outstanding.pop(ci)
+                            if res is _PENDING:
+                                dev.discard(rec.cid)
+                            elif res[0] is None:
+                                on_device_error(rec.idxs, res[2])
+                            else:
+                                ema_per_batch = res[1] / max(1, rec.padded_b)
+                                ema_is_prior = False
+                                stats["device_measured"] = True
+                        break
+                    poll(block=not stole)
+                else:
+                    poll(block=True)
+            elif remaining and hybrid:
+                # The device is not competitive: the host lane takes a batch.
+                # A forced-device call whose in-flight chunks all finished in
+                # the poll above submits the rest on the next turn instead.
+                host_verify_one(remaining.pop())
+        return _finish(verdicts)
+    finally:
+        # However the call leaves (a host-side exception included), no
+        # chunk stays outstanding: a lane worker held after an unread
+        # error would otherwise start nothing for the next call.
+        for r2 in outstanding:
+            dev.discard(r2.cid)
+        outstanding.clear()
 
 
 def warm_device_shapes(verifier, rng=None, chunk: int = 8, device=None,

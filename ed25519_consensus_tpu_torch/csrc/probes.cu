@@ -17,8 +17,18 @@
 //    throughput; an empty asm keeps each step's value opaque, so the
 //    compiler cannot fold the chain.
 //  * probe_fmul: one thread per element of a (20, S, L) tile (limb-major),
-//    a chain of n_steps fe_mul (fe25519.cuh, the field multiply every kernel
-//    of the port uses) with the same (a, b) <- (b, a * b) recurrence.
+//    a chain of n_steps fe_mul (fe25519.cuh, the field multiply of every
+//    kernel of the port but K2 and K2t) with the same (a, b) <- (b, a * b)
+//    recurrence.
+//  * probe_fe8: the self-test of fe25519_u32.cuh, K2's and K2t's field
+//    arithmetic: one thread per row of operands runs fe8_add, fe8_sub,
+//    fe8_neg, fe8_mul, both conversions and ge8_add (plain and with the
+//    sign flag) once each, so that chip_smoke.py can hold every output
+//    against ops/fe_u32.py, the exact-integer model, word for word.  Each
+//    operation sits in an out-of-line function of its own (extern "C", so
+//    `cuobjdump -sass` names it) whose instructions chip_smoke.py counts
+//    against the hand count of its operations.  Plain version:
+//    ops/probes.py fe8_selftest_plain.
 //
 // Bound: the launch.  A step is one int32 operation per element (a field
 // multiply ~1.3e3), and the tile moves 8 (160) bytes per element.
@@ -26,6 +36,7 @@
 #include <stdint.h>
 
 #include "fe25519.cuh"
+#include "fe25519_u32.cuh"
 
 namespace {
 
@@ -107,5 +118,93 @@ extern "C" int probe_fmul_launch(const void* x, void* out, int n_elems,
   const int blocks = (n_elems + THREADS - 1) / THREADS;
   probe_fmul_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (int32_t*)out, n_elems, n_steps);
+  return (int)cudaGetLastError();
+}
+
+// probe_fe8: in (n, FE8_IN) int32 rows: a, b (8 words each), 20 limbs, the
+// points p and q (32 words each: X, Y, Z, T).  out (n, FE8_OUT): a + b,
+// a - b, -a, a * b, from_limbs20(limbs), the canonical limbs of a (20),
+// p + q and p + (-q) (32 each).
+#define FE8_IN 100
+#define FE8_OUT 124
+
+extern "C" __device__ __noinline__ fe8 st_fe8_add(fe8 a, fe8 b) {
+  return fe8_add(a, b);
+}
+extern "C" __device__ __noinline__ fe8 st_fe8_sub(fe8 a, fe8 b) {
+  return fe8_sub(a, b);
+}
+extern "C" __device__ __noinline__ fe8 st_fe8_neg(fe8 a) { return fe8_neg(a); }
+extern "C" __device__ __noinline__ fe8 st_fe8_mul(fe8 a, fe8 b) {
+  return fe8_mul(a, b);
+}
+extern "C" __device__ __noinline__ fe8 st_fe8_from_limbs20(const int32_t* l) {
+  return fe8_from_limbs20(l, (size_t)1);
+}
+extern "C" __device__ __noinline__ void st_fe8_to_limbs20_canonical(
+    fe8 a, int32_t* out) {
+  fe8_to_limbs20_canonical(a, out);
+}
+extern "C" __device__ __noinline__ ge8 st_ge8_add(ge8 p, ge8 q, bool neg) {
+  return ge8_add(p, q, neg);
+}
+
+__device__ __forceinline__ fe8 ld8(const int32_t* x) {
+  fe8 r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = (uint32_t)x[i];
+  return r;
+}
+
+__device__ __forceinline__ void st8(int32_t* o, const fe8& x) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = (int32_t)x.v[i];
+}
+
+extern "C" __global__ void __launch_bounds__(THREADS)
+    probe_fe8_kernel(const int32_t* __restrict__ in,
+                     int32_t* __restrict__ out, int n, int unused) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const int32_t* x = in + (size_t)i * FE8_IN;
+  int32_t* o = out + (size_t)i * FE8_OUT;
+  const fe8 a = ld8(x), b = ld8(x + 8);
+  st8(o, st_fe8_add(a, b));
+  st8(o + 8, st_fe8_sub(a, b));
+  st8(o + 16, st_fe8_neg(a));
+  st8(o + 24, st_fe8_mul(a, b));
+  int32_t limbs[20];
+#pragma unroll
+  for (int k = 0; k < 20; ++k) limbs[k] = x[16 + k];
+  st8(o + 32, st_fe8_from_limbs20(limbs));
+  int32_t canon[20];
+  st_fe8_to_limbs20_canonical(a, canon);
+#pragma unroll
+  for (int k = 0; k < 20; ++k) o[40 + k] = canon[k];
+  ge8 p, q;
+  p.X = ld8(x + 36);
+  p.Y = ld8(x + 44);
+  p.Z = ld8(x + 52);
+  p.T = ld8(x + 60);
+  q.X = ld8(x + 68);
+  q.Y = ld8(x + 76);
+  q.Z = ld8(x + 84);
+  q.T = ld8(x + 92);
+#pragma unroll 1
+  for (int k = 0; k < 2; ++k) {
+    const ge8 r = st_ge8_add(p, q, k == 1);
+    int32_t* ok = o + 60 + 32 * k;
+    st8(ok, r.X);
+    st8(ok + 8, r.Y);
+    st8(ok + 16, r.Z);
+    st8(ok + 24, r.T);
+  }
+}
+
+extern "C" int probe_fe8_launch(const void* in, void* out, int n, int unused,
+                                void* stream) {
+  const int blocks = (n + THREADS - 1) / THREADS;
+  probe_fe8_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)in, (int32_t*)out, n, unused);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,8 @@
-// K2 window_sums, K2t window_sums_tables and K2s window_select_only as
-// templates over the variant axes of the Pallas kernel they replace.  For
+// The first port of the window-sum kernel: K2, K2t and K2s window_select_only
+// as templates over the variant axes of the Pallas kernel they replace, in
+// the 20 x 13-bit limb arithmetic of fe25519.cuh.  The kernel lab's forms
+// (the -l20 forms, which were the default K2 and K2t until
+// window_sums_u32.cuh, and every variant) are instantiated here.  For
 // every batch b, lane chunk c (CHUNK lanes) and window w, K2 and K2t write
 // the complete-addition sum over the chunk's lanes of sign(d) * T[|d|], T =
 // [0..2^(WB-1)]P the lane's multiples table.  Output: (B, nchunk, NWIN, 4,
@@ -21,15 +24,16 @@
 //           launch argument (any divisor of NWIN); the grid's third axis
 //           runs NWIN / W window groups.  A C entry holds up to two
 //           kernels (the FORMS argument of WS_K2 / WS_K2T): NAME_kernel
-//           with W = NWIN fixed at compile time (the default every verdict
-//           path runs: its loops, offsets and thread guards fold as in a
-//           kernel written for one W) and NAME_w_kernel for any W;
+//           with W = NWIN fixed at compile time (its loops, offsets and
+//           thread guards fold as in a kernel written for one W) and
+//           NAME_w_kernel for any W;
 //   CHUNK   tile (:162, :213): lanes per block, 64 or 32.
 // K2t is the same kernel's tables_in=True form (both tables_batched forms,
 // :275-290), K2s its select_only form (:200-204, :251-253).  Plain PyTorch
 // versions: ops/msm.py window_partials_plain, window_partials_tables_plain
-// and select_only_plain, which take the same additions in the same order,
-// so kernel and plain version agree limb for limb.
+// (arith="l20", or any variant axis off the default) and select_only_plain,
+// which take the same additions in the same order, so kernel and plain
+// version agree limb for limb.
 //
 // Bound: int32 multiply-adds.  Per chunk and window group, K2 takes
 // (2^(WB-1) - 1) x CHUNK table additions and W x (CHUNK - 1) window

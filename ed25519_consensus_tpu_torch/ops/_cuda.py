@@ -28,17 +28,19 @@ tool or `chip_smoke.py` calls `build_all()`.
 holds: NAME_kernel (every window in one block, "all") and NAME_w_kernel
 (any windows per block W, "w"); the rest hold both.  The sources emit
 only these (the FORMS argument of csrc/window_sums.cuh's macros), so no
-kernel is built that no path launches.  `W_SOURCES` names the source of
-an instantiation's any-W kernel where it is not the instantiation's own:
-the default K2 and K2t keep theirs out of the verdict sources.
+kernel is built that no path launches.  The default K2 and K2t
+(window_sums_u32.cuh) hold only "all"; a verdict path that the
+windows-per-block knob sends to fewer windows runs the 20-limb kernels, the
+lab's `window_sums-l20` and `window_sums_tables-l20`, whose any-W kernels
+are in a source of their own (`W_SOURCES`), out of the verdict sources.
 
 Each `Kernel` counts its launches: `launches` is incremented where the
 kernel is launched and nowhere else, so a run can show that a path went
 through it (`chip_smoke.py` resets the counts before a path and reads them
 after).  The window-sum kernels take their windows per block (W) as a
 launch argument; `kernel(base, suffix)` keeps a separate `Kernel` and count
-for each W a caller launches with (`window_sums-w11` shares the entry of
-`window_sums`), so a run shows which form ran.
+for each W a caller launches with (`window_sums-l20-w11` shares the entry
+of `window_sums-l20`), so a run shows which form ran.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine-independent module only touches `nvcc` when a CUDA tensor
@@ -133,7 +135,10 @@ INSTANTIATIONS = {
     "build_tables": ("build_tables.cu", _POINTS),
     "fold_shards": ("fold_partials.cu", _POINTS),
     "expand_affine": ("expand_affine.cu", _POINTS),
-    # the kernel lab's variants (window_sums.cuh templates)
+    # the kernel lab's variants (window_sums.cuh templates): first the 20-limb
+    # default K2 and K2t, timed beside window_sums_u32.cuh's
+    "window_sums-l20": ("window_sums_lab.cu", _K2),
+    "window_sums_tables-l20": ("window_sums_lab.cu", _K2T),
     "window_sums-i16fold": ("window_sums_lab.cu", _K2),
     "window_sums-i32tbl": ("window_sums_lab.cu", _K2),
     "window_sums-i32tbl-c32": ("window_sums_lab.cu", _K2),
@@ -151,11 +156,14 @@ INSTANTIATIONS = {
     "probe_chain-shift": ("probes.cu", _POINTS),
     "probe_chain-madd": ("probes.cu", _POINTS),
     "probe_fmul": ("probes.cu", _POINTS),
+    # the self-test of K2's and K2t's field arithmetic (fe25519_u32.cuh)
+    "probe_fe8": ("probes.cu", _POINTS),
 }
 
 # What a verdict path launches with no knob set.  The windows-per-block
-# knob reaches the NAME_w_kernel of window_sums and window_sums_tables
-# (W_SOURCES); the body knob's `hybrid` is loaded when it is set.
+# knob reaches the NAME_w_kernel of window_sums-l20 and
+# window_sums_tables-l20 (W_SOURCES); the body knob's `hybrid` is loaded
+# when it is set.
 VERDICT = ("expand_compressed", "window_sums", "fold_partials",
            "window_sums_tables", "build_tables", "fold_shards",
            "expand_affine")
@@ -164,11 +172,13 @@ VERDICT_SOURCES = tuple(sorted({INSTANTIATIONS[b][0] for b in VERDICT}))
 # The any-W kernels held by a source of their own (same C entry name, a
 # library of their own): built when a W below the window count is first
 # launched, or by load_all when ED25519_TPU_WIN_CHUNK is set.
-W_SOURCES = {"window_sums": "window_sums_w.cu",
-             "window_sums_tables": "window_sums_w.cu"}
+W_SOURCES = {"window_sums-l20": "window_sums_w.cu",
+             "window_sums_tables-l20": "window_sums_w.cu"}
 
 # Window-sum instantiations that hold one kernel only (the others: both).
 BLOCK_FORMS = {
+    "window_sums": "all",
+    "window_sums_tables": "all",
     "window_sums-i16fold": "w",
     "window_sums-i32tbl": "all",
     "window_sums-i32tbl-c32": "all",
@@ -331,8 +341,7 @@ def load_all() -> None:
         bases.append("window_sums-hybrid")
     srcs = {INSTANTIATIONS[b][0] for b in bases}
     if _config.get("ED25519_TPU_WIN_CHUNK") is not None:
-        srcs |= {W_SOURCES.get(b, INSTANTIATIONS[b][0]) for b in bases
-                 if b.startswith("window_sums")}
+        srcs |= set(W_SOURCES.values())
     build_all(sorted(srcs))
     for base in bases:
         KERNELS[base].function()

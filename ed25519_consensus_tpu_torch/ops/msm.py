@@ -43,8 +43,17 @@ Two more kernels serve the affine wire and the sharded mesh
   K5 `fold_shards` (`fold_shards`) — the cross-shard group fold of the
      per-shard window sums gathered onto the placement's first device.
 
-The kernel lab's forms (tools/kernel_lab.py, tools/microbench.py): K2 and
-K2t are templates over the Pallas kernel's variant axes — radix 32
+K2 and K2t (csrc/window_sums_u32.cuh) compute in 8 × 32-bit words with
+carry chains (csrc/fe25519_u32.cuh), split each window's 64 lanes into
+four sub-sums joined as (q0 + q1) + (q2 + q3), and write CANONICAL limbs;
+their plain versions take the same additions in the 20-limb arithmetic
+(`split=4`) and end with torch_field.canonical_limbs20.
+
+The kernel lab's forms (tools/kernel_lab.py, tools/microbench.py), all in
+the 20-limb design (csrc/window_sums.cuh: 20 × 13-bit limbs, two half-chunk
+sums, unnormalised limbs): the 20-limb default itself (`arith="l20"`, kernels
+`window_sums-l20` and `window_sums_tables-l20`), and K2 and K2t as
+templates over the Pallas kernel's variant axes — radix 32
 (`window_bits=5`: 27 plain digit planes, 17-entry tables from K4's r32
 form, folded by K3's 27-window form), int16 partials (`fold_dtype`), an
 int32 table (`tbl_dtype`), the unrolled `hybrid` body, 32 lanes a block
@@ -52,7 +61,7 @@ int32 table (`tbl_dtype`), the unrolled `hybrid` body, 32 lanes a block
 (`window_select_only`) is the select-only profile form.  `window_sums_many`
 and `window_sums_many_tables_full` reach every form; the dispatches read
 ED25519_TPU_WIN_CHUNK and ED25519_TPU_PALLAS_BODY, and with neither set
-they run the default K2 and K2t.
+they run the default K2 and K2t (a knob reaches an -l20 kernel).
 
 The plain versions take the kernels' additions in the kernels' order, so
 kernel and plain version agree limb for limb.  Against the JAX package's
@@ -87,6 +96,15 @@ FOLD_THREADS = 32
 NTABLE = 9
 # Shared memory one block may take on an H100 (dynamic, after the opt-in).
 MAX_SHARED_BYTES = 232_448
+# The default K2 and K2t's block (csrc/window_sums_u32.cuh SMEM_BYTES): the
+# u32 table of 8 entries x 64 lanes x 128 B and the 33 windows' digits.
+U32_SHARED_BYTES = 8 * CHUNK * 128 + CHUNK * NWINDOWS
+# Sub-sums a window in the default K2 and K2t (window_sums_u32.cuh S); the
+# -l20 forms and every other lab form sum two halves.
+U32_SPLIT = 4
+# Their block: 40 threads a sub-sum (window_sums_u32.cuh WSTRIDE, THREADS).
+U32_THREADS = U32_SPLIT * 40
+ARITHS = ("u32", "l20")
 
 # Every device call (launches and the blocking fetch) holds this lock, so
 # two threads — the verify_many lane worker and a direct caller — never
@@ -277,16 +295,37 @@ def k2_shared_bytes(window_bits: int, tbl_dtype: str, fold_dtype: str,
             + win_chunk * chunk + win_chunk * 4 * NLIMBS * psz)
 
 
+def u32_form(window_bits: int = limbs.WINDOW_BITS, tbl_dtype: str = "int16",
+             fold_dtype: str = "int32", body: str = "rolled",
+             chunk: int = CHUNK, win_chunk: "int | None" = None,
+             arith: str = "u32") -> bool:
+    """Whether these axes name the default K2 / K2t of
+    csrc/window_sums_u32.cuh (radix 16, every window in one block, 64
+    lanes, `arith` "u32"): its order of additions (the 4-way split, the
+    table tree) and canonical limbs.  Every other form, `arith="l20"`
+    included, is the 20-limb design (csrc/window_sums.cuh)."""
+    if arith not in ARITHS:
+        raise ValueError(f"arith must be one of {ARITHS}: {arith!r}")
+    return (arith == "u32" and window_bits == limbs.WINDOW_BITS
+            and tbl_dtype == "int16" and fold_dtype == "int32"
+            and body == "rolled" and chunk == CHUNK
+            and win_chunk in (None, NWINDOWS))
+
+
 def kernel_form(kind: str, window_bits: int = limbs.WINDOW_BITS,
                 tbl_dtype: str = "int16", fold_dtype: str = "int32",
                 body: str = "rolled", chunk: int = CHUNK,
-                win_chunk: "int | None" = None):
+                win_chunk: "int | None" = None, arith: str = "u32"):
     """(base, suffix, chunk, win_chunk) of a window-sum form of `kind`
     ("window_sums", "window_sums_tables", "window_select_only"): `base`
-    the instantiation, `suffix` "-w<W>" when W < nwin.  Radix-32 with an
-    int32 table takes 32 lanes a block: at 64 its table alone is 328 KB.
-    Raises ValueError for a form that is not built or whose block does not
-    fit the card's 227 KB of shared memory."""
+    the instantiation, `suffix` "-w<W>" when W < nwin.  The default axes
+    with every window in one block name the Hopper K2 / K2t ("u32"); with
+    `arith="l20"` or fewer windows a block, the 20-limb kernels
+    ("window_sums-l20", "window_sums_tables-l20"); every other axis names
+    a lab form of the 20-limb design.  Radix-32 with an int32 table takes 32
+    lanes a block: at 64 its table alone is 328 KB.  Raises ValueError for
+    a form that is not built or whose block does not fit the card's 227 KB
+    of shared memory."""
     nwin = nwindows(window_bits)
     if tbl_dtype not in ("int16", "int32"):
         raise ValueError(f"tbl_dtype must be int16 or int32: {tbl_dtype!r}")
@@ -301,7 +340,10 @@ def kernel_form(kind: str, window_bits: int = limbs.WINDOW_BITS,
     _check_win_chunk(nwin, W)
     if window_bits == limbs.WINDOW_BITS_R32 and tbl_dtype == "int32":
         chunk = 32
-    smem = k2_shared_bytes(window_bits, tbl_dtype, fold_dtype, chunk, W)
+    u32 = kind != "window_select_only" and u32_form(
+        window_bits, tbl_dtype, fold_dtype, body, chunk, W, arith)
+    smem = U32_SHARED_BYTES if u32 else k2_shared_bytes(
+        window_bits, tbl_dtype, fold_dtype, chunk, W)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"{kind} at window_bits={window_bits}, tbl_dtype="
                          f"{tbl_dtype}, {chunk} lanes needs {smem} B of "
@@ -313,6 +355,8 @@ def kernel_form(kind: str, window_bits: int = limbs.WINDOW_BITS,
         (fold_dtype == "int16", "i16fold"),
         (body == "hybrid", "hybrid"),
         (chunk != CHUNK, f"c{chunk}")) if cond]
+    if not tags and not u32 and kind != "window_select_only":
+        tags = ["l20"]
     base = "-".join([kind] + tags)
     if base not in _cuda.INSTANTIATIONS:
         raise ValueError(f"no kernel is built for {base} (window_bits="
@@ -339,19 +383,28 @@ def window_partials_plain(digits, points, *,
                           tbl_dtype: str = "int16",
                           fold_dtype: str = "int32",
                           win_chunk: "int | None" = None,
-                          chunk: int = CHUNK):
+                          chunk: int = CHUNK, body: str = "rolled",
+                          arith: str = "u32"):
     """Plain PyTorch version of K2: digits (B, 17, N) uint8 or (B, nwin, N)
     int8, points (B, 4, NLIMBS, N) int16 → partials (B, nchunk, nwin, 4,
-    NLIMBS), int32 or int16 (`fold_dtype`).  Same tables (T1 = P, Tk =
-    T(k−1) + P, stored as `tbl_dtype`), same selection, same addition order
-    as csrc/window_sums.cuh at `chunk` lanes a block.  `win_chunk` (W
-    windows a block) only decides which block computes a window, not its
-    additions, so every W gives the same limbs: the plain version checks W
-    and computes all windows at once.  The JAX counterpart: the in-kernel
-    body of ops/pallas_msm.py:220-318."""
+    NLIMBS), int32 or int16 (`fold_dtype`), the same additions in the same
+    order as the form's kernel at `chunk` lanes a block.  The default form
+    (`u32_form`, csrc/window_sums_u32.cuh): the table tree T2 = P + P,
+    T3 = T2 + P, T4 = T2 + T2, T5 = T4 + P, T6 = T4 + T2, T7 = T4 + T3,
+    T8 = T4 + T4, four sub-sums a window, canonical limbs.  Every other
+    form (csrc/window_sums.cuh): T1 = P, Tk = T(k−1) + P stored as
+    `tbl_dtype`, two halves, the limbs as the additions leave them.
+    `win_chunk` (W windows a block) only decides which block computes a
+    window, not its additions, so every W of one design gives the same
+    limbs: the plain version checks W and computes all windows at once.
+    The JAX counterpart: the in-kernel body of
+    ops/pallas_msm.py:220-318."""
     B, _, _, N = points.shape
     if _check_digits(digits, B, N, window_bits):
         digits = expand_digits(digits)
+    _check_win_chunk(digits.shape[1], win_chunk)
+    u32 = u32_form(window_bits, tbl_dtype, fold_dtype, body, chunk,
+                   win_chunk, arith)
     Np = -(-N // chunk) * chunk
     pts = torch.zeros((4, NLIMBS, B, Np), dtype=torch.int32,
                       device=points.device)
@@ -359,39 +412,74 @@ def window_partials_plain(digits, points, *,
     pts[2, 0] = 1
     pts[..., :N] = points.permute(1, 2, 0, 3)
     # tables: (NTBL, 4, NLIMBS, B, Np), entry 0 the identity
-    ents = [E.identity_like(pts), pts]
-    for _ in range(_table_entries(window_bits) - 2):
-        e = E.point_add(ents[-1], pts)
-        ents.append(e.to(torch.int16).to(torch.int32)
-                    if tbl_dtype == "int16" else e)
-    _check_win_chunk(digits.shape[1], win_chunk)
-    return _partials_from_tables(torch.stack(ents), digits, N, chunk,
-                                 fold_dtype)
+    if u32:
+        ents = [E.identity_like(pts)] + _u32_table_tree(pts)
+    else:
+        ents = [E.identity_like(pts), pts]
+        for _ in range(_table_entries(window_bits) - 2):
+            e = E.point_add(ents[-1], pts)
+            ents.append(e.to(torch.int16).to(torch.int32)
+                        if tbl_dtype == "int16" else e)
+    return _window_phase(torch.stack(ents), digits, N, chunk, fold_dtype,
+                         u32)
+
+
+def _u32_table_tree(P):
+    """Entries 1..8 of the default K2's table, built as its kernel builds
+    them (two threads a lane, a chain of 4 additions): T2 = P + P; T3 =
+    T2 + P and T4 = T2 + T2; T5 = T4 + P, T6 = T4 + T2, T7 = T4 + T3 and
+    T8 = T4 + T4."""
+    T2 = E.point_add(P, P)
+    T3 = E.point_add(T2, P)
+    T4 = E.point_add(T2, T2)
+    return [P, T2, T3, T4, E.point_add(T4, P), E.point_add(T4, T2),
+            E.point_add(T4, T3), E.point_add(T4, T4)]
+
+
+def _window_phase(tbl, digits, N: int, chunk: int, fold_dtype: str,
+                  u32: bool):
+    """The window phase of a K2 / K2t plain version: the default form's
+    four sub-sums and canonical limbs, or the 20-limb design's two halves."""
+    if not u32:
+        return _partials_from_tables(tbl, digits, N, chunk, fold_dtype)
+    parts = _partials_from_tables(tbl, digits, N, chunk, fold_dtype,
+                                  split=U32_SPLIT)
+    return F.canonical_limbs20(parts.movedim(-1, 0)).movedim(0, -1) \
+        .contiguous()
 
 
 def _partials_from_tables(tbl, digits, N: int, chunk: int = CHUNK,
-                          fold_dtype: str = "int32"):
+                          fold_dtype: str = "int32", split: int = 2):
     """The window phase shared by K2's and K2t's plain versions: tables
     (NTBL, 4, NLIMBS, B, Np) int32 with entry 0 the identity and every lane
     past N the identity, plain digits (B, nwin, N) → (B, nchunk, nwin, 4,
-    NLIMBS), each half-chunk summed lane by lane, then the halves through
-    the exchange (int16 when `fold_dtype` is int16)."""
+    NLIMBS).  Each chunk's lanes are `split` sub-sums of chunk / split
+    lanes, each summed lane by lane from its first lane's selected entry;
+    two halves then meet through the exchange (int16 when `fold_dtype` is
+    int16), four as (q0 + q1) + (q2 + q3)."""
+    if split not in (2, 4):
+        raise ValueError(f"split must be 2 or 4, got {split!r}")
     B, Np = tbl.shape[3], tbl.shape[4]
     nwin = digits.shape[1]
-    half = chunk // 2
+    sub = chunk // split
     nchunk = Np // chunk
     dig = torch.zeros((B, nwin, Np), dtype=torch.int32, device=tbl.device)
     dig[..., :N] = digits
     sel = _select(tbl, dig)  # (4, NLIMBS, B, nwin, Np)
-    sel = sel.reshape(4, NLIMBS, B, nwin, nchunk, 2, half).permute(
+    sel = sel.reshape(4, NLIMBS, B, nwin, nchunk, split, sub).permute(
         0, 1, 2, 4, 3, 5, 6)
     acc = sel[..., 0]
-    for lane in range(1, half):
+    for lane in range(1, sub):
         acc = E.point_add(acc, sel[..., lane])
-    other = acc[..., 1]
-    if fold_dtype == "int16":
-        other = other.to(torch.int16).to(torch.int32)
-    acc = E.point_add(acc[..., 0], other)  # (4, NLIMBS, B, nchunk, nwin)
+    if split == 4:
+        acc = E.point_add(E.point_add(acc[..., 0], acc[..., 1]),
+                          E.point_add(acc[..., 2], acc[..., 3]))
+    else:
+        other = acc[..., 1]
+        if fold_dtype == "int16":
+            other = other.to(torch.int16).to(torch.int32)
+        acc = E.point_add(acc[..., 0], other)
+    # acc: (4, NLIMBS, B, nchunk, nwin)
     return acc.permute(2, 3, 4, 0, 1).to(_PART_DTYPES[fold_dtype]) \
         .contiguous()
 
@@ -412,21 +500,23 @@ def _select(tbl, dig):
 def window_partials(digits, points, *, window_bits: int = limbs.WINDOW_BITS,
                     tbl_dtype: str = "int16", fold_dtype: str = "int32",
                     win_chunk: "int | None" = None, body: str = "rolled",
-                    chunk: int = CHUNK):
-    """K2 wrapper: launches the instantiation of csrc/window_sums.cuh that
-    `kernel_form` names on CUDA tensors, runs `window_partials_plain` on
-    CPU tensors.  The defaults are the main path's K2 (window_sums.cu);
-    `win_chunk=None` means every window in one block."""
+                    chunk: int = CHUNK, arith: str = "u32"):
+    """K2 wrapper: launches the instantiation that `kernel_form` names on
+    CUDA tensors, runs `window_partials_plain` on CPU tensors.  The
+    defaults are the main path's K2 (window_sums.cu, window_sums_u32.cuh);
+    `win_chunk=None` means every window in one block, `arith="l20"` the
+    20-limb kernel."""
     _check_points(points)
     B, _, _, N = points.shape
     packed = _check_digits(digits, B, N, window_bits)
     base, suffix, chunk, W = kernel_form(
         "window_sums", window_bits, tbl_dtype, fold_dtype, body, chunk,
-        win_chunk)
+        win_chunk, arith)
     if points.device.type == "cpu" and digits.device.type == "cpu":
         return window_partials_plain(
             digits, points, window_bits=window_bits, tbl_dtype=tbl_dtype,
-            fold_dtype=fold_dtype, win_chunk=W, chunk=chunk)
+            fold_dtype=fold_dtype, win_chunk=W, chunk=chunk, body=body,
+            arith=arith)
     if points.device.type != "cuda" or digits.device != points.device:
         raise ValueError(f"digits on {digits.device} and points on "
                          f"{points.device}: both must be on one CUDA "
@@ -502,12 +592,14 @@ def _tables_devices(digits, head_tables, r_tables) -> bool:
 def window_partials_tables_plain(digits, head_tables, r_tables=None, *,
                                  window_bits: int = limbs.WINDOW_BITS,
                                  fold_dtype: str = "int32",
-                                 win_chunk: "int | None" = None):
+                                 win_chunk: "int | None" = None,
+                                 arith: str = "u32"):
     """Plain PyTorch version of K2t: digits (B, 17 | nwin, N), head tables
     (TH, NTBL, 4, NLIMBS, n_head) int16 with TH ∈ {1, B}, R tables (B,
     NTBL, 4, NLIMBS, N − n_head) int16 (None when n_head = N) → partials
-    (B, nchunk, nwin, 4, NLIMBS).  The same selection and additions as K2's
-    plain version on the given tables; entry 0 is taken as the identity,
+    (B, nchunk, nwin, 4, NLIMBS).  The same selection and window phase as
+    K2's plain version of the same form on the given tables (the default:
+    four sub-sums, canonical limbs); entry 0 is taken as the identity,
     never read from the tensors (the kernel never stores or reads it).
     The JAX counterpart: ops/pallas_msm.py:275-285 (tables_in)."""
     B, n_head, N, packed, r_tables = _tables_operands(
@@ -515,27 +607,31 @@ def window_partials_tables_plain(digits, head_tables, r_tables=None, *,
     if packed:
         digits = expand_digits(digits)
     _check_win_chunk(digits.shape[1], win_chunk)
+    u32 = u32_form(window_bits, fold_dtype=fold_dtype, win_chunk=win_chunk,
+                   arith=arith)
     tbl = _tables_tensor(head_tables, r_tables, B, N, CHUNK)
-    return _partials_from_tables(tbl, digits, N, CHUNK, fold_dtype)
+    return _window_phase(tbl, digits, N, CHUNK, fold_dtype, u32)
 
 
 def window_partials_tables(digits, head_tables, r_tables=None, *,
                            window_bits: int = limbs.WINDOW_BITS,
                            fold_dtype: str = "int32",
-                           win_chunk: "int | None" = None):
-    """K2t wrapper: launches the window_sums_tables instantiation
-    (csrc/window_sums.cu, window_sums_r32.cu) on CUDA tensors, runs
+                           win_chunk: "int | None" = None,
+                           arith: str = "u32"):
+    """K2t wrapper: launches the window_sums_tables instantiation that
+    `kernel_form` names (csrc/window_sums.cu by default; window_sums_lab.cu
+    for `arith="l20"`, window_sums_r32.cu) on CUDA tensors, runs
     `window_partials_tables_plain` on CPU tensors.  TH = 1 head tables are
     shared by every batch (batch stride 0)."""
     B, n_head, N, packed, r_tables = _tables_operands(
         digits, head_tables, r_tables, window_bits)
     base, suffix, _, W = kernel_form(
         "window_sums_tables", window_bits, fold_dtype=fold_dtype,
-        win_chunk=win_chunk)
+        win_chunk=win_chunk, arith=arith)
     if _tables_devices(digits, head_tables, r_tables):
         return window_partials_tables_plain(
             digits, head_tables, r_tables, window_bits=window_bits,
-            fold_dtype=fold_dtype, win_chunk=W)
+            fold_dtype=fold_dtype, win_chunk=W, arith=arith)
     digits = digits.contiguous()
     head_tables = head_tables.contiguous()
     r_tables = r_tables.contiguous()
@@ -873,7 +969,7 @@ def body_style() -> str:
 def window_sums_many(digits, points, *, window_bits: int = limbs.WINDOW_BITS,
                      fold_dtype: str = "int32", tbl_dtype: str = "int16",
                      win_chunk: "int | None" = None, body: "str | None" = None,
-                     chunk: int = CHUNK, device=None):
+                     chunk: int = CHUNK, arith: str = "u32", device=None):
     """B stacked batches in one device call with any window-sum form — the
     counterpart of the JAX package's pallas_window_sums_many
     (ops/pallas_msm.py:480-508; its `tile` is `chunk` here): digits (B, 17,
@@ -881,9 +977,9 @@ def window_sums_many(digits, points, *, window_bits: int = limbs.WINDOW_BITS,
     points in any wire (numpy arrays or tensors) → (B, 4, NLIMBS, nwin)
     int32 tensor on `device` (None means CUDA).  `win_chunk` None reads
     ED25519_TPU_WIN_CHUNK (`auto_win_chunk`), `body` None reads
-    ED25519_TPU_PALLAS_BODY.  On CUDA: K1 or K6 for a point wire, the K2
-    form, the matching K3; a form that is not built or does not fit raises
-    ValueError before any launch."""
+    ED25519_TPU_PALLAS_BODY; `arith="l20"` takes the 20-limb K2.  On CUDA: K1
+    or K6 for a point wire, the K2 form, the matching K3; a form that is
+    not built or does not fit raises ValueError before any launch."""
     dev = resolve_device(device)
     nwin = nwindows(window_bits)
     if win_chunk is None:
@@ -891,28 +987,29 @@ def window_sums_many(digits, points, *, window_bits: int = limbs.WINDOW_BITS,
     if body is None:
         body = body_style()
     kernel_form("window_sums", window_bits, tbl_dtype, fold_dtype, body,
-                chunk, win_chunk)
+                chunk, win_chunk, arith)
     digits = as_tensor(digits, dev)
     points = as_tensor(points, dev)
     with DEVICE_CALL_LOCK:
         return fold_partials(window_partials(
             digits, expand_points(points), window_bits=window_bits,
             tbl_dtype=tbl_dtype, fold_dtype=fold_dtype,
-            win_chunk=win_chunk, body=body, chunk=chunk))
+            win_chunk=win_chunk, body=body, chunk=chunk, arith=arith))
 
 
 def window_sums_many_tables_full(digits, tables, *,
                                  window_bits: int = limbs.WINDOW_BITS,
                                  fold_dtype: str = "int32",
                                  win_chunk: "int | None" = None,
-                                 device=None):
+                                 arith: str = "u32", device=None):
     """B stacked batches from FULL prebuilt multiples tables — the
     counterpart of pallas_window_sums_many_tables_full
     (ops/pallas_msm.py:511-536): digits (B, 17 | nwin, N), tables (TB,
     NTBL, 4, NLIMBS, N) int16 with TB ∈ {1, B} (TB = 1 shares one table
     across the batch) → (B, 4, NLIMBS, nwin) int32 on `device`.  K2t (no R
-    lanes) and K3; the body is always rolled, as in the JAX package, and
-    `win_chunk` None reads ED25519_TPU_WIN_CHUNK."""
+    lanes) and K3; the body is always rolled, as in the JAX package,
+    `win_chunk` None reads ED25519_TPU_WIN_CHUNK, `arith="l20"` takes the
+    20-limb K2t."""
     dev = resolve_device(device)
     if win_chunk is None:
         win_chunk = auto_win_chunk(nwindows(window_bits))
@@ -921,7 +1018,7 @@ def window_sums_many_tables_full(digits, tables, *,
     with DEVICE_CALL_LOCK:
         return fold_partials(window_partials_tables(
             digits, tables, window_bits=window_bits, fold_dtype=fold_dtype,
-            win_chunk=win_chunk))
+            win_chunk=win_chunk, arith=arith))
 
 
 def window_select_only(digits, tables, *, win_chunk: "int | None" = None,

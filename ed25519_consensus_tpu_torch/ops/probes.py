@@ -15,14 +15,25 @@ one step (tools/microbench.py).
   fe_mul, csrc/fe25519.cuh), equal to the JAX package's pallas_msm._fmul_a
   chain mod p (tests/test_torch_variants.py says whether limb for limb).
 
+* `fe8_selftest(x)`: x (n, 100) int32 rows of operands (`fe8_operands`)
+  through every operation of csrc/fe25519_u32.cuh, K2's and K2t's field
+  arithmetic, once each → (n, 124) int32; the plain version runs
+  ops/fe_u32.py, the exact-integer model of that header, so kernel and
+  plain version agree word for word.
+
 Each wrapper runs its kernel on a CUDA tensor and its plain version on a
 CPU tensor; any other device raises.
 """
 
+import random
+
+import numpy as np
 import torch
 
 from . import _cuda
+from . import fe_u32 as M
 from . import torch_field as F
+from .field import P
 
 CHAIN_OPS = ("add", "mul", "shift", "madd")
 
@@ -86,3 +97,89 @@ def fmul_chain(x, n_steps: int):
     if x.device.type == "cpu":
         return fmul_chain_plain(x, n_steps)
     return _launch("probe_fmul", x, n_steps)
+
+
+# -- the self-test of fe25519_u32.cuh --------------------------------------
+
+FE8_IN, FE8_OUT = 100, 124
+FE8_EDGES = ([0, 1, 2, 19, 38, P - 1, P, P + 1, P + 18, 2**255 - 1, 2**255,
+              2**255 + 18, 2 * P - 1, 2**256 - 1, 2**256 - 38, 2**256 - 39]
+             + [2**256 - 19 * k for k in range(1, 5)])
+
+
+def _limb_edges(rng):
+    """limbs20 vectors at the bound: all ±8191, alternating, one limb at
+    ±8191, the top limb alone, small negatives (−0 of the x = 0 points:
+    all zero), and random ones."""
+    out = [[8191] * 20, [-8191] * 20, [0] * 20, [-1] + [0] * 19,
+           [0] * 19 + [-8191], [0] * 19 + [8191], [-8191] + [0] * 19,
+           [8191 if i % 2 else -8191 for i in range(20)],
+           [-8191 if i % 2 else 8191 for i in range(20)]]
+    out += [[rng.choice((-8191, 8191, 0, 1, -1)) for _ in range(20)]
+            for _ in range(8)]
+    return out
+
+
+def fe8_operands(n_random: int = 64, seed: int = 0xFE8) -> np.ndarray:
+    """(rows, 100) int32 operand rows for `fe8_selftest`: every pair of
+    FE8_EDGES as (a, b), then `n_random` random rows; limbs20 vectors at
+    the bound cycle through the rows; the points p and q are random words
+    (their residues need not be on the curve: the formula is algebra)."""
+    rng = random.Random(seed)
+    limbs = _limb_edges(rng)
+    pairs = [(a, b) for a in FE8_EDGES for b in FE8_EDGES]
+    pairs += [(rng.getrandbits(256), rng.getrandbits(256))
+              for _ in range(n_random)]
+    rows = []
+    for i, (a, b) in enumerate(pairs):
+        lim = limbs[i % len(limbs)] if i % 3 else [
+            rng.randint(-8191, 8191) for _ in range(20)]
+        pts = [rng.choice(FE8_EDGES) if rng.random() < 0.2
+               else rng.getrandbits(256) for _ in range(8)]
+        words = M.to_words(a) + M.to_words(b) + list(lim)
+        for v in pts:
+            words += M.to_words(v)
+        rows.append(words)
+    arr = np.array(rows, dtype=np.int64)
+    return (arr & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+def _row_plain(x):
+    w = [int(v) & 0xFFFFFFFF for v in x]
+    a, b = w[0:8], w[8:16]
+    lim = [int(v) for v in x[16:36]]
+    p = [w[36 + 8 * k:44 + 8 * k] for k in range(4)]
+    q = [w[68 + 8 * k:76 + 8 * k] for k in range(4)]
+    out = (M.fe8_add(a, b) + M.fe8_sub(a, b) + M.fe8_neg(a)
+           + M.fe8_mul(a, b) + M.fe8_from_limbs20(lim)
+           + M.fe8_to_limbs20_canonical(a))
+    for neg in (False, True):
+        for c in M.ge8_add(p, q, neg):
+            out += c
+    return out
+
+
+def fe8_selftest_plain(x):
+    """Plain version of probe_fe8: each row through ops/fe_u32.py."""
+    rows = [_row_plain(r) for r in x.tolist()]
+    arr = np.array(rows, dtype=np.int64).reshape(-1, FE8_OUT)
+    return torch.from_numpy((arr & 0xFFFFFFFF).astype(np.uint32)
+                            .view(np.int32))
+
+
+def fe8_selftest(x):
+    """probe_fe8 wrapper: x (n, 100) int32 → (n, 124) int32."""
+    if x.dtype != torch.int32 or x.ndim != 2 or x.shape[1] != FE8_IN:
+        raise ValueError(f"x must be (n, {FE8_IN}) int32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.device.type == "cpu":
+        return fe8_selftest_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    x = x.contiguous()
+    out = torch.empty((x.shape[0], FE8_OUT), dtype=torch.int32,
+                      device=x.device)
+    if x.shape[0]:
+        _cuda.kernel("probe_fe8").launch(x.device, x.data_ptr(),
+                                         out.data_ptr(), x.shape[0], 0)
+    return out

@@ -129,3 +129,43 @@ def const(value_limbs, shape, device):
                      device=device)
     return t.reshape((NLIMBS,) + (1,) * len(shape)).expand(
         (NLIMBS,) + tuple(shape))
+
+
+def canonical_limbs20(x):
+    """The canonical residue of every element of x ((NLIMBS, ...) int32
+    limbs in U) in [0, p), as NLIMBS balanced 13-bit limbs: limbs 0..18 in
+    [-4096, 4095], limb 19 in [0, 256].  The representation is unique, so
+    any two limb vectors of one residue give the same limbs: the plain
+    versions of K2 and K2t (csrc/window_sums_u32.cuh), which write these
+    limbs through fe8_to_limbs20_canonical, end with this.
+
+    Exact in int64: floor carries bring limbs 0..18 into [0, 2^13); the
+    bits from 255 up (limb 19 >> 8) fold back as 19 each (2^255 ≡ 19);
+    three rounds of carry and fold take any value in U (|V| < 2^260) into
+    [0, 2^255); then x ≥ p exactly when x + 19 reaches 2^255, and the
+    balanced split c = (u + 4096) >> 13 runs serially from limb 0."""
+    v = list(x.to(torch.int64).unbind(0))
+    top = NLIMBS - 1
+
+    def carry_floor(v):
+        for i in range(top):
+            c = v[i] >> LIMB_BITS
+            v[i] = v[i] - c * _RADIX
+            v[i + 1] = v[i + 1] + c
+        return v
+
+    for _ in range(3):
+        v = carry_floor(v)
+        q = v[top] >> 8
+        v[top] = v[top] - q * 256
+        v[0] = v[0] + 19 * q
+    v = carry_floor(v)
+    t = carry_floor([v[0] + 19] + v[1:])
+    ge = t[top] >= 256
+    t[top] = t[top] - 256
+    v = [torch.where(ge, a, b) for a, b in zip(t, v)]
+    for i in range(top):
+        c = (v[i] + _HALF) >> LIMB_BITS
+        v[i] = v[i] - c * _RADIX
+        v[i + 1] = v[i + 1] + c
+    return torch.stack(v).to(torch.int32)

@@ -44,9 +44,17 @@ from ..ops import edwards, msm
 # (window_bits, tbl_dtype, fold_dtype, chunk) that no knob reaches: such a
 # pin names a lab form, not a setting a verdict path can take.
 SWEEP = (
-    # the JAX sweep's candidates (tools/kernel_lab.py:160-181)
+    # the default K2 and K2t (csrc/window_sums_u32.cuh), then the 20-limb
+    # kernels they replaced (arith="l20", csrc/window_sums.cuh)
     ("rolled-w33", "many", 4, {"win_chunk": 33},
      {"ED25519_TPU_WIN_CHUNK": "33"}),
+    ("rolled-w33-l20", "many", 4, {"win_chunk": 33, "arith": "l20"},
+     {"arith": "l20"}),
+    ("tables-w33", "tables_full", 4, {"win_chunk": 33},
+     {"resident": "devcache tables (ED25519_TPU_DEVCACHE_TABLES)"}),
+    ("tables-w33-l20", "tables_full", 4, {"win_chunk": 33, "arith": "l20"},
+     {"resident": "devcache tables", "arith": "l20"}),
+    # the JAX sweep's candidates (tools/kernel_lab.py:160-181)
     ("rolled-w11", "many", 4, {"win_chunk": 11},
      {"ED25519_TPU_WIN_CHUNK": "11"}),
     ("int16-fold-w11", "many", 4, {"win_chunk": 11, "fold_dtype": "int16"},
@@ -159,14 +167,15 @@ def check_parity(out, want, label: str, window_bits: int = 4) -> bool:
 def sweep_form(entry: str, window_bits: int, kw: dict):
     """msm.kernel_form of a sweep form: (base, suffix, chunk, W) of the K2
     or K2t instantiation it launches."""
+    arith = kw.get("arith", "u32")
     if entry == "tables_full":
         return msm.kernel_form("window_sums_tables", window_bits,
-                               win_chunk=kw["win_chunk"])
+                               win_chunk=kw["win_chunk"], arith=arith)
     return msm.kernel_form("window_sums", window_bits,
                            kw.get("tbl_dtype", "int16"),
                            kw.get("fold_dtype", "int32"),
                            kw.get("body", "rolled"), kw.get("chunk", 64),
-                           kw["win_chunk"])
+                           kw["win_chunk"], arith)
 
 
 def sweep_call(entry: str, window_bits: int, kw: dict, digits, ext,

@@ -11,13 +11,18 @@ multiplies, multiply-adds and shifts on a (32, 128) tile (additions also on
 is the cost of one step (ns per operation, µs per field multiply).
 
 `--profile-ledger`: the stage decomposition of one production-shape call
-(B = 8, N = 12,288 by default) as differences of four real forms at the
-same shape, each the median of 5 CUDA-event times: the full call (K2 + K3),
-K2 alone, K2t on prebuilt tables (TB = B), and K2s, the select-only form.
-It prints one `device_program_profile` JSON line with the JAX tool's keys:
-table_build_ms = K2 − K2t, fold_in_kernel_ms = K2t − K2s, select_ms = K2s,
-xla_fold_ms = full − K2 (here the K3 fold).  The windows per block are the
-port's default, every window in one block, unless `win_chunk` is given.
+(B = 8, N = 12,288 by default) as differences of real forms at the same
+shape, each the median of 5 CUDA-event times, never across the two field
+arithmetics: the full call (K2 + K3), K2 alone and K2t on prebuilt tables
+(TB = B), all three the default kernels (csrc/window_sums_u32.cuh, "u32");
+then the 20-limb K2t (`window_sums_tables-l20`) and K2s, the select-only form
+of that design ("l20", csrc/window_sums.cuh).  It prints one
+`device_program_profile` JSON line with the JAX tool's keys, each bucket
+labelled with its arithmetic under "arithmetic": table_build_ms = K2 −
+K2t and kernel_tables_ms = K2t (u32); xla_fold_ms = full − K2 (the K3
+fold, itself in the 20-limb arithmetic); select_ms = K2s and
+fold_in_kernel_ms = K2t-l20 − K2s (l20).  The windows per block are every
+window in one block: the default kernels hold no other form.
 
 Without a CUDA device it prints a "skipped" line and exits 0.
 """
@@ -90,31 +95,37 @@ def run_probes(device=None, reps: int = 5) -> list:
     return out
 
 
-def profile_forms(digits, ext, tables, win_chunk: int):
-    """The four forms of the stage profile on tensors already on one
-    device: {name: zero-argument call}."""
+def profile_forms(digits, ext, tables):
+    """The forms of the stage profile on tensors already on one device:
+    {name: zero-argument call}; the last two are the 20-limb design's."""
     return {
         "pipeline_full": lambda: msm.window_sums_many(
-            digits, ext, win_chunk=win_chunk, body="rolled",
+            digits, ext, win_chunk=NWINDOWS, body="rolled",
             device=digits.device),
-        "kernel_full": lambda: msm.window_partials(
-            digits, ext, win_chunk=win_chunk),
-        "kernel_tables": lambda: msm.window_partials_tables(
-            digits, tables, win_chunk=win_chunk),
-        "kernel_select_only": lambda: msm.select_only(
-            digits, tables, win_chunk=win_chunk),
+        "kernel_full": lambda: msm.window_partials(digits, ext),
+        "kernel_tables": lambda: msm.window_partials_tables(digits, tables),
+        "kernel_tables_l20": lambda: msm.window_partials_tables(
+            digits, tables, arith="l20"),
+        "kernel_select_only": lambda: msm.select_only(digits, tables),
     }
 
 
+# The arithmetic of each bucket: the default kernels' 8 x 32-bit words
+# ("u32") or the 20 x 13-bit limbs of the 20-limb design and K3 ("l20").
+ARITHMETIC = {"total_ms": "u32 K2 + l20 K3", "kernel_ms": "u32",
+              "kernel_tables_ms": "u32", "table_build_ms": "u32",
+              "xla_fold_ms": "l20", "kernel_tables_l20_ms": "l20",
+              "select_ms": "l20", "fold_in_kernel_ms": "l20"}
+
+
 def profile_ledger(chunk_b: int = 8, n_lanes: int = 12288, reps: int = 5,
-                   win_chunk=None, device=None, operands=None) -> dict:
+                   device=None, operands=None) -> dict:
     """The `device_program_profile` block (the JAX tool's profile_ledger,
     `:119-229`): every bucket the difference of two real forms' medians at
-    the same (chunk_b, n_lanes).  `operands`: the lab's radix-16 (digits,
-    extended points) tensors on the device, built here when None.  Returns
-    the ledger (printed as JSON)."""
+    the same (chunk_b, n_lanes), both in one arithmetic (`ARITHMETIC`).
+    `operands`: the lab's radix-16 (digits, extended points) tensors on the
+    device, built here when None.  Returns the ledger (printed as JSON)."""
     dev = msm.resolve_device(device)
-    W = NWINDOWS if win_chunk is None else win_chunk
     if operands is None:
         _, _, digits, ext = kernel_lab.build_operands(n_lanes, B=chunk_b)
         operands = (torch.from_numpy(digits).to(dev),
@@ -122,21 +133,25 @@ def profile_ledger(chunk_b: int = 8, n_lanes: int = 12288, reps: int = 5,
     d, e = operands
     tables = msm.multiples_tables(e)
     forms = {}
-    for name, fn in profile_forms(d, e, tables, W).items():
+    for name, fn in profile_forms(d, e, tables).items():
         forms[name] = timed_calls(fn, dev, reps)
         log(f"#   {name}: {forms[name] * 1e3:.4f} ms/call")
     ms = {k: v * 1e3 for k, v in forms.items()}
     ledger = {
         "device": device_name(dev),
         "shape": [chunk_b, n_lanes],
-        "win_chunk": W,
+        "win_chunk": NWINDOWS,
         "reps": reps,
         "total_ms": ms["pipeline_full"],
         "kernel_ms": ms["kernel_full"],
+        "kernel_tables_ms": ms["kernel_tables"],
         "table_build_ms": ms["kernel_full"] - ms["kernel_tables"],
-        "select_ms": ms["kernel_select_only"],
-        "fold_in_kernel_ms": ms["kernel_tables"] - ms["kernel_select_only"],
         "xla_fold_ms": ms["pipeline_full"] - ms["kernel_full"],
+        "kernel_tables_l20_ms": ms["kernel_tables_l20"],
+        "select_ms": ms["kernel_select_only"],
+        "fold_in_kernel_ms": (ms["kernel_tables_l20"]
+                              - ms["kernel_select_only"]),
+        "arithmetic": ARITHMETIC,
         "terms_per_sec_full": chunk_b * n_lanes / forms["pipeline_full"],
         "terms_per_sec_tables_resident": chunk_b * n_lanes / (
             forms["kernel_tables"]

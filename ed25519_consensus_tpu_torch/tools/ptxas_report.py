@@ -1,0 +1,171 @@
+"""What the compiler made of the default K2 and K2t (csrc/window_sums.cu) and
+of their field arithmetic (csrc/fe25519_u32.cuh), on the card's toolkit.
+
+    python -m ed25519_consensus_tpu_torch.tools.ptxas_report
+
+* ptxas's registers and spills for window_sums_kernel and
+  window_sums_tables_kernel as built (fe8_mul inlined) and with
+  -DFE8_MUL_NOINLINE (fe8_mul out of line), each with the resident warps
+  an SM they imply (`occupancy`): the report behind the choice of inlining.
+* `cuobjdump -sass` of csrc/probes.cu: the instructions of each
+  out-of-line operation of the self-test kernel probe_fe8 (st_fe8_add,
+  st_fe8_mul, ...), all of them and the integer multiply-adds among them
+  (`sass_counts`), beside the hand counts chip_smoke.py prices the bounds
+  with.
+
+Builds go to build/ptxas/ (the kernel cache's directory, which .gitignore
+lists), not into the cache.  Without nvcc it prints a "skipped" line and
+exits 0.
+"""
+
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+from ..ops import _cuda, msm
+
+# An H100 SM: 65,536 registers in warp allocations of 256, 233,472 B of
+# shared memory with 1,024 B reserved a block, 64 warps, 32 blocks.
+SM_REGISTERS = 65_536
+SM_SHARED = 233_472
+BLOCK_RESERVED = 1_024
+SM_WARPS = 64
+SM_BLOCKS = 32
+
+U32_KERNELS = ("window_sums_kernel", "window_sums_tables_kernel")
+
+
+def occupancy(registers: int, threads: int = msm.U32_THREADS,
+              smem: int = msm.U32_SHARED_BYTES) -> dict:
+    """Blocks and warps an SM holds for a kernel of `registers` a thread,
+    `threads` a block and `smem` bytes of dynamic shared memory a block,
+    and which resource limits it."""
+    warps = -(-threads // 32)
+    regs_warp = -(-registers * 32 // 256) * 256
+    limits = {"registers": SM_REGISTERS // (regs_warp * warps),
+              "shared memory": SM_SHARED // (smem + BLOCK_RESERVED),
+              "warps": SM_WARPS // warps, "blocks": SM_BLOCKS}
+    blocks = min(limits.values())
+    return {"blocks": blocks, "warps": blocks * warps,
+            "limited_by": min(limits, key=limits.get)}
+
+
+def ptxas_build(source: str, defines=(), out_dir: Path = None) -> dict:
+    """Compiles csrc/`source` with the kernel cache's flags and the `-D`
+    `defines`; returns {kernel: {"registers", "spill_stores",
+    "spill_loads"}} from ptxas's report."""
+    out_dir = out_dir or _cuda.BUILD_DIR / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = "-".join(d.lower() for d in defines) or "default"
+    out = out_dir / f"{Path(source).stem}-{tag}.so"
+    p = subprocess.run(
+        [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, *[f"-D{d}" for d in defines],
+         "-o", str(out), str(_cuda.CSRC / source)],
+        capture_output=True, text=True, timeout=600)
+    if p.returncode:
+        raise RuntimeError(f"nvcc failed on {source} {defines}:\n"
+                           f"{p.stdout}{p.stderr}")
+    return _cuda.ptxas_usage(p.stdout + p.stderr)
+
+
+def cuobjdump_path():
+    """cuobjdump from the CUDA toolkit, or triton's copy, or None."""
+    try:
+        nvcc = Path(_cuda.nvcc_path())
+    except RuntimeError:
+        nvcc = None
+    if nvcc is not None and (nvcc.parent / "cuobjdump").exists():
+        return str(nvcc.parent / "cuobjdump")
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    try:
+        import triton
+
+        cand = Path(triton.__file__).parent / "backends" / "nvidia" / \
+            "bin" / "cuobjdump"
+        return str(cand) if cand.exists() else None
+    except ImportError:
+        return None
+
+
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                   r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+# The out-of-line operations probe_fe8_kernel calls, in the order of its
+# call sites (csrc/probes.cu).
+FE8_CALLS = ("st_fe8_add", "st_fe8_sub", "st_fe8_neg", "st_fe8_mul",
+             "st_fe8_from_limbs20", "st_fe8_to_limbs20_canonical",
+             "st_ge8_add")
+
+
+def sass_counts(library: Path, kernel: str = "probe_fe8_kernel",
+                calls=FE8_CALLS) -> dict:
+    """{function: {"instructions", "imad"}} for the out-of-line functions
+    `kernel` calls, from `cuobjdump -sass` of `library`.  The SASS lists a
+    non-inlined device function as a subroutine inside its caller's
+    listing: the n-th CALL.REL of the kernel (its call sites in source
+    order) targets the body of calls[n], which runs to its first RET.
+    Counted: every instruction of the body but the RET and NOPs, and the
+    IMAD family among them.  None when no cuobjdump is found."""
+    tool = cuobjdump_path()
+    if tool is None:
+        return None
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    insns, inside = [], False
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inside = m.group(1) == kernel
+            continue
+        m = _INSN.search(line) if inside else None
+        if m:
+            insns.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    targets = []
+    for _, op, args in insns:
+        if op.startswith("CALL"):
+            t = re.search(r"0x([0-9a-f]+)", args)
+            if t:
+                targets.append(int(t.group(1), 16))
+    counts = {}
+    for name, start in zip(calls, targets):
+        n = imad = 0
+        for off, op, _ in insns:
+            if off < start or op.startswith("NOP"):
+                continue
+            if op.startswith("RET"):
+                break
+            n += 1
+            imad += op.startswith("IMAD")
+        counts[name] = {"instructions": n, "imad": imad}
+    return counts
+
+
+def main(argv=None) -> int:
+    try:
+        _cuda.nvcc_path()
+    except RuntimeError:
+        print("# ptxas report: SKIPPED — no nvcc (the CUDA toolkit builds "
+              "the kernels on the card's machine)")
+        return 0
+    for defines in ((), ("FE8_MUL_NOINLINE",)):
+        usage = ptxas_build("window_sums.cu", defines)
+        for k in U32_KERNELS:
+            u = usage.get(k, {})
+            occ = occupancy(u.get("registers", 255))
+            print(f"ptxas window_sums.cu {' '.join(defines) or 'inline'} "
+                  f"{k}: {u.get('registers')} registers, spill stores "
+                  f"{u.get('spill_stores')} B, loads {u.get('spill_loads')}"
+                  f" B; {occ['blocks']} blocks = {occ['warps']} warps an SM "
+                  f"(limited by {occ['limited_by']})")
+    _cuda.build_all(["probes.cu"])
+    counts = sass_counts(_cuda.library_path("probes.cu"))
+    print(f"sass probes.cu: {counts}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,7 +8,12 @@ skip.  On the card:
 
 (`--noconftest`: the suite's conftest imports JAX, which the port does
 not need and a GPU host may not have).  Tolerance: exact equality; K2,
-K2t, K3 and K4 take the plain versions' additions in the same order."""
+K2t, K3 and K4 take the plain versions' additions in the same order (the
+default K2 and K2t, csrc/window_sums_u32.cuh, those of the `split=4`
+plain order with canonical limbs; the 20-limb forms their own); forms of
+the two designs agree as points.  The self-test of the default K2's and
+K2t's field arithmetic (probe_fe8) equals the exact-integer model word
+for word."""
 
 import random
 
@@ -238,6 +243,7 @@ def _digits(window_bits, B, N, seed):
 
 
 K2_FORMS = [
+    (4, {}), (4, {"arith": "l20"}),
     (4, {"win_chunk": 11}), (4, {"win_chunk": 3}), (4, {"win_chunk": 1}),
     (4, {"fold_dtype": "int16", "win_chunk": 11}),
     (4, {"tbl_dtype": "int32"}), (4, {"tbl_dtype": "int32", "chunk": 32}),
@@ -261,13 +267,13 @@ def test_window_sum_forms_match_plain(dev, window_bits, kw):
     base, suffix, chunk, _ = msm.kernel_form(
         "window_sums", window_bits, kw.get("tbl_dtype", "int16"),
         kw.get("fold_dtype", "int32"), kw.get("body", "rolled"),
-        kw.get("chunk", 64), kw.get("win_chunk"))
+        kw.get("chunk", 64), kw.get("win_chunk"), kw.get("arith", "u32"))
     k = _cuda.kernel(base, suffix)
     before = k.launches
     got = msm.window_partials(d, pts, window_bits=window_bits, **kw)
     want = msm.window_partials_plain(
         d, pts, window_bits=window_bits, chunk=chunk,
-        **{n: v for n, v in kw.items() if n in ("tbl_dtype", "fold_dtype")})
+        **{n: v for n, v in kw.items() if n != "chunk"})
     torch.cuda.synchronize()
     assert k.launches == before + 1
     assert got.dtype == want.dtype and torch.equal(got, want)
@@ -276,9 +282,9 @@ def test_window_sum_forms_match_plain(dev, window_bits, kw):
 
 @pytest.mark.parametrize("window_bits", [4, 5])
 def test_tables_forms_and_select_only_match_plain(dev, window_bits):
-    """K4 at 9 and 17 entries, K2t at both radixes (W = 11 at radix 16,
-    the head boundary inside a chunk) and K2s against their plain
-    versions."""
+    """K4 at 9 and 17 entries, K2t at both radixes (the default and the
+    20-limb form at W = 11 at radix 16, the head boundary inside a chunk) and
+    K2s against their plain versions."""
     B, N, n_head = 2, 200, 70
     pts = TD.expand_compressed_points(
         torch.from_numpy(np.stack([_wire(N, 63), _wire(N, 64)])).to(dev))
@@ -287,11 +293,11 @@ def test_tables_forms_and_select_only_match_plain(dev, window_bits):
     d = torch.from_numpy(_digits(window_bits, B, N, 65)).to(dev)
     head = tables[..., :n_head].contiguous()
     r = tables[..., n_head:].contiguous()
-    W = 11 if window_bits == 4 else None
-    got = msm.window_partials_tables(d, head, r, window_bits=window_bits,
-                                     win_chunk=W)
-    assert torch.equal(got, msm.window_partials_tables_plain(
-        d, head, r, window_bits=window_bits))
+    for W in ((None, 11) if window_bits == 4 else (None,)):
+        got = msm.window_partials_tables(d, head, r, window_bits=window_bits,
+                                         win_chunk=W)
+        assert torch.equal(got, msm.window_partials_tables_plain(
+            d, head, r, window_bits=window_bits, win_chunk=W))
     if window_bits == 4:
         assert torch.equal(msm.select_only(d, tables[:1]),
                            msm.select_only_plain(d, tables[:1]))
@@ -309,16 +315,20 @@ def test_probes_match_plain(dev):
                           .reshape(20, 8, 128) % 1000).to(dev)
     assert torch.equal(probes.fmul_chain(xf, 3),
                        probes.fmul_chain_plain(xf, 3))
+    xs = torch.from_numpy(probes.fe8_operands(n_random=16))
+    assert torch.equal(probes.fe8_selftest(xs.to(dev)).cpu(),
+                       probes.fe8_selftest_plain(xs))
 
 
 @pytest.mark.parametrize("env,name", [
-    ({"ED25519_TPU_WIN_CHUNK": "11"}, "window_sums-w11"),
+    ({"ED25519_TPU_WIN_CHUNK": "11"}, "window_sums-l20-w11"),
     ({"ED25519_TPU_PALLAS_BODY": "hybrid"}, "window_sums-hybrid"),
     ({"ED25519_TPU_PALLAS_BODY": "unrolled"}, "window_sums"),
 ])
 def test_knobs_drive_the_main_path(dev, monkeypatch, env, name):
     """The stacked dispatch runs the instantiation the knobs name, with the
-    default's window sums."""
+    default's window sums as points (the 20-limb forms sum in another
+    order)."""
     B, N = 2, 128
     d = _digits(4, B, N, 66)
     w = np.stack([_wire(N, 67), _wire(N, 68)])
@@ -332,7 +342,10 @@ def test_knobs_drive_the_main_path(dev, monkeypatch, env, name):
     assert after[name] == before.get(name, 0) + 1
     assert name == "window_sums" or \
         after["window_sums"] == before["window_sums"]
-    assert torch.equal(got, want)
+    g, w_ = got.cpu().numpy(), want.cpu().numpy()
+    assert all(limbs.unpack_point(g[b, ..., i]) ==
+               limbs.unpack_point(w_[b, ..., i])
+               for b in range(B) for i in range(limbs.NWINDOWS))
 
 
 def test_single_form_entries_refuse_other_windows(dev):
@@ -347,12 +360,13 @@ def test_single_form_entries_refuse_other_windows(dev):
         torch.from_numpy(_wire(N, 70)[None]).to(dev))
     out = torch.empty((B, 2, 33, 4, limbs.NLIMBS), dtype=torch.int32,
                       device=dev)
-    k = _cuda.KERNELS["window_sums-i32tbl"]
-    before = k.launches
-    with pytest.raises(_cuda.CudaError) as err:
-        k.launch(pts.device, d.data_ptr(), 0, pts.data_ptr(),
-                 out.data_ptr(), B, N, 11)
-    assert err.value.cuda_error == 1 and k.launches == before
+    for name in ("window_sums-i32tbl", "window_sums"):
+        k = _cuda.KERNELS[name]
+        before = k.launches
+        with pytest.raises(_cuda.CudaError) as err:
+            k.launch(pts.device, d.data_ptr(), 0, pts.data_ptr(),
+                     out.data_ptr(), B, N, 11)
+        assert err.value.cuda_error == 1 and k.launches == before
     got = msm.window_partials(d, pts, fold_dtype="int16")
     assert torch.equal(got, msm.window_partials_plain(d, pts,
                                                       fold_dtype="int16"))

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from ed25519_consensus_tpu_torch.ops import _cuda, msm
-from ed25519_consensus_tpu_torch.tools import kernel_lab, microbench
+from ed25519_consensus_tpu_torch.tools import (kernel_lab, microbench,
+                                               ptxas_report)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,6 +64,10 @@ def test_profile_ledger_on_the_plain_versions(capsys):
             "terms_per_sec_tables_resident", "shape", "win_chunk",
             "reps"} <= set(ledger)
     assert ledger["win_chunk"] == 33 and ledger["device"] == "cpu"
+    # each bucket names its arithmetic: no bucket subtracts a form of one
+    # from a form of the other
+    assert ledger["arithmetic"]["table_build_ms"] == "u32"
+    assert ledger["arithmetic"]["fold_in_kernel_ms"] == "l20"
     line = [ln for ln in capsys.readouterr().out.splitlines()
             if "device_program_profile" in ln]
     assert json.loads(line[-1])["device_program_profile"]["shape"] == \
@@ -83,9 +88,12 @@ def test_probes_on_the_plain_versions():
     (kernel_lab, ["--exp", "ab"]),
     (microbench, []),
     (microbench, ["--profile-ledger", "8", "12288"]),
+    (ptxas_report, []),
 ])
 def test_tools_skip_without_a_card(tool, argv, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_cuda, "nvcc_path", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
     assert tool.main(argv) == 0
     assert "SKIPPED" in capsys.readouterr().out
 
@@ -115,7 +123,7 @@ def test_every_instantiation_has_its_entry_in_its_source():
     for base, src in held + list(_cuda.W_SOURCES.items()):
         text = (_cuda.CSRC / src).read_text(encoding="utf-8")
         name = base.replace("-", "_")
-        assert re.search(rf"\b[A-Z_0-9]+\({name},|\b{name}_launch\(",
+        assert re.search(rf"\b[A-Z_0-9]+\({name}[,)]|\b{name}_launch\(",
                          text), (base, src)
     assert _cuda.entry_of("window_sums-r32") == "window_sums_r32_launch"
     assert _cuda.base_of("window_sums_tables-r32-w9") == \
@@ -126,25 +134,32 @@ def test_block_forms_match_the_sources_and_the_paths():
     """Each window-sum instantiation's FORMS argument in its source is the
     one _cuda.BLOCK_FORMS gives ("both" when unlisted), and it is what the
     paths launch: every window in one block ("all"), fewer ("w"), or both.
-    So no kernel is built that no path launches."""
+    So no kernel is built that no path launches.  The default K2 and K2t
+    (WS_K2_U32 / WS_K2T_U32, which take no FORMS) are "all" only; the
+    windows-per-block knob reaches the 20-limb kernels' any-W form."""
     held = {}
     for src in _cuda.sources():
         text = (_cuda.CSRC / src).read_text(encoding="utf-8")
-        for m in re.finditer(r"^WS_K2T?\((\w+), (ALL|W|BOTH),", text,
-                             re.M):
-            held.setdefault(m.group(1), set()).update(
-                {"ALL": {"all"}, "W": {"w"}, "BOTH": {"all", "w"}}[
-                    m.group(2)])
-            if m.group(2) == "W" and src in _cuda.W_SOURCES.values():
-                assert _cuda.W_SOURCES[m.group(1)] == src
+        for m in re.finditer(
+                r"^WS_K2T?(?:\((\w+), (ALL|W|BOTH)[,)]|_U32\((\w+)\))",
+                text, re.M):
+            name, forms = (m.group(1), m.group(2)) if m.group(1) else (
+                m.group(3), "ALL")
+            held.setdefault(name, set()).update(
+                {"ALL": {"all"}, "W": {"w"}, "BOTH": {"all", "w"}}[forms])
+            if forms == "W" and src in _cuda.W_SOURCES.values():
+                assert {b.replace("-", "_"): f for b, f in
+                        _cuda.W_SOURCES.items()}[name] == src
     seen = {n: "both" if f == {"all", "w"} else f.pop()
             for n, f in held.items()}
     window = {b for b in _cuda.INSTANTIATIONS if b.startswith("window_")}
     assert set(seen) == {b.replace("-", "_") for b in window}
-    assert _cuda.kernel("window_sums", "-w11").source == "window_sums_w.cu"
+    assert _cuda.kernel("window_sums-l20", "-w11").source == \
+        "window_sums_w.cu"
     assert _cuda.KERNELS["window_sums"].source == "window_sums.cu"
     # the verdict paths and their knobs, the stage profile, then the sweep
-    used = {"window_sums": {"all", "w"}, "window_sums_tables": {"all", "w"},
+    used = {"window_sums": {"all"}, "window_sums_tables": {"all"},
+            "window_sums-l20": {"w"}, "window_sums_tables-l20": {"all", "w"},
             "window_sums-hybrid": {"all"}, "window_select_only": {"all"}}
     for name, entry, wb, kw, _pin in kernel_lab.SWEEP:
         base, suffix, _, _ = kernel_lab.sweep_form(entry, wb, kw)
@@ -162,7 +177,7 @@ def test_block_forms_match_the_sources_and_the_paths():
     ("window_sums", {"fold_dtype": "int16"},
      ("window_sums-i16fold", "", 64, 33, "window_sums_i16fold_w_kernel")),
     ("window_sums", {"win_chunk": 11},
-     ("window_sums", "-w11", 64, 11, "window_sums_w_kernel")),
+     ("window_sums-l20", "-w11", 64, 11, "window_sums_l20_w_kernel")),
     ("window_sums", {}, ("window_sums", "", 64, 33, "window_sums_kernel")),
 ], ids=["i32tbl-w11", "select-only-w3", "i16fold-all", "default-w11",
         "default"])
@@ -210,16 +225,17 @@ def test_load_all_builds_only_the_verdict_set(monkeypatch, body):
 
 def test_forms_count_their_launches_apart():
     """A windows-per-block form has its instantiation's C entry name (the
-    default's any-W kernel in a source of its own) and keeps a launch
+    20-limb default's any-W kernel in a source of its own) and keeps a launch
     count of its own."""
-    k = _cuda.kernel("window_sums", "-w11")
-    assert k is _cuda.kernel("window_sums", "-w11")
-    assert k is not _cuda.KERNELS["window_sums"]
-    assert k.entry == _cuda.KERNELS["window_sums"].entry
+    k = _cuda.kernel("window_sums-l20", "-w11")
+    assert k is _cuda.kernel("window_sums-l20", "-w11")
+    assert k is not _cuda.KERNELS["window_sums-l20"]
+    assert k.entry == _cuda.KERNELS["window_sums-l20"].entry == \
+        "window_sums_l20_launch"
     assert k.source == "window_sums_w.cu"
     assert _cuda.kernel("window_sums-r32", "-w9").source == \
         "window_sums_r32.cu"
-    assert _cuda.launch_counts()["window_sums-w11"] == k.launches
+    assert _cuda.launch_counts()["window_sums-l20-w11"] == k.launches
 
 
 def test_ptxas_report_parses():
@@ -240,3 +256,37 @@ ptxas info    : Used 96 registers, used 0 barriers, 376 bytes cmem[0]
                                    "spill_loads": 12},
         "probe_fmul_kernel": {"registers": 96, "spill_stores": 0,
                               "spill_loads": 0}}
+
+
+def test_occupancy_and_sass_parsing(monkeypatch, tmp_path):
+    """The resident warps a register count implies for the default K2 /
+    K2t block (160 threads, 67,648 B), and the SASS parser: the n-th CALL
+    of the self-test kernel targets the n-th operation's body, counted to
+    its RET."""
+    assert ptxas_report.occupancy(128) == {
+        "blocks": 3, "warps": 15, "limited_by": "registers"}
+    assert ptxas_report.occupancy(96)["limited_by"] == "shared memory"
+    assert ptxas_report.occupancy(168)["warps"] == 10
+    sass = tmp_path / "k.sass"
+    sass.write_text("""
+\t\tFunction : probe_fe8_kernel
+        /*0000*/                   CALL.REL.NOINC 0x40 ;
+        /*0010*/                   CALL.REL.NOINC 0x80 ;
+        /*0020*/                   EXIT ;
+        /*0030*/                   BRA 0x30;
+        /*0040*/                   IMAD R1, R2, R3, RZ ;
+        /*0050*/                   IADD3.X R4, P0, R5, R6, RZ, P0, !PT ;
+        /*0060*/                   RET.REL.NODEC R20 0x0 ;
+        /*0070*/                   NOP;
+        /*0080*/              @P0   IMAD.HI.U32 R1, R2, R3, RZ ;
+        /*0090*/                   RET.REL.NODEC R20 0x0 ;
+\t\tFunction : other_kernel
+        /*0000*/                   CALL.REL.NOINC 0x40 ;
+""")
+    tool = tmp_path / "cuobjdump"
+    tool.write_text('#!/bin/sh\ncat "$2"\n')
+    tool.chmod(0o755)
+    monkeypatch.setattr(ptxas_report, "cuobjdump_path", lambda: str(tool))
+    assert ptxas_report.sass_counts(sass, calls=("a", "b")) == {
+        "a": {"instructions": 2, "imad": 1},
+        "b": {"instructions": 1, "imad": 1}}

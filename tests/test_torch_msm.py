@@ -7,9 +7,12 @@ Window sums from K2 + K3 (csrc/window_sums.cu, csrc/fold_partials.cu) fold
 in another order than the JAX kernel, so they differ LIMB-WISE: every
 window is compared as an exact projective point (`Point.__eq__`).  Digit
 unpacking and host packing, by contrast, must match exactly.  One JAX call
-(B = 2, N = 128, the default packed digits + compressed points), so the
-file pays one XLA compile; the port's four digit/point wire combinations
-of the same operands are each held to it."""
+(B = 2, N = 128, the default packed digits + compressed points) for the
+random operands, whose four digit/point wire combinations in the port are
+each held to it, and the plain K2t on K4's tables too; two more (B = 1,
+N = 256) for the full 196-case ZIP215 matrix, the cold dispatch (K1, K2,
+K3) and the resident-tables dispatch (K1, K4, K2t, K3).  The partials of
+the default K2 and K2t are canonical limbs."""
 
 import random
 
@@ -17,9 +20,13 @@ import numpy as np
 import pytest
 import torch
 
+import ed25519_consensus_tpu as J
+from ed25519_consensus_tpu import batch as jbatch
 from ed25519_consensus_tpu.ops import limbs as jlimbs
 from ed25519_consensus_tpu.ops import msm as jmsm
+from ed25519_consensus_tpu_torch import Signature, batch
 from ed25519_consensus_tpu_torch.ops import edwards, limbs, msm
+from ed25519_consensus_tpu_torch.ops import torch_field as TF
 from ed25519_consensus_tpu_torch.ops.scalar import L
 from ed25519_consensus_tpu_torch.utils import fixtures
 
@@ -92,9 +99,10 @@ def reference(operands):
     return np.asarray(jmsm.dispatch_window_sums_many(_packed(d), wire))
 
 
-def _assert_windows_equal(got, want):
-    assert got.shape == want.shape == (B, 4, limbs.NLIMBS, limbs.NWINDOWS)
-    for b in range(B):
+def _assert_windows_equal(got, want, batches=B):
+    assert got.shape == want.shape == (batches, 4, limbs.NLIMBS,
+                                       limbs.NWINDOWS)
+    for b in range(batches):
         for w in range(limbs.NWINDOWS):
             assert limbs.unpack_point(got[b, ..., w]) == \
                 limbs.unpack_point(want[b, ..., w]), (b, w)
@@ -123,6 +131,83 @@ def test_window_sums_match_reference_as_points(operands, reference, dwire,
     got = msm.dispatch_window_sums_many(digits, points, device="cpu")
     assert got.dtype == torch.int32 and got.device.type == "cpu"
     _assert_windows_equal(got.numpy(), reference)
+
+
+def _assert_canonical(parts):
+    """Every coordinate of (..., 4, NLIMBS) partials is the canonical
+    residue's balanced split: limbs 0..18 in [-4096, 4095], limb 19 in
+    [0, 256], and canonical_limbs20 leaves it as it is."""
+    assert parts.dtype == torch.int32
+    assert int(parts[..., :19].min()) >= -4096
+    assert int(parts[..., :19].max()) <= 4095
+    assert int(parts[..., 19].min()) >= 0
+    assert int(parts[..., 19].max()) <= 256
+    flat = parts.reshape(-1, limbs.NLIMBS).T
+    assert torch.equal(TF.canonical_limbs20(flat), flat)
+
+
+def test_k2t_plain_on_k4_tables_matches_reference(operands, reference):
+    """The verdict path's plain K2t on build_tables_plain's tables (per-
+    batch heads of 40 lanes, the boundary inside a chunk) equals the JAX
+    package's window sums as points, and so K2's plain version; both
+    write canonical limbs."""
+    d, ext, _, _ = operands
+    digits = torch.from_numpy(_packed(d))
+    pts = torch.from_numpy(ext)
+    tbl = msm.build_tables_plain(pts)
+    k2t = msm.window_partials_tables(digits, tbl[..., :40].contiguous(),
+                                     tbl[..., 40:].contiguous())
+    k2 = msm.window_partials(digits, pts)
+    for parts in (k2, k2t):
+        _assert_canonical(parts)
+        _assert_windows_equal(msm.fold_partials(parts).numpy(), reference)
+
+
+def _matrix(pkg_sig, pkg_verifier):
+    """The full 196-case ZIP215 matrix (8 torsion and 6 non-canonical
+    encodings as A and R, s = 0) as one batch of the given package."""
+    encs = [p.compress() for p in edwards.eight_torsion()]
+    encs += fixtures.non_canonical_point_encodings()[:6]
+    bv = pkg_verifier()
+    for A in encs:
+        for R in encs:
+            bv.queue((A, pkg_sig(R, b"\x00" * 32), b"Zcash"))
+    return bv
+
+
+def test_zip215_matrix_k2_and_k2t_match_reference():
+    """The verdict paths on the 196-case ZIP215 matrix, staged alike by
+    both packages: the cold dispatch (plain K1, K2, K3) and the
+    resident-tables dispatch (plain K1, K4, K2t, K3) equal the JAX
+    package's XLA dispatches as points window by window; the partials
+    are canonical and the batch verifies (the cofactored check)."""
+    mine = _matrix(Signature, batch.Verifier)._stage(random.Random(1))
+    ref = _matrix(J.Signature, jbatch.Verifier)._stage(random.Random(1))
+    d, w = mine.device_operands(msm.pad_lanes)
+    rd, rw = ref.device_operands(msm.pad_lanes)
+    assert np.array_equal(d, rd) and np.array_equal(w, rw)
+    cold = msm.dispatch_window_sums_many(d[None], w[None], device="cpu")
+    _assert_windows_equal(
+        cold.numpy(),
+        np.asarray(jmsm.dispatch_window_sums_many(d[None], w[None])),
+        batches=1)
+    head = mine.head_tables_tensor()
+    n_head = head.shape[-1]
+    nr = msm.pad_lanes(mine.n_cached_terms) - n_head
+    dc, rwire = mine.device_operands_cached(lambda n: n_head + nr)
+    tables = msm.dispatch_window_sums_many_tables(
+        dc[None], head, rwire[None], device="cpu")
+    _assert_windows_equal(
+        tables.numpy(),
+        np.asarray(jmsm.dispatch_window_sums_many_tables(
+            dc[None], ref.head_tables_tensor(), rwire[None])), batches=1)
+    from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+
+    pts = TD.expand_compressed_points(torch.from_numpy(w[None]))
+    _assert_canonical(msm.window_partials(torch.from_numpy(d[None]), pts))
+    for ws in (cold, tables):
+        assert msm.combine_window_sums(ws.numpy()).mul_by_cofactor() \
+            .is_identity()
 
 
 def test_expand_digits_matches_jnp_exactly():

@@ -282,6 +282,101 @@ def test_sticky_cuda_error_is_fatal_never_retried(monkeypatch):
     assert len(calls) == 1  # the cooldown keeps the lane off the device
 
 
+def test_lane_holds_the_next_chunk_until_the_error_is_read(monkeypatch):
+    """The race behind a sticky error's second launch, made
+    deterministic: the first chunk's dispatch raises while the second
+    chunk waits in the lane's queue, and the caller's read of that error
+    is held until the worker could have started the second chunk (it
+    dispatches again) or 2 s have passed.  The worker must start nothing
+    until the caller has read the error: the raising dispatch runs once,
+    and the call raises DeviceError as before."""
+    warm_shapes()
+    calls = []
+    second = threading.Event()
+
+    def sticky(digits, pts, device=None):
+        calls.append(digits.shape[0])
+        if len(calls) > 1:
+            second.set()
+        raise _cuda.CudaError("window_sums", 700)
+
+    real_wait = batch._DeviceLane.wait
+    held = []
+
+    def held_wait(self, cid, timeout):
+        if not held:
+            end = time.monotonic() + 10.0
+            while time.monotonic() < end:
+                with self._cv:
+                    if cid in self._results:
+                        break
+                time.sleep(0.005)
+            held.append(cid)
+            second.wait(2.0)
+        return real_wait(self, cid, timeout)
+
+    monkeypatch.setattr(msm, "dispatch_window_sums_many", sticky)
+    monkeypatch.setattr(batch._DeviceLane, "wait", held_wait)
+    with pytest.raises(T.DeviceError, match="fatal"):
+        many(make_verifiers(4), chunk=2, hybrid=False, merge="never",
+             health=fake_health())
+    assert held and len(calls) == 1
+    assert not second.is_set()
+
+
+class _HostFault(Exception):
+    """A host-side failure inside verify_many (not a device error)."""
+
+
+def test_host_exception_after_a_chunk_error_frees_the_lane(monkeypatch):
+    """A chunk's dispatch raises, and before the caller reads that error
+    the host lane raises on its own: verify_many leaves with the host's
+    exception, and the errored chunk is dropped on the way out.  The
+    next call on the same lane dispatches at once and decides on the
+    device, with no deadline miss and no cooldown."""
+    warm_shapes()
+    calls = []
+    real = msm.dispatch_window_sums_many
+
+    def boom_once(digits, pts, device=None):
+        calls.append(digits.shape[0])
+        if len(calls) == 1:
+            raise _cuda.CudaError("window_sums", 700)
+        return real(digits, pts, device)
+
+    lanes = []
+    real_submit = batch._DeviceLane.submit
+
+    def submit(self, *a, **kw):
+        lanes.append(self)
+        return real_submit(self, *a, **kw)
+
+    def host_fault(verifier, rng):
+        end = time.monotonic() + 10.0
+        lane = lanes[0]
+        while time.monotonic() < end and lane._held_error is None:
+            time.sleep(0.005)
+        assert lane._held_error is not None
+        raise _HostFault("host lane failed")
+
+    monkeypatch.setattr(msm, "dispatch_window_sums_many", boom_once)
+    monkeypatch.setattr(batch._DeviceLane, "submit", submit)
+    h = fake_health()
+    with monkeypatch.context() as m:
+        m.setattr(batch, "_host_verdict", host_fault)
+        with pytest.raises(_HostFault):
+            many(make_verifiers(6), chunk=2, merge="never", health=h)
+    assert len(calls) == 1
+    with lanes[0]._cv:
+        assert lanes[0]._held_error is None  # the worker is free again
+    assert h.device_allowed()
+    assert many(make_verifiers(4, bad={3}), chunk=2, hybrid=False,
+                merge="never", health=h) == expected(4, bad={3})
+    st = batch.last_run_stats
+    assert len(calls) == 3 and st["device_batches"] == 3
+    assert not health.any_lane_stuck()
+
+
 def test_placement_avoids_dead_cuda_devices(monkeypatch):
     """The single lane's placement check: with device 0 marked dead, the
     lane moves to the first surviving CUDA device, and with none left

@@ -9,11 +9,16 @@ Tolerances: exact.  Digit planes and 17-entry tables equal the JAX
 package's byte for byte; radix-32 window sums equal the JAX package's XLA
 kernel as group elements (the fold order differs, so not limb for limb)
 and, Horner-combined, the exact host MSM; every variant form that keeps
-64 lanes a block equals the default form limb for limb, and the 32-lane
-form equals it as group elements.  One slow case holds the JAX Pallas
-kernel in interpret mode against the port's forms."""
+64 lanes a block equals the 20-limb default (`arith="l20"`, the design the
+variants share) limb for limb, and the 32-lane form and the default K2
+(csrc/window_sums_u32.cuh, another order of additions and canonical
+limbs) equal it as group elements.  The -l20 plain forms equal their
+earlier outputs byte for byte (a hash of them).  One slow case holds the JAX
+Pallas kernel in interpret mode against the port's forms."""
 
+import hashlib
 import random
+import re
 
 import numpy as np
 import pytest
@@ -22,7 +27,7 @@ import torch
 from ed25519_consensus_tpu.ops import limbs as jlimbs
 from ed25519_consensus_tpu.ops import msm as jmsm
 from ed25519_consensus_tpu_torch.error import ConfigError
-from ed25519_consensus_tpu_torch.ops import edwards, limbs, msm, probes
+from ed25519_consensus_tpu_torch.ops import _cuda, edwards, limbs, msm, probes
 from ed25519_consensus_tpu_torch.ops import torch_edwards as TE
 from ed25519_consensus_tpu_torch.ops.field import P
 
@@ -158,23 +163,31 @@ FORMS = {
 
 @pytest.fixture(scope="module")
 def default_partials(points):
+    """(digits, the 20-limb default's partials, the default K2's folded window
+    sums)."""
     d = torch.from_numpy(_adversarial_digits(4, B, N, 5))
-    return d, msm.window_partials(d, points)
+    return (d, msm.window_partials(d, points, arith="l20"),
+            msm.fold_partials(msm.window_partials(d, points)))
 
 
 @pytest.mark.parametrize("form", sorted(FORMS))
 def test_form_equals_default_limb_for_limb(form, points, default_partials):
-    d, want = default_partials
+    """Every variant form equals the default of its design, the 20-limb K2
+    (arith="l20"), limb for limb; the default K2 of
+    csrc/window_sums_u32.cuh sums in another order, so against it the
+    folded window sums are equal as group elements."""
+    d, want, default = default_partials
     got = msm.window_partials(d, points, **FORMS[form])
     assert got.dtype == (torch.int16 if form == "int16-fold"
                          else torch.int32)
     assert torch.equal(got.int(), want)
     assert torch.equal(msm.fold_partials(got),
                        msm.fold_partials(want))
+    _assert_points_equal(msm.fold_partials(got).numpy(), default.numpy())
 
 
 def test_32_lane_form_equals_default_as_points(points, default_partials):
-    d, want = default_partials
+    d, want, _ = default_partials
     got = msm.window_partials(d, points, tbl_dtype="int32", chunk=32)
     assert got.shape[1] == 2 * want.shape[1] - 1  # 7 chunks of 32 for 200
     _assert_points_equal(msm.fold_partials(got).numpy(),
@@ -222,7 +235,8 @@ def test_limbs_stay_inside_the_int16_bound(points):
     assert int(TE.point_add(p, q).abs().max()) <= 8191
     for wb in (4, 5):
         d = torch.from_numpy(_adversarial_digits(wb, B, N, 9))
-        part = msm.window_partials(d, points, window_bits=wb)
+        part = msm.window_partials(d, points, window_bits=wb,
+                                   arith="l20")
         assert int(part.abs().max()) <= 8191
         assert int(msm.multiples_tables(points, wb).abs().max()) <= 8191
         if wb == 4:
@@ -344,7 +358,8 @@ def test_dispatches_read_both_knobs_on_every_call(monkeypatch):
     """The cold and head-resident dispatches pass ED25519_TPU_WIN_CHUNK
     and ED25519_TPU_PALLAS_BODY to K2 on every call, the tables dispatch
     only the window chunk (its body is always rolled); unset, the
-    default form runs.  The window sums do not change."""
+    default form runs.  The window sums do not change as group elements
+    (a knob reaches the 20-limb kernels, which sum in another order)."""
     seen = []
     real = msm.window_partials
     real_t = msm.window_partials_tables
@@ -378,7 +393,8 @@ def test_dispatches_read_both_knobs_on_every_call(monkeypatch):
     assert seen == [("K2", 33, "rolled"), ("K2t", 33, None),
                     ("K2", 11, "hybrid"), ("K2", 11, "hybrid"),
                     ("K2t", 11, None)]
-    assert torch.equal(got, base) and torch.equal(got_t, base_t)
+    _assert_points_equal(got.numpy(), base.numpy())
+    _assert_points_equal(got_t.numpy(), base_t.numpy())
     _assert_points_equal(got_c.numpy(), got_t.numpy())
 
 
@@ -403,11 +419,24 @@ def test_forms_that_are_not_built_raise(kw, points):
 
 
 def test_shared_memory_of_the_forms():
-    """The default forms keep the launch every verdict path ran before the
-    variants existed: 94,624 B a block.  Radix 32 with an int32 table does
-    not fit at 64 lanes (~328 KB) and takes 32; the K2t forms at radix 32
-    fit (~174 KB).  Tables forms at int16 partials are not built."""
+    """The 20-limb default keeps its launch, 94,624 B a block; the default K2
+    and K2t of window_sums_u32.cuh take 67,648 B (the u32 table and the
+    digits: three blocks an SM).  Radix 32 with an int32 table does not
+    fit at 64 lanes (~328 KB) and takes 32; the K2t forms at radix 32 fit
+    (~174 KB).  Tables forms at int16 partials are not built."""
     assert msm.k2_shared_bytes(4, "int16", "int32", 64, 33) == 94_624
+    assert msm.U32_SHARED_BYTES == 67_648 and 3 * (67_648 + 1_024) <= \
+        233_472
+    # the Python block shape is the header's (window_sums_u32.cuh)
+    text = (_cuda.CSRC / "window_sums_u32.cuh").read_text(encoding="utf-8")
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", text)}
+    assert const["S"] == msm.U32_SPLIT
+    assert const["S"] * const["WSTRIDE"] == msm.U32_THREADS
+    assert const["NENT"] * const["CHUNK"] * 128 + const["CHUNK"] * \
+        const["NWIN"] == msm.U32_SHARED_BYTES
+    assert msm.kernel_form("window_sums", arith="l20") == (
+        "window_sums-l20", "", 64, 33)
     assert msm.k2_shared_bytes(5, "int32", "int32", 64, 27) > \
         msm.MAX_SHARED_BYTES
     assert msm.kernel_form("window_sums", 5, "int32") == (
@@ -425,6 +454,52 @@ def test_shared_memory_of_the_forms():
         msm.window_partials(torch.zeros((1, 17, 64), dtype=torch.uint8),
                             torch.zeros((1, 4, limbs.NLIMBS, 64),
                                         dtype=torch.int16), window_bits=5)
+
+
+# -- the default K2 and K2t against the 20-limb design ------------------------
+
+# sha256 of the 20-limb plain versions' partials (window_partials_plain and
+# window_partials_tables_plain at commit b90f4b6, when they were the
+# default) on `_l20_operands()`.
+L20_SHA256 = {
+    "k2": "30f7d5e189eb27b297fced7d13d8157e7f650ecfb617c6192ef0a8b69b7f5575",
+    "k2t": "511555da57a714a7f7f1fa563fd3817f3bc9a7039fe26a0fa60a53b5d3ecf160",
+}
+
+
+def _l20_operands():
+    rng = random.Random(0x4C20)
+    pts = edwards.eight_torsion() + [
+        edwards.BASEPOINT.scalar_mul(rng.randrange(1, 2**252))
+        for _ in range(24)]
+    pts = [pts[i % len(pts)] for i in range(B * N)]
+    ext = limbs.pack_point_batch(pts).astype(np.int16)
+    ext = np.ascontiguousarray(
+        ext.reshape(4, limbs.NLIMBS, B, N).transpose(2, 0, 1, 3))
+    d = np.random.default_rng(0x4C20).integers(
+        -8, 8, size=(B, 33, N)).astype(np.int8)
+    d[:, :, :25] = -8
+    d[:, :, 25:50] = 7
+    d[:, :, 50:75] = 0
+    return torch.from_numpy(d), torch.from_numpy(ext)
+
+
+def test_l20_plain_forms_equal_their_earlier_outputs():
+    """The 20-limb default K2 and K2t (arith="l20") still give their earlier
+    partials byte for byte, and the default K2 and K2t give the same
+    window sums as group elements."""
+    d, e = _l20_operands()
+    tb = msm.build_tables_plain(e)
+    head, r = tb[:1, ..., :130].contiguous(), tb[..., 130:].contiguous()
+    k2 = msm.window_partials(d, e, arith="l20")
+    k2t = msm.window_partials_tables(d, head, r, arith="l20")
+    for name, t in (("k2", k2), ("k2t", k2t)):
+        assert hashlib.sha256(t.numpy().tobytes()).hexdigest() == \
+            L20_SHA256[name], name
+    _assert_points_equal(msm.fold_partials(msm.window_partials(d, e)),
+                         msm.fold_partials(k2))
+    _assert_points_equal(msm.fold_partials(
+        msm.window_partials_tables(d, head, r)), msm.fold_partials(k2t))
 
 
 # -- the Pallas kernel itself, in interpret mode ---------------------------
