@@ -110,13 +110,23 @@ MADS8_GE_ADD = 9 * MADS8_FE_MUL + 5 * MADS8_FE_ADD
 OPS8_FROM_LIMBS20 = 130
 OPS8_TO_CANONICAL = 145
 MADS8_TO_CANONICAL = 1 + 19
+# fe8_sq: row 0, 7 mul.wide and a chain of 7; rows 1..6, 7 - i mul.wide, a
+# chain of 7 - i and its carry word, a chain of 7 - i (69 together); the 8
+# squares; the doubling chain and its carry word (15); the squares' chain
+# (15); fe8_mul's reduction (36): 157 operations, 46 on the multiply pipe
+# (36 products, 8 + 2 in the reduction).  phase_fe8 counts the SASS.
+OPS8_FE_SQ = 14 + 69 + 8 + 15 + 15 + 36
+MADS8_FE_SQ = 36 + 8 + 2
 # K1 per lane (csrc/expand_compressed.cu): squarings y^2, v^2, (v^3)^2 and
 # the 251 of the pow22523 ladder; multiplies d*y^2, v^2*v, v^6*v, u*v^7,
-# the ladder's 11, u*v^3, *t1 and x*y; plus u and v.  The flip multiply
-# and the neg subtraction are counted per lane from the hints.
+# the ladder's 11, u*v^3, *t1 and x*y; plus u and v; X, Y and T to
+# canonical limbs.  The flip multiply and the neg subtraction are counted
+# per lane from the hints (the kernel multiplies every lane, by 1 where
+# the hint does not flip: the data needs only the flips).
 K1_SQS_PER_LANE = 3 + 251
 K1_MULS_PER_LANE = 4 + 11 + 3
 K1_ADDS_PER_LANE = 2
+K1_CANONICAL_PER_LANE = 3
 
 ZCASH_SIGS, ZCASH_KEYS = 10_000, 64
 STACK_B, STACK_N = 8, 12_288
@@ -570,8 +580,10 @@ def phase_vectors(report: dict) -> None:
 
 
 def no_lab_forms(label: str, counts: dict) -> None:
-    """Fails if a verdict path launched a 20-limb (-l20) window-sum kernel:
-    every verdict path runs the default K2 and K2t."""
+    """Fails if a verdict path launched a 20-limb (-l20) kernel — the
+    lab's window_sums-l20, window_sums_tables-l20, expand_compressed-l20
+    or fold_partials-l20: every verdict path runs the default K1, K2, K2t
+    and K3."""
     lab = [k for k, v in counts.items() if v and "-l20" in k]
     if lab:
         raise AssertionError(f"{label} launched the lab's {lab}")
@@ -580,21 +592,24 @@ def no_lab_forms(label: str, counts: dict) -> None:
 def k1_work(w) -> Work:
     """Work K1 must do on the wire w (B, 33, N) uint8: it expands every
     lane, with the flip multiply and the neg subtraction counted from the
-    hints; its squarings and multiplies priced as fe8_mul (field products
-    only: the 8 x 32-bit arithmetic's conversions are ~1 % beside them)."""
+    hints; its squarings priced as fe8_sq, its multiplies as fe8_mul, plus
+    the three coordinates to canonical limbs (the 20-limb price beside it:
+    fe_sq and fe_mul)."""
     B, _, N = w.shape
     hints = w[:, 32].int()
     flips = int((hints & 1).sum())
     negs = int(((hints >> 1) & 1).sum())
     lanes = B * N
-    muls = lanes * (K1_SQS_PER_LANE + K1_MULS_PER_LANE) + flips
+    muls = lanes * K1_MULS_PER_LANE + flips
+    sqs = lanes * K1_SQS_PER_LANE
     adds = lanes * K1_ADDS_PER_LANE + negs
-    return Work(lanes * (33 + 160), muls * OPS8_FE_MUL + adds * OPS8_FE_ADD,
-                muls * MADS8_FE_MUL,
-                lanes * (K1_SQS_PER_LANE * OPS_FE_SQ
-                         + K1_MULS_PER_LANE * OPS_FE_MUL
-                         + K1_ADDS_PER_LANE * OPS_FE_ADD)
-                + flips * OPS_FE_MUL + negs * OPS_FE_ADD)
+    canon = lanes * K1_CANONICAL_PER_LANE
+    return Work(lanes * (33 + 160),
+                sqs * OPS8_FE_SQ + muls * OPS8_FE_MUL + adds * OPS8_FE_ADD
+                + canon * OPS8_TO_CANONICAL,
+                sqs * MADS8_FE_SQ + muls * MADS8_FE_MUL
+                + canon * MADS8_TO_CANONICAL,
+                sqs * OPS_FE_SQ + muls * OPS_FE_MUL + adds * OPS_FE_ADD)
 
 
 def window_work(dig, nchunk: int, chunk: int):
@@ -652,6 +667,27 @@ def fold_work(B: int, nchunk: int, nwin: int, part_bytes: int = 4) -> Work:
                      B * nwin * max(nchunk - 1, 0), conv, conv_mads, 0)
 
 
+def fold_serial_adds(nchunk: int) -> int:
+    """The complete additions on K3's longest dependent path (thread 0's,
+    csrc/fold_partials.cu): its own partials after the first, then every
+    level of its warp's halving tree and of the warps' tree at which lane
+    0 adds."""
+    from ed25519_consensus_tpu_torch.ops.msm import FOLD_THREADS as threads
+
+    held = min(nchunk, threads)
+
+    def levels(live):
+        n, s = 0, 16
+        while s:
+            n += s < live
+            live = min(live, s)
+            s //= 2
+        return n
+
+    return (max(-(-nchunk // threads) - 1, 0) + levels(min(held, 32))
+            + levels(-(-held // 32)))
+
+
 def kernel_work(d, w, parts):
     """The Work each kernel must do on these inputs:
     digits d (B, 17, N) uint8, wire w (B, 33, N) uint8, K2's partials.
@@ -664,10 +700,13 @@ def kernel_work(d, w, parts):
 
 
 def hold_and_time(report: dict, label: str, digits, wire,
-                  timed: bool) -> None:
+                  timed: bool, ge8_us: "float | None" = None) -> None:
     """K1, K2 and K3 on the card against their plain versions on the same
     operands, which must agree exactly; then, if `timed`, both timed
-    (median of 5, CUDA events) beside each kernel's bound."""
+    (median of 5, CUDA events) beside each kernel's bound, K3's with its
+    latency floor beside it: the additions on its longest dependent path
+    (`fold_serial_adds`) times `ge8_us`, one addition's measured latency
+    in a chain (probe_ge8)."""
     import torch
 
     from ed25519_consensus_tpu_torch.ops import msm
@@ -706,6 +745,17 @@ def hold_and_time(report: dict, label: str, digits, wire,
         log(f"  {label} B={B} N={N} {name:18s} kernel {ms:10.3f}  plain "
             f"{pms:10.3f}  bound {bms:8.4f} ({by}; "
             f"{bound_note(work[name])})")
+        if name == "fold_partials" and ge8_us is not None:
+            n_serial = fold_serial_adds(parts.shape[1])
+            floor = n_serial * ge8_us / 1e3
+            log(f"  {label} B={B} N={N} fold_partials latency floor "
+                f"{floor:.4f} ms ({n_serial} serial additions x "
+                f"{ge8_us:.4f} us)")
+            print(json.dumps({"fold_latency_floor": {
+                "label": label, "B": B, "N": N, "nchunk": parts.shape[1],
+                "serial_additions": n_serial, "us_per_addition": ge8_us,
+                "floor_ms": floor, "kernel_ms": ms, "bound_ms": bms}}),
+                flush=True)
         if B == STACK_B:
             report[name].update(ms=ms, plain_ms=pms, bound_ms=bms,
                                 bound_by=by)
@@ -718,9 +768,14 @@ def phase_times(report: dict, state: dict) -> None:
     gave it, on the operands it was given: zcash10k and the adversarial
     batch as `verify_gpu` stages them (B = 1, N = pad_lanes(terms)), and
     the stacked B = 8, N = 12,288 call.  Timed at the zcash10k
-    `verify_gpu` shape and at B = 8."""
-    from ed25519_consensus_tpu_torch.ops import msm
+    `verify_gpu` shape and at B = 8; first one complete addition's latency
+    in a chain (probe_ge8, one warp), for K3's latency floor."""
+    import torch
 
+    from ed25519_consensus_tpu_torch.ops import msm
+    from ed25519_consensus_tpu_torch.tools import microbench
+
+    ge8_us = microbench.probe_ge8(device=torch.device(DEV))["us_per_add"]
     log("kernels vs plain versions at the main path's shapes (exact), "
         "then times (median of 5, CUDA events), ms:")
     # The operands of the second zcash10k verify_gpu and of the
@@ -730,10 +785,12 @@ def phase_times(report: dict, state: dict) -> None:
             ("adversarial verify_gpu", state["adv"], 5, False)):
         digits, wire = verifier._stage(random.Random(seed)).device_operands(
             msm.pad_lanes)
-        hold_and_time(report, label, digits[None], wire[None], timed)
+        hold_and_time(report, label, digits[None], wire[None], timed,
+                      ge8_us)
     digits, wire = state["stack"]
-    hold_and_time(report, "stacked zcash10k", digits[:1], wire[:1], True)
-    hold_and_time(report, "stacked zcash10k", digits, wire, True)
+    hold_and_time(report, "stacked zcash10k", digits[:1], wire[:1], True,
+                  ge8_us)
+    hold_and_time(report, "stacked zcash10k", digits, wire, True, ge8_us)
 
 
 def phase_profile(state: dict) -> None:
@@ -763,6 +820,27 @@ def phase_profile(state: dict) -> None:
         f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.5f}")
     for us, key, count in sorted(rows, reverse=True)[:8]:
         log(f"  {us / 1e3:9.3f} ms  x{count}  {key[:70]}")
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Mean device milliseconds of the kernels `fn` launches, over `reps`
+    runs under torch.profiler after one warm-up run: the kernels' own time,
+    without the host time between a CUDA event and the launch that a
+    kernel shorter than its wrapper's host work would show (K3, K5, K6).
+    NaN when the profiler captured no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+             for ev in prof.key_averages() if ev.key.endswith("_kernel"))
+    return us / 1e3 / reps if us else float("nan")
 
 
 def phase_native(state: dict) -> None:
@@ -1626,6 +1704,8 @@ REPLACES = {
     # the self-test of K2's and K2t's field arithmetic, which replaces the
     # TPU's field arithmetic (jnp_field.mul)
     "probe_fe8": "ed25519_consensus_tpu/ops/jnp_field.py:91",
+    # one complete addition's latency: the TPU's point_add
+    "probe_ge8": "ed25519_consensus_tpu/ops/jnp_edwards.py:33",
 }
 
 
@@ -1919,7 +1999,7 @@ def phase_probes(report: dict, state: dict) -> None:
     add_launches(report, counts)
     need_launches("the micro-probes", counts,
                   [f"probe_chain-{op}" for op in probes.CHAIN_OPS]
-                  + ["probe_fmul"])
+                  + ["probe_fmul", "probe_ge8"])
     S, L = 32, 128
     x = torch.from_numpy(np.arange(S * L, dtype=np.int32).reshape(S, L)
                          % 97).to(DEV)
@@ -1933,68 +2013,125 @@ def phase_probes(report: dict, state: dict) -> None:
     hold_row(report, "probe_fmul", lambda: probes.fmul_chain(xf, 8),
              lambda: probes.fmul_chain_plain(xf, 8),
              (2 * 80 * S * L, 8 * S * L * OPS_FE_MUL))
+    xg = torch.from_numpy(microbench.ge8_tile(1, 32)).to(DEV)
+    hold_row(report, "probe_ge8", lambda: probes.ge8_chain(xg, 64),
+             lambda: probes.ge8_chain_plain(xg.cpu(), 64).to(DEV),
+             adds_work(2 * 320 * 32, 64 * 32,
+                       *conversions(32, 32)), plain_reps=1)
 
 
-def phase_old_new(state: dict) -> None:
-    """The 20-limb K2 and K2t (`-l20`) and the default K2 and K2t
-    (window_sums_u32.cuh), timed in turns on the same operands — old, new,
-    new, old, three rounds, each time the median of 5 CUDA-event runs —
-    the stacked zcash10k call (B = 8, N = 12,288) for K2 and the zcash10k
-    resident-tables chunk (B = 8, N = 10,176, 130 head lanes) for K2t.
-    Each pair's window sums, folded by K3, are equal as points.  Prints
-    one `old_new` JSON line."""
+def phase_old_new(report: dict, state: dict) -> None:
+    """The 20-limb kernels (the lab's `-l20` forms) and the default ones
+    on the 8 x 32-bit arithmetic, timed in turns on the same operands —
+    old, new, new, old, three rounds, each time the median of 5 CUDA-event
+    runs — with the launch counts set to 0 just before and read just
+    after (the rows count the launches of the two -l20 forms that only
+    this phase runs): K1 on the stacked zcash10k wire (B = 8, N = 12,288)
+    and on verify_gpu's (B = 1, N = 10,176); K2 on the stacked call; K3 on
+    the stacked call's partials; K2t on the zcash10k resident-tables chunk
+    (B = 8, N = 10,176, 130 head lanes).  Each pair is equal as points: K1's
+    coordinates (Z = 1 in both) as canonical limbs, limb for limb; K2's and
+    K2t's window sums folded by K3 and K3's sums, window by window.  Each
+    kernel's device time under the profiler beside (`device_ms`).  Then
+    the two -l20 forms of K1 and K3 against their plain versions, timed
+    beside their bounds.  Prints one `old_new` JSON line."""
     import torch
 
-    from ed25519_consensus_tpu_torch.ops import limbs, msm
+    from ed25519_consensus_tpu_torch.ops import _cuda, limbs, msm
     from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+    from ed25519_consensus_tpu_torch.ops import torch_field as TF
 
     digits, wire = state["stack"]
     d = torch.from_numpy(digits).to(DEV)
-    pts = TD.expand_compressed_points(torch.from_numpy(wire).to(DEV))
+    w8 = torch.from_numpy(wire).to(DEV)
+    _, g_wire = state["verifier"]._stage(
+        random.Random(101)).device_operands(msm.pad_lanes)
+    w1 = torch.from_numpy(g_wire[None]).to(DEV)
+    _cuda.reset_launch_counts()
+    pts = TD.expand_compressed_points(w8)
+    parts = msm.window_partials(d, pts)
     t_digits, t_head, t_rwire = state["tables_operands"]
     dt = torch.from_numpy(t_digits).to(DEV)
     ht = torch.from_numpy(t_head).to(DEV)[None]
     rt = msm.multiples_tables(TD.expand_compressed_points(
         torch.from_numpy(t_rwire).to(DEV)))
+
+    def same_sums(a, b):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        return all(limbs.unpack_point(a[i, ..., w]) ==
+                   limbs.unpack_point(b[i, ..., w])
+                   for i in range(a.shape[0]) for w in range(a.shape[-1]))
+
+    def same_points(a, b):
+        canon = TF.canonical_limbs20(a.int().movedim(2, 0)).movedim(0, 2)
+        return torch.equal(canon, b.int())
+
     pairs = {
+        f"expand_compressed (B={w8.shape[0]}, N={w8.shape[-1]})": (
+            lambda: TD.expand_compressed_points(w8, arith="l20"),
+            lambda: TD.expand_compressed_points(w8), same_points),
+        f"expand_compressed (B=1, N={w1.shape[-1]})": (
+            lambda: TD.expand_compressed_points(w1, arith="l20"),
+            lambda: TD.expand_compressed_points(w1), same_points),
         "window_sums": (
             lambda: msm.window_partials(d, pts, arith="l20"),
-            lambda: msm.window_partials(d, pts)),
+            lambda: msm.window_partials(d, pts),
+            lambda a, b: same_sums(msm.fold_partials(a),
+                                   msm.fold_partials(b))),
+        "fold_partials": (
+            lambda: msm.fold_partials(parts, arith="l20"),
+            lambda: msm.fold_partials(parts), same_sums),
         "window_sums_tables": (
             lambda: msm.window_partials_tables(dt, ht, rt, arith="l20"),
-            lambda: msm.window_partials_tables(dt, ht, rt)),
+            lambda: msm.window_partials_tables(dt, ht, rt),
+            lambda a, b: same_sums(msm.fold_partials(a),
+                                   msm.fold_partials(b))),
     }
     out = {}
-    log("old (-l20) and new K2 / K2t in turns (old, new, new, old) x 3, "
-        "each the median of 5 (CUDA events), ms:")
-    for name, (old, new) in pairs.items():
-        a = msm.fold_partials(old()).cpu().numpy()
-        b = msm.fold_partials(new()).cpu().numpy()
-        if not all(limbs.unpack_point(a[i, ..., w]) ==
-                   limbs.unpack_point(b[i, ..., w])
-                   for i in range(a.shape[0]) for w in range(33)):
-            raise AssertionError(f"{name}: the -l20 and the new kernel's "
-                                 f"window sums differ as points")
+    log("old (-l20) and new K1 / K2 / K3 / K2t in turns (old, new, new, "
+        "old) x 3, each the median of 5 (CUDA events), ms:")
+    for name, (old, new, equal) in pairs.items():
+        if not equal(old(), new()):
+            raise AssertionError(f"{name}: the -l20 and the new kernel "
+                                 f"differ as points")
         times = {"old": [], "new": []}
         for _ in range(3):
             for which, fn in (("old", old), ("new", new), ("new", new),
                               ("old", old)):
                 times[which].append(cuda_ms(fn))
         med = {k: statistics.median(v) for k, v in times.items()}
+        dev = {"old": device_ms(old), "new": device_ms(new)}
         log(f"  {name}: old {med['old']:.4f} ms {times['old']}, new "
             f"{med['new']:.4f} ms {times['new']}; old / new "
-            f"{med['old'] / med['new']:.3f}; window sums equal as points")
+            f"{med['old'] / med['new']:.3f}; equal as points; device time "
+            f"(profiler, mean of 5) old {dev['old']:.4f} ms, new "
+            f"{dev['new']:.4f} ms")
         out[name] = {"old_ms": times["old"], "new_ms": times["new"],
                      "old_median_ms": med["old"],
-                     "new_median_ms": med["new"]}
+                     "new_median_ms": med["new"],
+                     "old_device_ms": dev["old"],
+                     "new_device_ms": dev["new"]}
+    hold_row(report, "expand_compressed-l20",
+             lambda: TD.expand_compressed_points(w8, arith="l20"),
+             lambda: TD.expand_compressed_points_plain(w8, arith="l20"),
+             k1_work(w8), plain_reps=1)
+    hold_row(report, "fold_partials-l20",
+             lambda: msm.fold_partials(parts, arith="l20"),
+             lambda: msm.fold_partials_plain(parts, arith="l20"),
+             fold_work(parts.shape[0], parts.shape[1], 33), plain_reps=1)
+    lab = ("expand_compressed-l20", "fold_partials-l20")
+    counts = _cuda.launch_counts()
+    add_launches(report, {k: counts[k] for k in lab})
+    need_launches("the old/new turns", counts, lab)
     print(json.dumps({"old_new": out}), flush=True)
     state["old_new"] = out
 
 
 def phase_fe8(report: dict, state: dict) -> None:
-    """The self-test of K2's and K2t's field arithmetic (probe_fe8, csrc/
-    probes.cu) on every pair of the edge operands (0, 1, p − 1, p, p + 1,
-    2^255 − 1, 2^256 − 1, 2^256 − 19k, ...), the limbs20 vectors at ±8191
+    """The self-test of the fe8 field arithmetic of K1, K2, K2t and K3
+    (probe_fe8, csrc/probes.cu; fe8_sq included) on every pair of the edge
+    operands (0, 1, p − 1, p, p + 1, 2^255 − 1, 2^256 − 1, 2^256 − 19k,
+    ...), the limbs20 vectors at ±8191
     and 256 random rows, with the launch counts set to 0 just before it
     and read just after: every output word equal to ops/fe_u32.py's, the
     exact-integer model; timed beside its bound.  Then the instructions of
@@ -2016,7 +2153,7 @@ def phase_fe8(report: dict, state: dict) -> None:
     blocks = {"add": (0, 8), "sub": (8, 16), "neg": (16, 24),
               "mul": (24, 32), "from_limbs20": (32, 40),
               "to_limbs20_canonical": (40, 60), "ge8_add": (60, 92),
-              "ge8_add neg": (92, 124)}
+              "ge8_add neg": (92, 124), "sq": (124, 132)}
     g = got.cpu()
     bad = {k: int((g[:, a:b] != want[:, a:b]).any(dim=1).sum())
            for k, (a, b) in blocks.items()}
@@ -2026,9 +2163,9 @@ def phase_fe8(report: dict, state: dict) -> None:
         raise AssertionError("the fe8 self-test differs from the model")
     rows = x.shape[0]
     ops = (OPS8_FE_ADD + 2 * OPS8_FE_SUB + OPS8_FE_MUL + OPS8_FROM_LIMBS20
-           + OPS8_TO_CANONICAL + 2 * OPS8_GE_ADD)
+           + OPS8_TO_CANONICAL + 2 * OPS8_GE_ADD + OPS8_FE_SQ)
     mads = (MADS8_FE_ADD + MADS8_FE_MUL + MADS8_TO_CANONICAL + 1
-            + 2 * MADS8_GE_ADD)
+            + 2 * MADS8_GE_ADD + MADS8_FE_SQ)
     hold_row(report, "probe_fe8", lambda: probes.fe8_selftest(x),
              lambda: probes.fe8_selftest_plain(x.cpu()).to(DEV),
              Work(rows * (probes.FE8_IN + probes.FE8_OUT) * 4, rows * ops,
@@ -2040,7 +2177,8 @@ def phase_fe8(report: dict, state: dict) -> None:
             "st_fe8_from_limbs20": (OPS8_FROM_LIMBS20, 1),
             "st_fe8_to_limbs20_canonical": (OPS8_TO_CANONICAL,
                                             MADS8_TO_CANONICAL),
-            "st_ge8_add": (OPS8_GE_ADD, MADS8_GE_ADD)}
+            "st_ge8_add": (OPS8_GE_ADD, MADS8_GE_ADD),
+            "st_fe8_sq": (OPS8_FE_SQ, MADS8_FE_SQ)}
     sass = ptxas_report.sass_counts(_cuda.library_path("probes.cu"))
     if sass is None:
         log("SASS counts: no cuobjdump found (not measured)")
@@ -2062,14 +2200,14 @@ def sanitize_path() -> int:
     chunk), K5, K6; the cometbft128 tables chunk (B = 8, N = 448, 258 head
     lanes: chunk 4 straddles the head/R boundary) through K1, K4, K2t and
     K3; every sweep form of the kernel lab (K2, K2t, K3, K4 instantiations
-    and windows per block), K2s and the probes.  Returns the number of
-    kernels that differ."""
+    and windows per block), K2s, the probes and the -l20 forms of K1 and
+    K3.  Returns the number of kernels that differ."""
     import numpy as np
     import torch
 
     from ed25519_consensus_tpu_torch.ops import limbs, msm, probes
     from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
-    from ed25519_consensus_tpu_torch.tools import kernel_lab
+    from ed25519_consensus_tpu_torch.tools import kernel_lab, microbench
 
     rng = random.Random(0x5A7)
     bad = []
@@ -2090,6 +2228,8 @@ def sanitize_path() -> int:
     w = wire(B, N)
     pts = TD.expand_compressed_points(w)
     check("K1 expand_compressed", pts, TD.expand_compressed_points_plain(w))
+    check("K1 expand_compressed-l20", TD.expand_compressed_points(
+        w, arith="l20"), TD.expand_compressed_points_plain(w, arith="l20"))
     d = adversarial_digits(B, N, seed=9)
     dp = torch.from_numpy(np.stack([limbs.pack_digit_planes(x)
                                     for x in d])).to(DEV)
@@ -2097,6 +2237,8 @@ def sanitize_path() -> int:
     check("K2 window_sums", parts, msm.window_partials_plain(dp, pts))
     check("K3 fold_partials", msm.fold_partials(parts),
           msm.fold_partials_plain(parts))
+    check("K3 fold_partials-l20", msm.fold_partials(parts, arith="l20"),
+          msm.fold_partials_plain(parts, arith="l20"))
     tbl = msm.multiples_tables(pts)
     check("K4 build_tables", tbl, msm.build_tables_plain(pts))
     for th in (1, B):
@@ -2176,6 +2318,9 @@ def sanitize_path() -> int:
     xs = torch.from_numpy(probes.fe8_operands(n_random=8)).to(DEV)
     check("probe_fe8", probes.fe8_selftest(xs),
           probes.fe8_selftest_plain(xs.cpu()).to(DEV))
+    xg = torch.from_numpy(microbench.ge8_tile(1, 64)).to(DEV)
+    check("probe_ge8", probes.ge8_chain(xg, 4),
+          probes.ge8_chain_plain(xg.cpu(), 4).to(DEV))
     log(f"sanitize: {len(bad)} kernels differ from their plain versions"
         + (f": {bad}" if bad else ""))
     return len(bad)
@@ -2281,16 +2426,10 @@ def main() -> int:
                 f"{u.get('spill_loads')} B")
     from ed25519_consensus_tpu_torch.tools import ptxas_report
 
-    for sym in ptxas_report.U32_KERNELS:
+    for sym in ptxas_report.FE8_BLOCKS:
         u = state["ptxas"].get(sym)
         if u:
-            occ = ptxas_report.occupancy(u["registers"])
-            log(f"  {sym}: {u['registers']} registers x "
-                f"{msm.U32_THREADS} threads, "
-                f"{msm.U32_SHARED_BYTES} B shared a block: {occ['blocks']} "
-                f"blocks = {occ['warps']} resident warps an SM (limited by "
-                f"{occ['limited_by']}); spills "
-                f"{u.get('spill_stores', 0) + u.get('spill_loads', 0)} B")
+            log("  " + ptxas_report.usage_line("resident", sym, u))
 
     if sys.argv[1:2] == ["--sanitize"]:
         return 1 if sanitize_path() else 0
@@ -2321,7 +2460,7 @@ def main() -> int:
     timed(phase_mesh_kernels, report, state)
     timed(phase_routing, state)
     timed(phase_profile, state)
-    timed(phase_old_new, state)
+    timed(phase_old_new, report, state)
     timed(phase_fe8, report, state)
     timed(phase_variants, report, state)
     timed(phase_knobs, report, state)

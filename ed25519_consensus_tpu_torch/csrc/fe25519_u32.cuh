@@ -1,8 +1,9 @@
 // GF(2^255 - 19) and complete Edwards25519 addition on 8 x 32-bit words
-// with PTX carry chains: the field arithmetic of K2 and K2t
-// (window_sums_u32.cuh).  csrc/fe25519.cuh, the 20 x 13-bit balanced-limb
+// with PTX carry chains: the field arithmetic of K1 (expand_compressed.cu,
+// squarings by fe8_sq), K2 and K2t (window_sums_u32.cuh) and K3
+// (fold_partials.cu).  csrc/fe25519.cuh, the 20 x 13-bit balanced-limb
 // arithmetic carried over from the TPU (no 64-bit multiply, no carry flag
-// on a VPU lane), stays for K1, K3, K4, K5, K6 and the lab's forms.
+// on a VPU lane), stays for K4, K5, K6 and the lab's -l20 forms.
 //
 // A Hopper thread is a scalar machine with a carry flag: a full 256 x 256
 // product is 64 32 x 32 -> 64-bit multiplies whose halves add into the
@@ -30,6 +31,10 @@
 //    (no .cc on it).  L + 38 H <= 39 (2^256 - 1): the top word t <= 38;
 //    38 t <= 1444 added by a chain; if that carries, the value is below
 //    1444 and word 0 takes 38 more.
+//  * fe8_sq: the cross products by rows as fe8_mul's (after row i the
+//    partial sum is below a[0..i] a < 2^(32(i + 9))); their sum C <
+//    2^480 doubled carries into word 15; C + C + the squares = a^2 <
+//    2^512, so the squares' chain carries out 0; then fe8_mul's reduction.
 //  * fe8_from_limbs20: |limb| <= 8191 gives |V| < 2^260; the signed
 //    64-bit accumulator holds at most 3 limbs shifted by <= 29 bits plus
 //    a carry, below 2^44.  q = V >> 255 in [-32, 31]; low255 + 19q lies in
@@ -179,55 +184,13 @@ __device__ __forceinline__ void fe8_wide_row(const fe8& b, uint32_t ai,
   }
 }
 
-__device__ FE8_MUL_INLINE fe8 fe8_mul(const fe8& a, const fe8& b) {
-  uint32_t r[16], lo[8], hi[8];
-  fe8_wide_row(b, a.v[0], lo, hi);
-  r[0] = lo[0];
-  asm("add.cc.u32 %0, %8, %9;\n\t"
-      "addc.cc.u32 %1, %10, %11;\n\t"
-      "addc.cc.u32 %2, %12, %13;\n\t"
-      "addc.cc.u32 %3, %14, %15;\n\t"
-      "addc.cc.u32 %4, %16, %17;\n\t"
-      "addc.cc.u32 %5, %18, %19;\n\t"
-      "addc.cc.u32 %6, %20, %21;\n\t"
-      "addc.u32 %7, %22, 0;"
-      : "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]),
-        "=r"(r[6]), "=r"(r[7]), "=r"(r[8])
-      : "r"(lo[1]), "r"(hi[0]), "r"(lo[2]), "r"(hi[1]), "r"(lo[3]),
-        "r"(hi[2]), "r"(lo[4]), "r"(hi[3]), "r"(lo[5]), "r"(hi[4]),
-        "r"(lo[6]), "r"(hi[5]), "r"(lo[7]), "r"(hi[6]), "r"(hi[7]));
-#pragma unroll
-  for (int i = 1; i < 8; ++i) {
-    fe8_wide_row(b, a.v[i], lo, hi);
-    asm("add.cc.u32 %0, %0, %9;\n\t"
-        "addc.cc.u32 %1, %1, %10;\n\t"
-        "addc.cc.u32 %2, %2, %11;\n\t"
-        "addc.cc.u32 %3, %3, %12;\n\t"
-        "addc.cc.u32 %4, %4, %13;\n\t"
-        "addc.cc.u32 %5, %5, %14;\n\t"
-        "addc.cc.u32 %6, %6, %15;\n\t"
-        "addc.cc.u32 %7, %7, %16;\n\t"
-        "addc.u32 %8, 0, 0;"
-        : "+r"(r[i]), "+r"(r[i + 1]), "+r"(r[i + 2]), "+r"(r[i + 3]),
-          "+r"(r[i + 4]), "+r"(r[i + 5]), "+r"(r[i + 6]), "+r"(r[i + 7]),
-          "=r"(r[i + 8])
-        : "r"(lo[0]), "r"(lo[1]), "r"(lo[2]), "r"(lo[3]), "r"(lo[4]),
-          "r"(lo[5]), "r"(lo[6]), "r"(lo[7]));
-    asm("add.cc.u32 %0, %0, %8;\n\t"
-        "addc.cc.u32 %1, %1, %9;\n\t"
-        "addc.cc.u32 %2, %2, %10;\n\t"
-        "addc.cc.u32 %3, %3, %11;\n\t"
-        "addc.cc.u32 %4, %4, %12;\n\t"
-        "addc.cc.u32 %5, %5, %13;\n\t"
-        "addc.cc.u32 %6, %6, %14;\n\t"
-        "addc.u32 %7, %7, %15;"
-        : "+r"(r[i + 1]), "+r"(r[i + 2]), "+r"(r[i + 3]), "+r"(r[i + 4]),
-          "+r"(r[i + 5]), "+r"(r[i + 6]), "+r"(r[i + 7]), "+r"(r[i + 8])
-        : "r"(hi[0]), "r"(hi[1]), "r"(hi[2]), "r"(hi[3]), "r"(hi[4]),
-          "r"(hi[5]), "r"(hi[6]), "r"(hi[7]));
-  }
-  // L + 38 H: the 38 H_j as 64-bit products, low halves with the carry
-  // into the top word t, then the high halves one word up, the last into t
+// The 16-word product r (below 2^512) reduced to the weak form, L + 38 H:
+// the 38 H_j as 64-bit products, low halves with the carry into the top
+// word t, then the high halves one word up, the last into t; then 38 t
+// added by a chain and its carry's 38 into word 0.  fe8_mul's and
+// fe8_sq's tail.
+__device__ __forceinline__ fe8 fe8_reduce_wide(uint32_t* r) {
+  uint32_t lo[8], hi[8];
   fe8 h;
 #pragma unroll
   for (int j = 0; j < 8; ++j) h.v[j] = r[8 + j];
@@ -276,6 +239,257 @@ __device__ FE8_MUL_INLINE fe8 fe8_mul(const fe8& a, const fe8& b) {
         "r"(r[6]), "r"(r[7]), "r"(t38));
   o.v[0] += c * 38u;
   return o;
+}
+
+__device__ FE8_MUL_INLINE fe8 fe8_mul(const fe8& a, const fe8& b) {
+  uint32_t r[16], lo[8], hi[8];
+  fe8_wide_row(b, a.v[0], lo, hi);
+  r[0] = lo[0];
+  asm("add.cc.u32 %0, %8, %9;\n\t"
+      "addc.cc.u32 %1, %10, %11;\n\t"
+      "addc.cc.u32 %2, %12, %13;\n\t"
+      "addc.cc.u32 %3, %14, %15;\n\t"
+      "addc.cc.u32 %4, %16, %17;\n\t"
+      "addc.cc.u32 %5, %18, %19;\n\t"
+      "addc.cc.u32 %6, %20, %21;\n\t"
+      "addc.u32 %7, %22, 0;"
+      : "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]),
+        "=r"(r[6]), "=r"(r[7]), "=r"(r[8])
+      : "r"(lo[1]), "r"(hi[0]), "r"(lo[2]), "r"(hi[1]), "r"(lo[3]),
+        "r"(hi[2]), "r"(lo[4]), "r"(hi[3]), "r"(lo[5]), "r"(hi[4]),
+        "r"(lo[6]), "r"(hi[5]), "r"(lo[7]), "r"(hi[6]), "r"(hi[7]));
+#pragma unroll
+  for (int i = 1; i < 8; ++i) {
+    fe8_wide_row(b, a.v[i], lo, hi);
+    asm("add.cc.u32 %0, %0, %9;\n\t"
+        "addc.cc.u32 %1, %1, %10;\n\t"
+        "addc.cc.u32 %2, %2, %11;\n\t"
+        "addc.cc.u32 %3, %3, %12;\n\t"
+        "addc.cc.u32 %4, %4, %13;\n\t"
+        "addc.cc.u32 %5, %5, %14;\n\t"
+        "addc.cc.u32 %6, %6, %15;\n\t"
+        "addc.cc.u32 %7, %7, %16;\n\t"
+        "addc.u32 %8, 0, 0;"
+        : "+r"(r[i]), "+r"(r[i + 1]), "+r"(r[i + 2]), "+r"(r[i + 3]),
+          "+r"(r[i + 4]), "+r"(r[i + 5]), "+r"(r[i + 6]), "+r"(r[i + 7]),
+          "=r"(r[i + 8])
+        : "r"(lo[0]), "r"(lo[1]), "r"(lo[2]), "r"(lo[3]), "r"(lo[4]),
+          "r"(lo[5]), "r"(lo[6]), "r"(lo[7]));
+    asm("add.cc.u32 %0, %0, %8;\n\t"
+        "addc.cc.u32 %1, %1, %9;\n\t"
+        "addc.cc.u32 %2, %2, %10;\n\t"
+        "addc.cc.u32 %3, %3, %11;\n\t"
+        "addc.cc.u32 %4, %4, %12;\n\t"
+        "addc.cc.u32 %5, %5, %13;\n\t"
+        "addc.cc.u32 %6, %6, %14;\n\t"
+        "addc.u32 %7, %7, %15;"
+        : "+r"(r[i + 1]), "+r"(r[i + 2]), "+r"(r[i + 3]), "+r"(r[i + 4]),
+          "+r"(r[i + 5]), "+r"(r[i + 6]), "+r"(r[i + 7]), "+r"(r[i + 8])
+        : "r"(hi[0]), "r"(hi[1]), "r"(hi[2]), "r"(hi[3]), "r"(hi[4]),
+          "r"(hi[5]), "r"(hi[6]), "r"(hi[7]));
+  }
+  return fe8_reduce_wide(r);
+}
+
+// r[0..N-1] += x[0..N-1] in one chain, its carry out set into r[N]
+// (fe8_sq's rows of N < 7 products: the asm operands are fixed per N).
+template <int N>
+__device__ __forceinline__ void fe8_chain_carry(uint32_t* r,
+                                                const uint32_t* x) {
+  if constexpr (N == 1) {
+    asm("add.cc.u32 %0, %0, %2;\n\t"
+        "addc.u32 %1, 0, 0;"
+        : "+r"(r[0]), "=r"(r[1])
+        : "r"(x[0]));
+  } else if constexpr (N == 2) {
+    asm("add.cc.u32 %0, %0, %3;\n\t"
+        "addc.cc.u32 %1, %1, %4;\n\t"
+        "addc.u32 %2, 0, 0;"
+        : "+r"(r[0]), "+r"(r[1]), "=r"(r[2])
+        : "r"(x[0]), "r"(x[1]));
+  } else if constexpr (N == 3) {
+    asm("add.cc.u32 %0, %0, %4;\n\t"
+        "addc.cc.u32 %1, %1, %5;\n\t"
+        "addc.cc.u32 %2, %2, %6;\n\t"
+        "addc.u32 %3, 0, 0;"
+        : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "=r"(r[3])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]));
+  } else if constexpr (N == 4) {
+    asm("add.cc.u32 %0, %0, %5;\n\t"
+        "addc.cc.u32 %1, %1, %6;\n\t"
+        "addc.cc.u32 %2, %2, %7;\n\t"
+        "addc.cc.u32 %3, %3, %8;\n\t"
+        "addc.u32 %4, 0, 0;"
+        : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "=r"(r[4])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]));
+  } else if constexpr (N == 5) {
+    asm("add.cc.u32 %0, %0, %6;\n\t"
+        "addc.cc.u32 %1, %1, %7;\n\t"
+        "addc.cc.u32 %2, %2, %8;\n\t"
+        "addc.cc.u32 %3, %3, %9;\n\t"
+        "addc.cc.u32 %4, %4, %10;\n\t"
+        "addc.u32 %5, 0, 0;"
+        : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "=r"(r[5])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]));
+  } else if constexpr (N == 6) {
+    asm("add.cc.u32 %0, %0, %7;\n\t"
+        "addc.cc.u32 %1, %1, %8;\n\t"
+        "addc.cc.u32 %2, %2, %9;\n\t"
+        "addc.cc.u32 %3, %3, %10;\n\t"
+        "addc.cc.u32 %4, %4, %11;\n\t"
+        "addc.cc.u32 %5, %5, %12;\n\t"
+        "addc.u32 %6, 0, 0;"
+        : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5]), "=r"(r[6])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]));
+  }
+}
+
+// r[0..N-1] += x[0..N-1] in one chain whose last word carries out 0.
+template <int N>
+__device__ __forceinline__ void fe8_chain(uint32_t* r,
+                                          const uint32_t* x) {
+  if constexpr (N == 1) {
+    asm("add.u32 %0, %0, %1;"
+        : "+r"(r[0])
+        : "r"(x[0]));
+  } else if constexpr (N == 2) {
+    asm("add.cc.u32 %0, %0, %2;\n\t"
+        "addc.u32 %1, %1, %3;"
+        : "+r"(r[0]), "+r"(r[1])
+        : "r"(x[0]), "r"(x[1]));
+  } else if constexpr (N == 3) {
+    asm("add.cc.u32 %0, %0, %3;\n\t"
+        "addc.cc.u32 %1, %1, %4;\n\t"
+        "addc.u32 %2, %2, %5;"
+        : "+r"(r[0]), "+r"(r[1]), "+r"(r[2])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]));
+  } else if constexpr (N == 4) {
+    asm("add.cc.u32 %0, %0, %4;\n\t"
+        "addc.cc.u32 %1, %1, %5;\n\t"
+        "addc.cc.u32 %2, %2, %6;\n\t"
+        "addc.u32 %3, %3, %7;"
+        : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]));
+  } else if constexpr (N == 5) {
+    asm("add.cc.u32 %0, %0, %5;\n\t"
+        "addc.cc.u32 %1, %1, %6;\n\t"
+        "addc.cc.u32 %2, %2, %7;\n\t"
+        "addc.cc.u32 %3, %3, %8;\n\t"
+        "addc.u32 %4, %4, %9;"
+        : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]));
+  } else if constexpr (N == 6) {
+    asm("add.cc.u32 %0, %0, %6;\n\t"
+        "addc.cc.u32 %1, %1, %7;\n\t"
+        "addc.cc.u32 %2, %2, %8;\n\t"
+        "addc.cc.u32 %3, %3, %9;\n\t"
+        "addc.cc.u32 %4, %4, %10;\n\t"
+        "addc.u32 %5, %5, %11;"
+        : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]));
+  }
+}
+
+
+// Row i (1..6) of fe8_sq: the N = 7 - i cross products a_i a_j, j > i, low
+// halves into words 2i+1..i+7 with the carry into i+8, high halves into
+// 2i+2..i+8.
+template <int I>
+__device__ __forceinline__ void fe8_sq_row(const fe8& a, uint32_t* r) {
+  constexpr int N = 7 - I;
+  uint32_t lo[N], hi[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const uint64_t p = (uint64_t)a.v[I] * a.v[I + 1 + k];
+    lo[k] = (uint32_t)p;
+    hi[k] = (uint32_t)(p >> 32);
+  }
+  fe8_chain_carry<N>(r + 2 * I + 1, lo);
+  fe8_chain<N>(r + 2 * I + 2, hi);
+}
+
+// a^2 in 36 products (mul.wide.u32): the 28 cross products a_i a_j, i < j,
+// by rows as fe8_mul takes them (row 0 in one chain, rows 1..6 by
+// fe8_sq_row), their sum C doubled by a chain (C + C; C < 2^480, so the
+// doubling carries into word 15), the 8 squares a_i^2 added at words 2i
+// and 2i+1 by a chain (a^2 < 2^512: its last word carries out 0), then
+// fe8_reduce_wide.  After row i the cross partial sum is below
+// a[0..i] a < 2^(32(i + 9)), so row i's high chain carries out 0, as
+// fe8_mul's does.
+__device__ FE8_MUL_INLINE fe8 fe8_sq(const fe8& a) {
+  uint32_t r[16], lo[8], hi[8];
+#pragma unroll
+  for (int j = 1; j < 8; ++j) {
+    const uint64_t p = (uint64_t)a.v[0] * a.v[j];
+    lo[j] = (uint32_t)p;
+    hi[j] = (uint32_t)(p >> 32);
+  }
+  r[1] = lo[1];
+  asm("add.cc.u32 %0, %7, %8;\n\t"
+      "addc.cc.u32 %1, %9, %10;\n\t"
+      "addc.cc.u32 %2, %11, %12;\n\t"
+      "addc.cc.u32 %3, %13, %14;\n\t"
+      "addc.cc.u32 %4, %15, %16;\n\t"
+      "addc.cc.u32 %5, %17, %18;\n\t"
+      "addc.u32 %6, %19, 0;"
+      : "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]), "=r"(r[6]),
+        "=r"(r[7]), "=r"(r[8])
+      : "r"(lo[2]), "r"(hi[1]), "r"(lo[3]), "r"(hi[2]), "r"(lo[4]),
+        "r"(hi[3]), "r"(lo[5]), "r"(hi[4]), "r"(lo[6]), "r"(hi[5]),
+        "r"(lo[7]), "r"(hi[6]), "r"(hi[7]));
+  fe8_sq_row<1>(a, r);
+  fe8_sq_row<2>(a, r);
+  fe8_sq_row<3>(a, r);
+  fe8_sq_row<4>(a, r);
+  fe8_sq_row<5>(a, r);
+  fe8_sq_row<6>(a, r);
+  asm("add.cc.u32 %0, %0, %0;\n\t"
+      "addc.cc.u32 %1, %1, %1;\n\t"
+      "addc.cc.u32 %2, %2, %2;\n\t"
+      "addc.cc.u32 %3, %3, %3;\n\t"
+      "addc.cc.u32 %4, %4, %4;\n\t"
+      "addc.cc.u32 %5, %5, %5;\n\t"
+      "addc.cc.u32 %6, %6, %6;\n\t"
+      "addc.cc.u32 %7, %7, %7;\n\t"
+      "addc.cc.u32 %8, %8, %8;\n\t"
+      "addc.cc.u32 %9, %9, %9;\n\t"
+      "addc.cc.u32 %10, %10, %10;\n\t"
+      "addc.cc.u32 %11, %11, %11;\n\t"
+      "addc.cc.u32 %12, %12, %12;\n\t"
+      "addc.cc.u32 %13, %13, %13;\n\t"
+      "addc.u32 %14, 0, 0;"
+      : "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5]),
+        "+r"(r[6]), "+r"(r[7]), "+r"(r[8]), "+r"(r[9]), "+r"(r[10]),
+        "+r"(r[11]), "+r"(r[12]), "+r"(r[13]), "+r"(r[14]), "=r"(r[15]));
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint64_t p = (uint64_t)a.v[j] * a.v[j];
+    lo[j] = (uint32_t)p;
+    hi[j] = (uint32_t)(p >> 32);
+  }
+  r[0] = lo[0];
+  asm("add.cc.u32 %0, %0, %15;\n\t"
+      "addc.cc.u32 %1, %1, %16;\n\t"
+      "addc.cc.u32 %2, %2, %17;\n\t"
+      "addc.cc.u32 %3, %3, %18;\n\t"
+      "addc.cc.u32 %4, %4, %19;\n\t"
+      "addc.cc.u32 %5, %5, %20;\n\t"
+      "addc.cc.u32 %6, %6, %21;\n\t"
+      "addc.cc.u32 %7, %7, %22;\n\t"
+      "addc.cc.u32 %8, %8, %23;\n\t"
+      "addc.cc.u32 %9, %9, %24;\n\t"
+      "addc.cc.u32 %10, %10, %25;\n\t"
+      "addc.cc.u32 %11, %11, %26;\n\t"
+      "addc.cc.u32 %12, %12, %27;\n\t"
+      "addc.cc.u32 %13, %13, %28;\n\t"
+      "addc.u32 %14, %14, %29;"
+      : "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5]),
+        "+r"(r[6]), "+r"(r[7]), "+r"(r[8]), "+r"(r[9]), "+r"(r[10]),
+        "+r"(r[11]), "+r"(r[12]), "+r"(r[13]), "+r"(r[14]), "+r"(r[15])
+      : "r"(hi[0]), "r"(lo[1]), "r"(hi[1]), "r"(lo[2]), "r"(hi[2]),
+        "r"(lo[3]), "r"(hi[3]), "r"(lo[4]), "r"(hi[4]), "r"(lo[5]),
+        "r"(hi[5]), "r"(lo[6]), "r"(hi[6]), "r"(lo[7]), "r"(hi[7]));
+  return fe8_reduce_wide(r);
 }
 
 // Balanced 13-bit limbs (|limb| <= 8191) of a signed value V -> the weak

@@ -20,15 +20,21 @@
 //    a chain of n_steps fe_mul (fe25519.cuh, the field multiply of every
 //    kernel of the port but K2 and K2t) with the same (a, b) <- (b, a * b)
 //    recurrence.
-//  * probe_fe8: the self-test of fe25519_u32.cuh, K2's and K2t's field
-//    arithmetic: one thread per row of operands runs fe8_add, fe8_sub,
-//    fe8_neg, fe8_mul, both conversions and ge8_add (plain and with the
-//    sign flag) once each, so that chip_smoke.py can hold every output
+//  * probe_fe8: the self-test of fe25519_u32.cuh, the field arithmetic of
+//    K1, K2, K2t and K3: one thread per row of operands runs fe8_add,
+//    fe8_sub, fe8_neg, fe8_mul, both conversions, ge8_add (plain and with
+//    the sign flag) and fe8_sq once each, so that chip_smoke.py can hold every output
 //    against ops/fe_u32.py, the exact-integer model, word for word.  Each
 //    operation sits in an out-of-line function of its own (extern "C", so
 //    `cuobjdump -sass` names it) whose instructions chip_smoke.py counts
 //    against the hand count of its operations.  Plain version:
 //    ops/probes.py fe8_selftest_plain.
+//  * probe_ge8: one thread per element of an (80, n) tile of points (X, Y,
+//    Z, T limbs), a = b = the point, then n_steps of (a, b) <- (b, a + b)
+//    by ge8_add, out = b's canonical limbs: one complete addition's
+//    latency in a dependent chain, K3's serial step (its latency floor,
+//    chip_smoke.py).  Plain version: ops/probes.py ge8_chain_plain (the
+//    20-limb point_add, then canonical_limbs20).
 //
 // Bound: the launch.  A step is one int32 operation per element (a field
 // multiply ~1.3e3), and the tile moves 8 (160) bytes per element.
@@ -124,9 +130,9 @@ extern "C" int probe_fmul_launch(const void* x, void* out, int n_elems,
 // probe_fe8: in (n, FE8_IN) int32 rows: a, b (8 words each), 20 limbs, the
 // points p and q (32 words each: X, Y, Z, T).  out (n, FE8_OUT): a + b,
 // a - b, -a, a * b, from_limbs20(limbs), the canonical limbs of a (20),
-// p + q and p + (-q) (32 each).
+// p + q and p + (-q) (32 each), a^2.
 #define FE8_IN 100
-#define FE8_OUT 124
+#define FE8_OUT 132
 
 extern "C" __device__ __noinline__ fe8 st_fe8_add(fe8 a, fe8 b) {
   return fe8_add(a, b);
@@ -148,6 +154,7 @@ extern "C" __device__ __noinline__ void st_fe8_to_limbs20_canonical(
 extern "C" __device__ __noinline__ ge8 st_ge8_add(ge8 p, ge8 q, bool neg) {
   return ge8_add(p, q, neg);
 }
+extern "C" __device__ __noinline__ fe8 st_fe8_sq(fe8 a) { return fe8_sq(a); }
 
 __device__ __forceinline__ fe8 ld8(const int32_t* x) {
   fe8 r;
@@ -199,6 +206,7 @@ extern "C" __global__ void __launch_bounds__(THREADS)
     st8(ok + 16, r.Z);
     st8(ok + 24, r.T);
   }
+  st8(o + 124, st_fe8_sq(a));
 }
 
 extern "C" int probe_fe8_launch(const void* in, void* out, int n, int unused,
@@ -206,5 +214,46 @@ extern "C" int probe_fe8_launch(const void* in, void* out, int n, int unused,
   const int blocks = (n + THREADS - 1) / THREADS;
   probe_fe8_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in, (int32_t*)out, n, unused);
+  return (int)cudaGetLastError();
+}
+
+// probe_ge8: x, out (80, n_elems) int32, limb k of element i at
+// k * n_elems + i.
+extern "C" __global__ void __launch_bounds__(THREADS)
+    probe_ge8_kernel(const int32_t* __restrict__ x,
+                     int32_t* __restrict__ out, int n_elems, int n_steps) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n_elems) return;
+  const int32_t* xi = x + i;
+  const size_t n = (size_t)n_elems;
+  ge8 a;
+  a.X = fe8_from_limbs20(xi, n);
+  a.Y = fe8_from_limbs20(xi + 20 * n, n);
+  a.Z = fe8_from_limbs20(xi + 40 * n, n);
+  a.T = fe8_from_limbs20(xi + 60 * n, n);
+  ge8 b = a;
+#pragma unroll 1
+  for (int s = 0; s < n_steps; ++s) {
+    const ge8 nb = ge8_add(a, b);
+    a = b;
+    b = nb;
+  }
+  auto put = [&](int k, const fe8& c) {
+    int32_t l[20];
+    fe8_to_limbs20_canonical(c, l);
+#pragma unroll
+    for (int j = 0; j < 20; ++j) out[(size_t)(20 * k + j) * n + i] = l[j];
+  };
+  put(0, b.X);
+  put(1, b.Y);
+  put(2, b.Z);
+  put(3, b.T);
+}
+
+extern "C" int probe_ge8_launch(const void* x, void* out, int n_elems,
+                                int n_steps, void* stream) {
+  const int blocks = (n_elems + THREADS - 1) / THREADS;
+  probe_ge8_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (int32_t*)out, n_elems, n_steps);
   return (int)cudaGetLastError();
 }

@@ -149,6 +149,9 @@ INSTANTIATIONS = {
     "window_sums-hybrid": ("window_sums_hybrid.cu", _K2),
     "fold_partials-i16fold": ("fold_partials.cu", _POINTS),
     "fold_partials-r32": ("fold_partials.cu", _POINTS),
+    # the 20-limb K1 and K3, timed beside the fe8 ones
+    "expand_compressed-l20": ("expand_compressed.cu", _POINTS),
+    "fold_partials-l20": ("fold_partials.cu", _POINTS),
     "build_tables-r32": ("build_tables.cu", _POINTS),
     # the micro-probes (probes.cu)
     "probe_chain-add": ("probes.cu", _POINTS),
@@ -156,8 +159,10 @@ INSTANTIATIONS = {
     "probe_chain-shift": ("probes.cu", _POINTS),
     "probe_chain-madd": ("probes.cu", _POINTS),
     "probe_fmul": ("probes.cu", _POINTS),
-    # the self-test of K2's and K2t's field arithmetic (fe25519_u32.cuh)
+    # the self-test of the fe8 field arithmetic (fe25519_u32.cuh) and the
+    # latency of one complete addition in a chain
     "probe_fe8": ("probes.cu", _POINTS),
+    "probe_ge8": ("probes.cu", _POINTS),
 }
 
 # What a verdict path launches with no knob set.  The windows-per-block

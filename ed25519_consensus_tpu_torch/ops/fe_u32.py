@@ -1,16 +1,16 @@
 """An exact-integer model of csrc/fe25519_u32.cuh, step for step.
 
-The kernels K2 and K2t compute in GF(2^255 - 19) on 8 x 32-bit words with
-64-bit products (`mul.wide.u32`) and PTX carry chains (`add.cc`, `addc.cc`,
-`sub.cc`, ...).  No
-compiler for them runs on the CPU, so this module runs the same
-instructions, in the same order, on Python ints: every word is checked to
-lie in [0, 2^32) where an instruction reads or writes it, every carry or
-borrow flag is 0 or 1, and where the CUDA source drops a carry-out (the
-last instruction of a chain without `.cc`) the model asserts that it is 0.
-The tests (tests/test_torch_fe_u32.py) hold the model against Python ints
-mod p, and the card's self-test kernel (csrc/probes.cu `probe_fe8`) against
-the model, word for word.
+The kernels K1, K2, K2t and K3 compute in GF(2^255 - 19) on 8 x 32-bit
+words with 64-bit products (`mul.wide.u32`) and PTX carry chains (`add.cc`,
+`addc.cc`, `sub.cc`, ...).  No compiler for them runs on the CPU, so this
+module runs the same instructions, in the same order, on Python ints: every
+word is checked to lie in [0, 2^32) where an instruction reads or writes
+it, every carry or borrow flag is 0 or 1, and where the CUDA source drops a
+carry-out (the last instruction of a chain without `.cc`) the model asserts
+that it is 0.  The tests (tests/test_torch_fe_u32.py) hold the model against
+Python ints mod p, and the card's self-test kernel (csrc/probes.cu
+`probe_fe8`) against the model, word for word.  `expand_lane` and
+`fold_lane` are K1's and K3's bodies for one lane and one (batch, window).
 
 An element is a list of 8 words, least significant first, a value below
 2^256 (the weak form; p = 2^255 - 19 < 2^256, so a residue may have two
@@ -20,7 +20,7 @@ step keeps; `check_weak` is the bound every operation's output must meet.
 This module imports nothing outside the port.
 """
 
-from .field import D2, P
+from .field import D, D2, P, SQRT_M1
 
 M32 = 0xFFFFFFFF
 WORDS = 8
@@ -134,30 +134,12 @@ def mul_wide(a, b):
     return p & M32, p >> 32
 
 
-def fe8_mul(a, b):
-    """a · b: the 16-word product row by row — row i's 8 products by
-    mul.wide, then two chains: the low halves into words i..i+7 with the
-    carry into word i+8, the high halves into words i+1..i+8 (row 0 adds
-    its high halves to its low halves in one chain) — then L + 38·H (the
-    38·H_j by mul.wide; low halves, then high halves into a top word
-    t ≤ 38), then 38·t added by a chain, then its carry's 38 into word 0."""
-    r = [0] * 16
-    lo, hi = zip(*(mul_wide(a[0], b[j]) for j in range(WORDS)))
-    r[0] = lo[0]
-    c = 0
-    for j in range(1, WORDS):
-        r[j], c = add_cc(lo[j], hi[j - 1], c)
-    r[8] = _no_carry(*add_cc(hi[7], 0, c))
-    for i in range(1, WORDS):
-        lo, hi = zip(*(mul_wide(a[i], b[j]) for j in range(WORDS)))
-        c = 0
-        for j in range(WORDS):
-            r[i + j], c = add_cc(r[i + j], lo[j], c)
-        r[i + 8] = c  # addc.u32 r, 0, 0
-        c = 0
-        for j in range(WORDS - 1):
-            r[i + j + 1], c = add_cc(r[i + j + 1], hi[j], c)
-        r[i + 8] = _no_carry(*add_cc(r[i + 8], hi[7], c))
+def _reduce_wide(r):
+    """The 16-word product r reduced to the weak form, L + 38·H: the
+    38·H_j by mul.wide; low halves into L with the carry into a top word
+    t, then high halves one word up, the last into t ≤ 38; then 38·t added
+    by a chain, then its carry's 38 into word 0 (fe25519_u32.cuh
+    fe8_reduce_wide, fe8_mul's and fe8_sq's tail)."""
     low, high = r[:WORDS], r[WORDS:]
     lo, hi = zip(*(mul_wide(high[j], 38) for j in range(WORDS)))
     c = 0
@@ -175,6 +157,72 @@ def fe8_mul(a, b):
         low[j], c = add_cc(low[j], t if j == 0 else 0, c)
     low[0] = _no_carry(*mad_lo_cc(c, 38, low[0]))
     return check_weak(low)
+
+
+def fe8_mul(a, b):
+    """a · b: the 16-word product row by row — row i's 8 products by
+    mul.wide, then two chains: the low halves into words i..i+7 with the
+    carry into word i+8, the high halves into words i+1..i+8 (row 0 adds
+    its high halves to its low halves in one chain) — then
+    `_reduce_wide`."""
+    r = [0] * 16
+    lo, hi = zip(*(mul_wide(a[0], b[j]) for j in range(WORDS)))
+    r[0] = lo[0]
+    c = 0
+    for j in range(1, WORDS):
+        r[j], c = add_cc(lo[j], hi[j - 1], c)
+    r[8] = _no_carry(*add_cc(hi[7], 0, c))
+    for i in range(1, WORDS):
+        lo, hi = zip(*(mul_wide(a[i], b[j]) for j in range(WORDS)))
+        c = 0
+        for j in range(WORDS):
+            r[i + j], c = add_cc(r[i + j], lo[j], c)
+        r[i + 8] = c  # addc.u32 r, 0, 0
+        c = 0
+        for j in range(WORDS - 1):
+            r[i + j + 1], c = add_cc(r[i + j + 1], hi[j], c)
+        r[i + 8] = _no_carry(*add_cc(r[i + 8], hi[7], c))
+    return _reduce_wide(r)
+
+
+def fe8_sq(a):
+    """a²: the 28 cross products a_i·a_j, i < j, by rows as fe8_mul takes
+    them — row 0's 7 in one chain into words 1..8; row i (1..6) its 7 − i
+    low halves into words 2i+1..i+7 with the carry into word i+8, its high
+    halves into words 2i+2..i+8 — then their sum doubled by one chain
+    (carry into word 15), then the 8 squares a_i² added at words 2i, 2i+1
+    by one chain (word 0 takes the first low half), then `_reduce_wide`:
+    36 products in all."""
+    r = [0] * 16
+    lo, hi = [0] * WORDS, [0] * WORDS
+    for j in range(1, WORDS):
+        lo[j], hi[j] = mul_wide(a[0], a[j])
+    r[1] = lo[1]
+    c = 0
+    for j in range(2, WORDS):
+        r[j], c = add_cc(lo[j], hi[j - 1], c)
+    r[8] = _no_carry(*add_cc(hi[7], 0, c))
+    for i in range(1, WORDS - 1):
+        lo, hi = zip(*(mul_wide(a[i], a[j]) for j in range(i + 1, WORDS)))
+        c = 0
+        for k, x in enumerate(lo):
+            r[2 * i + 1 + k], c = add_cc(r[2 * i + 1 + k], x, c)
+        r[i + 8] = c  # addc.u32 r, 0, 0
+        c = 0
+        for k, x in enumerate(hi):
+            r[2 * i + 2 + k], c = add_cc(r[2 * i + 2 + k], x, c)
+        _no_carry(0, c)
+    c = 0
+    for j in range(1, 15):
+        r[j], c = add_cc(r[j], r[j], c)
+    r[15] = c  # addc.u32 r15, 0, 0
+    sq = [mul_wide(a[j], a[j]) for j in range(WORDS)]
+    r[0] = sq[0][0]
+    c = 0
+    for j in range(1, 16):
+        r[j], c = add_cc(r[j], sq[j // 2][j % 2], c)
+    _no_carry(0, c)
+    return _reduce_wide(r)
 
 
 # The words of the limbs20 conversion: limb i sits at bit 13i; word k is
@@ -288,3 +336,114 @@ def ge8_add(p, q, neg: bool = False):
     if neg:
         F, G = G, F
     return [fe8_mul(E, F), fe8_mul(G, H), fe8_mul(F, G), fe8_mul(E, H)]
+
+
+# -- K1: the ZIP215 point expansion of one lane ----------------------------
+
+D_WORDS = to_words(D % P)
+SQRTM1_WORDS = to_words(SQRT_M1 % P)
+ONE = [1] + [0] * 7
+
+
+def fe8_sqn(x, n: int):
+    for _ in range(n):
+        x = fe8_sq(x)
+    return x
+
+
+def fe8_pow22523(z):
+    """z^((p − 5)/8) = z^(2^252 − 3): the 2^k − 1 ladder of
+    csrc/expand_compressed.cu fe8_pow22523 (251 squarings, 11 products)."""
+    t0 = fe8_sq(z)                        # z^2
+    t1 = fe8_sqn(t0, 2)                   # z^8
+    t1 = fe8_mul(t1, z)                   # z^9
+    t0 = fe8_mul(t0, t1)                  # z^11
+    t0 = fe8_sq(t0)                       # z^22
+    t0 = fe8_mul(t1, t0)                  # z^(2^5-1)
+    t1 = fe8_sqn(t0, 5)
+    t0 = fe8_mul(t1, t0)                  # z^(2^10-1)
+    t1 = fe8_sqn(t0, 10)
+    t1 = fe8_mul(t1, t0)                  # z^(2^20-1)
+    t2 = fe8_sqn(t1, 20)
+    t1 = fe8_mul(t2, t1)                  # z^(2^40-1)
+    t1 = fe8_sqn(t1, 10)
+    t0 = fe8_mul(t1, t0)                  # z^(2^50-1)
+    t1 = fe8_sqn(t0, 50)
+    t1 = fe8_mul(t1, t0)                  # z^(2^100-1)
+    t2 = fe8_sqn(t1, 100)
+    t1 = fe8_mul(t2, t1)                  # z^(2^200-1)
+    t1 = fe8_sqn(t1, 50)
+    t0 = fe8_mul(t1, t0)                  # z^(2^250-1)
+    t0 = fe8_sqn(t0, 2)                   # z^(2^252-4)
+    return fe8_mul(t0, z)                 # z^(2^252-3)
+
+
+def expand_lane(wire33):
+    """K1's body for one lane (csrc/expand_compressed.cu): the 33 wire
+    bytes (32 of y, little-endian, then the hint) → the canonical limbs of
+    X, Y and T (3 × 20; Z = 1).  y is the 32 bytes as 8 words with bit 255
+    masked, a weak value (y ≥ p, non-canonical, included); u = y² − 1, v =
+    d·y² + 1, r = u·v³·(u·v⁷)^((p−5)/8); the hint's flip bit multiplies r
+    by √−1 (by 1 without it) and its neg bit takes fe8_neg, as arithmetic;
+    T = x·y."""
+    b = [int(x) for x in wire33]
+    if len(b) != 33 or not all(0 <= x < 256 for x in b):
+        raise ValueError("a lane is 33 bytes")
+    y = [b[4 * k] | b[4 * k + 1] << 8 | b[4 * k + 2] << 16 | b[4 * k + 3] << 24
+         for k in range(WORDS)]
+    y[7] &= 0x7FFFFFFF
+    hint = b[32]
+    yy = fe8_sq(y)
+    u = fe8_sub(yy, ONE)
+    v = fe8_add(fe8_mul(yy, D_WORDS), ONE)
+    v3 = fe8_mul(fe8_sq(v), v)
+    v7 = fe8_mul(fe8_sq(v3), v)
+    uv3 = fe8_mul(u, v3)
+    r = fe8_mul(uv3, fe8_pow22523(fe8_mul(u, v7)))
+    r = fe8_mul(r, SQRTM1_WORDS if hint & 1 else ONE)
+    x = fe8_neg(r) if hint & 2 else r
+    t = fe8_mul(x, y)
+    return [fe8_to_limbs20_canonical(c) for c in (x, y, t)]
+
+
+# -- K3: the fold of one (batch, window) -----------------------------------
+
+FOLD_THREADS = 128  # csrc/fold_partials.cu FOLD_THREADS
+
+
+def _warp_fold(vals, live: int):
+    """fold_partials.cu warp_fold on one warp's 32 lane values: halving
+    levels s = 16, 8, 4, 2, 1; at each, lane l < s adds lane l + s's value
+    (__shfl_down_sync) when l + s < live, then live = min(live, s).  The
+    sum lands in lane 0."""
+    s = 16
+    while s:
+        for lane in range(s):
+            if lane + s < live:
+                vals[lane] = ge8_add(vals[lane], vals[lane + s])
+        live = min(live, s)
+        s //= 2
+    return vals[0]
+
+
+def fold_lane(rows, threads: int = FOLD_THREADS):
+    """K3's fold for one (batch, window), as csrc/fold_partials.cu takes
+    it: `rows` the nchunk partials (each 80 limbs in the bound of
+    fe8_from_limbs20: X, Y, Z, T) → 80 canonical limbs.  Thread t starts
+    from partial t and adds partials t + threads, t + 2·threads, ... in
+    order; each warp's accumulators meet in `_warp_fold`; the warps' sums
+    meet in one more `_warp_fold` in warp 0.  nchunk − 1 additions; no
+    partials give the identity."""
+    pts = [[fe8_from_limbs20(list(r[20 * k:20 * k + 20])) for k in range(4)]
+           for r in rows]
+    held = min(len(pts), threads)
+    acc = pts[:held]
+    for c0 in range(threads, len(pts), threads):
+        for t, p in enumerate(pts[c0:c0 + threads]):
+            acc[t] = ge8_add(acc[t], p)
+    sums = [_warp_fold(acc[w:w + 32] + [None] * (32 - len(acc[w:w + 32])),
+                       len(acc[w:w + 32]))
+            for w in range(0, held, 32)]
+    res = _warp_fold(sums + [None] * (32 - len(sums)), len(sums)) \
+        if sums else IDENTITY
+    return [x for c in res for x in fe8_to_limbs20_canonical(c)]

@@ -43,11 +43,15 @@ Two more kernels serve the affine wire and the sharded mesh
   K5 `fold_shards` (`fold_shards`) — the cross-shard group fold of the
      per-shard window sums gathered onto the placement's first device.
 
-K2 and K2t (csrc/window_sums_u32.cuh) compute in 8 × 32-bit words with
-carry chains (csrc/fe25519_u32.cuh), split each window's 64 lanes into
-four sub-sums joined as (q0 + q1) + (q2 + q3), and write CANONICAL limbs;
-their plain versions take the same additions in the 20-limb arithmetic
-(`split=4`) and end with torch_field.canonical_limbs20.
+K1, K2, K2t and K3 compute in 8 × 32-bit words with carry chains
+(csrc/fe25519_u32.cuh) and write CANONICAL limbs.  K2 and K2t
+(csrc/window_sums_u32.cuh) split each window's 64 lanes into four
+sub-sums joined as (q0 + q1) + (q2 + q3); K3 folds with 128 threads a
+(window, batch) and warp trees.  Their plain versions take the same
+additions in the 20-limb arithmetic (`split=4`, the K3 order) and end with
+torch_field.canonical_limbs20.  The earlier 20-limb K1 and K3
+are the lab's `expand_compressed-l20` and `fold_partials-l20`
+(`arith="l20"` on their wrappers); no verdict path launches them.
 
 The kernel lab's forms (tools/kernel_lab.py, tools/microbench.py), all in
 the 20-limb design (csrc/window_sums.cuh: 20 × 13-bit limbs, two half-chunk
@@ -88,10 +92,12 @@ from .torch_decompress import expand_compressed_points
 
 MASK128 = (1 << 128) - 1
 # Lanes per K2 block (csrc/window_sums.cu CHUNK), and threads per K3 block
-# (csrc/fold_partials.cu THREADS): the plain versions mirror both.
+# (csrc/fold_partials.cu FOLD_THREADS; THREADS_L20 for the 20-limb K3): the
+# plain versions mirror both.
 CHUNK = 64
 HALF = CHUNK // 2
-FOLD_THREADS = 32
+FOLD_THREADS = 128
+FOLD_THREADS_L20 = 32
 # Entries of a multiples table, [0..8]P.
 NTABLE = 9
 # Shared memory one block may take on an H100 (dynamic, after the opt-in).
@@ -744,42 +750,69 @@ def build_multiples_tables(points, device=None,
 
 # -- K3: fold of the chunk partials ----------------------------------------
 
-def fold_partials_plain(partials):
+def _identity_sums(B: int, nwin: int, device):
+    out = torch.zeros((B, 4, NLIMBS, nwin), dtype=torch.int32, device=device)
+    out[:, 1, 0] = 1
+    out[:, 2, 0] = 1
+    return out
+
+
+def _warp_tree(acc, lives, base):
+    """The halving trees of csrc/fold_partials.cu warp_fold, one per group
+    of 32 lanes at once: group g holds lives[g] values from accumulator
+    base[g]; at s = 16, 8, 4, 2, 1 lane l < s adds lane l + s when
+    l + s < live, then live = min(live, s).  Each sum lands in lane 0 of
+    its group."""
+    lives = list(lives)
+    s = 16
+    while s:
+        dst = [b + lane for b, live in zip(base, lives)
+               for lane in range(s) if lane + s < live]
+        if dst:
+            src = [d + s for d in dst]
+            acc[..., dst] = E.point_add(acc[..., dst], acc[..., src])
+        lives = [min(live, s) for live in lives]
+        s //= 2
+    return acc
+
+
+def fold_partials_plain(partials, arith: str = "u32"):
     """Plain PyTorch version of K3: (B, nchunk, nwin, 4, NLIMBS) int32 or
-    int16 → (B, 4, NLIMBS, nwin) int32.  Same order as
-    csrc/fold_partials.cu: accumulator t < FOLD_THREADS starts from chunk t
-    and adds chunks t + 32, t + 64, ...; the live accumulators then meet in
-    a halving tree.  nchunk - 1 additions per (b, window); no chunks give
-    the identity."""
+    int16 → (B, 4, NLIMBS, nwin) int32, the same additions in the same
+    order as csrc/fold_partials.cu, nchunk − 1 per (b, window); no chunks
+    give the identity.  The default K3 (`arith="u32"`): accumulator t <
+    FOLD_THREADS starts from chunk t and adds chunks t + 128, t + 256, ...;
+    each warp's 32 accumulators meet in a halving tree (`_warp_tree`), the
+    warps' sums in one more; canonical limbs out.  The lab's 20-limb K3
+    (`"l20"`): 32 accumulators from chunks t, t + 32, ..., one halving
+    tree, the limbs as the additions leave them."""
+    if arith not in ("u32", "l20"):
+        raise ValueError(f"arith must be u32 or l20: {arith!r}")
     B, nchunk, nwin = partials.shape[:3]
     p = partials.to(torch.int32).permute(3, 4, 0, 2, 1)  # (4, NLIMBS, B, nwin, nchunk)
-    T = FOLD_THREADS
+    T = FOLD_THREADS if arith == "u32" else FOLD_THREADS_L20
     live = min(nchunk, T)
     if not live:
-        out = torch.zeros((B, 4, NLIMBS, nwin), dtype=torch.int32,
-                          device=p.device)
-        out[:, 1, 0] = 1
-        out[:, 2, 0] = 1
-        return out
+        return _identity_sums(B, nwin, p.device)
     acc = p[..., :live].clone()
     for lo in range(T, nchunk, T):
         n = min(T, nchunk - lo)
         acc[..., :n] = E.point_add(acc[..., :n], p[..., lo:lo + n])
-    s = T // 2
-    while s:
-        if live > s:
-            m = live - s
-            acc = torch.cat([E.point_add(acc[..., :m], acc[..., s:live]),
-                             acc[..., m:s]], dim=-1)
-            live = s
-        s //= 2
-    return acc[..., 0].permute(2, 0, 1, 3).contiguous()
+    warps = range(0, live, 32)
+    acc = _warp_tree(acc, [min(live - w, 32) for w in warps], list(warps))
+    if len(warps) > 1:
+        acc = _warp_tree(acc[..., list(warps)], [len(warps)], [0])
+    out = acc[..., 0]  # (4, NLIMBS, B, nwin)
+    if arith == "u32":
+        out = F.canonical_limbs20(out.movedim(1, 0)).movedim(0, 1)
+    return out.permute(2, 0, 1, 3).contiguous()
 
 
-def fold_partials(partials):
+def fold_partials(partials, arith: str = "u32"):
     """K3 wrapper: launches csrc/fold_partials.cu on a CUDA tensor — the
-    instantiation for 33 or 27 windows of int32 or int16 partials — and
-    runs `fold_partials_plain` on a CPU tensor."""
+    instantiation for 33 or 27 windows of int32 or int16 partials, or the
+    lab's 20-limb `fold_partials-l20` (`arith="l20"`, 33 windows of int32)
+    — and runs `fold_partials_plain` on a CPU tensor."""
     if partials.dtype not in (torch.int32, torch.int16) or \
             partials.ndim != 5 or partials.shape[2] not in (
                 NWINDOWS, limbs.NWINDOWS_R32) or \
@@ -787,16 +820,21 @@ def fold_partials(partials):
         raise ValueError(f"partials must be (B, nchunk, 33 | 27, 4, "
                          f"{NLIMBS}) int32 or int16, got "
                          f"{tuple(partials.shape)} {partials.dtype}")
+    if arith not in ARITHS:
+        raise ValueError(f"arith must be one of {ARITHS}: {arith!r}")
     base = "-".join(["fold_partials"] + [tag for cond, tag in (
         (partials.shape[2] == limbs.NWINDOWS_R32, "r32"),
-        (partials.dtype == torch.int16, "i16fold")) if cond])
+        (partials.dtype == torch.int16, "i16fold"),
+        (arith == "l20", "l20")) if cond])
     if base not in _cuda.INSTANTIATIONS:
         raise ValueError(f"no kernel is built for {base}")
     if partials.device.type == "cpu":
-        return fold_partials_plain(partials)
+        return fold_partials_plain(partials, arith)
     if partials.device.type != "cuda":
         raise ValueError(f"unsupported device {partials.device}")
     partials = partials.contiguous()
+    if partials.data_ptr() % 16:  # the kernel reads rows in 16 bytes
+        partials = partials.clone()
     B, nchunk, nwin = partials.shape[:3]
     out = torch.empty((B, 4, NLIMBS, nwin), dtype=torch.int32,
                       device=partials.device)

@@ -16,10 +16,15 @@ one step (tools/microbench.py).
   chain mod p (tests/test_torch_variants.py says whether limb for limb).
 
 * `fe8_selftest(x)`: x (n, 100) int32 rows of operands (`fe8_operands`)
-  through every operation of csrc/fe25519_u32.cuh, K2's and K2t's field
-  arithmetic, once each → (n, 124) int32; the plain version runs
+  through every operation of csrc/fe25519_u32.cuh, the field arithmetic of
+  K1, K2, K2t and K3, once each → (n, 132) int32; the plain version runs
   ops/fe_u32.py, the exact-integer model of that header, so kernel and
   plain version agree word for word.
+* `ge8_chain(x, n_steps)`: x (80, S, L) int32 point limbs in the bound of
+  torch_field; the (a, b) recurrence from a = b = x with f = ge8_add (the
+  complete addition of fe25519_u32.cuh), out = b's canonical limbs: one
+  addition's latency in a chain (K3's serial step).  The plain version
+  takes torch_edwards.point_add (the same residues) and canonical_limbs20.
 
 Each wrapper runs its kernel on a CUDA tensor and its plain version on a
 CPU tensor; any other device raises.
@@ -32,6 +37,7 @@ import torch
 
 from . import _cuda
 from . import fe_u32 as M
+from . import torch_edwards as E
 from . import torch_field as F
 from .field import P
 
@@ -70,7 +76,8 @@ def _launch(name: str, x, n_steps: int):
         raise ValueError(f"unsupported device {x.device}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    n_elems = x[0].numel() if name == "probe_fmul" else x.numel()
+    n_elems = x[0].numel() if name in ("probe_fmul", "probe_ge8") \
+        else x.numel()
     if n_elems:
         _cuda.kernel(name).launch(x.device, x.data_ptr(), out.data_ptr(),
                                   n_elems, int(n_steps))
@@ -101,7 +108,7 @@ def fmul_chain(x, n_steps: int):
 
 # -- the self-test of fe25519_u32.cuh --------------------------------------
 
-FE8_IN, FE8_OUT = 100, 124
+FE8_IN, FE8_OUT = 100, 132
 FE8_EDGES = ([0, 1, 2, 19, 38, P - 1, P, P + 1, P + 18, 2**255 - 1, 2**255,
               2**255 + 18, 2 * P - 1, 2**256 - 1, 2**256 - 38, 2**256 - 39]
              + [2**256 - 19 * k for k in range(1, 5)])
@@ -156,7 +163,7 @@ def _row_plain(x):
     for neg in (False, True):
         for c in M.ge8_add(p, q, neg):
             out += c
-    return out
+    return out + M.fe8_sq(a)
 
 
 def fe8_selftest_plain(x):
@@ -183,3 +190,24 @@ def fe8_selftest(x):
         _cuda.kernel("probe_fe8").launch(x.device, x.data_ptr(),
                                          out.data_ptr(), x.shape[0], 0)
     return out
+
+
+def ge8_chain_plain(x, n_steps: int):
+    """Plain PyTorch version of probe_ge8: n_steps torch_edwards.point_add
+    from a = b = x, then the canonical limbs of b."""
+    S, L = x.shape[1:]
+    a = b = x.reshape(4, F.NLIMBS, S, L)
+    for _ in range(n_steps):
+        a, b = b, E.point_add(a, b)
+    return F.canonical_limbs20(b.movedim(1, 0)).movedim(0, 1) \
+        .reshape(4 * F.NLIMBS, S, L)
+
+
+def ge8_chain(x, n_steps: int):
+    """probe_ge8 wrapper: x (80, S, L) int32 (X, Y, Z, T limbs)."""
+    if x.dtype != torch.int32 or x.ndim != 3 or x.shape[0] != 4 * F.NLIMBS:
+        raise ValueError(f"x must be ({4 * F.NLIMBS}, S, L) int32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.device.type == "cpu":
+        return ge8_chain_plain(x, n_steps)
+    return _launch("probe_ge8", x, n_steps)

@@ -3,7 +3,7 @@
 The host has already made every accept/reject decision (decompression
 success, `s < ℓ`, and the final cofactored identity check all stay on the
 host), so the device receives just the 32-byte y encoding plus a 2-bit
-host-computed hint and rebuilds x with exact balanced-limb arithmetic:
+host-computed hint and rebuilds x with exact field arithmetic:
 
     u = y² − 1,  v = d·y² + 1,
     r₀ = u·v³ · (u·v⁷)^((p−5)/8)        (the RFC 8032 candidate root)
@@ -12,13 +12,18 @@ host-computed hint and rebuilds x with exact balanced-limb arithmetic:
 Wire: (B, 33, N) uint8 — rows 0..31 the little-endian encoding bytes (bit
 255 ignored; the sign is folded into `neg`), row 32 the hint byte (bit0 =
 flip, bit1 = neg).  y ≥ p non-canonical encodings (ZIP215-accepted) work
-unchanged because balanced-limb math is congruent mod p.
+unchanged because the arithmetic is congruent mod p; the canonical limbs
+out hold y mod p.
 
 `expand_compressed_points` is the wrapper of kernel K1
 (csrc/expand_compressed.cu) on a CUDA tensor and runs
 `expand_compressed_points_plain` on a CPU tensor.  The plain version is the
-JAX package's `ops/jnp_decompress.py` in PyTorch and agrees with it, and with
-the kernel, limb for limb.
+JAX package's `ops/jnp_decompress.py` in PyTorch: the same 20-limb chain,
+equal to the JAX function limb for limb, then `torch_field.canonical_limbs20`,
+because K1 computes on 8 × 32-bit words (csrc/fe25519_u32.cuh) and writes
+canonical limbs; the kernel equals it limb for limb.  `arith="l20"` takes
+the earlier 20-limb kernel (the lab's `expand_compressed-l20`),
+whose plain version is the chain without the canonical step.
 """
 
 import torch
@@ -112,18 +117,27 @@ def decompress_block(enc_bytes, hints):
     return torch.stack([x, y, one, t])
 
 
-def expand_compressed_points_plain(wire):
+def expand_compressed_points_plain(wire, arith: str = "u32"):
     """Plain PyTorch version of K1: (B, 33, N) uint8 → (B, 4, NLIMBS, N)
-    int16, in CHUNK_LANES-lane steps."""
+    int16, in CHUNK_LANES-lane steps; canonical limbs (`arith="u32"`, the
+    default K1's) or the 20-limb chain's (`"l20"`)."""
+    _check_arith(arith)
     B, rows, N = wire.shape
     flat = wire.permute(1, 0, 2).reshape(33, B * N)
     out = torch.empty((4, NLIMBS, B * N), dtype=torch.int16,
                       device=wire.device)
     for lo in range(0, B * N, CHUNK_LANES):
         blk = flat[:, lo:lo + CHUNK_LANES]
-        out[..., lo:lo + CHUNK_LANES] = decompress_block(
-            blk[:32], blk[32]).to(torch.int16)
+        pts = decompress_block(blk[:32], blk[32])
+        if arith == "u32":
+            pts = F.canonical_limbs20(pts.movedim(1, 0)).movedim(0, 1)
+        out[..., lo:lo + CHUNK_LANES] = pts.to(torch.int16)
     return out.reshape(4, NLIMBS, B, N).permute(2, 0, 1, 3).contiguous()
+
+
+def _check_arith(arith: str) -> None:
+    if arith not in ("u32", "l20"):
+        raise ValueError(f"arith must be u32 or l20: {arith!r}")
 
 
 def _check_wire(wire):
@@ -133,13 +147,15 @@ def _check_wire(wire):
             f"{tuple(wire.shape)} {wire.dtype}")
 
 
-def expand_compressed_points(wire):
+def expand_compressed_points(wire, arith: str = "u32"):
     """(B, 33, N) uint8 compressed wire → (B, 4, NLIMBS, N) int16 extended
-    coordinates.  Launches K1 on a CUDA tensor; runs the plain version on a
-    CPU tensor."""
+    coordinates.  Launches K1 on a CUDA tensor (`arith="l20"`: the lab's
+    20-limb `expand_compressed-l20`); runs the plain version on a CPU
+    tensor."""
     _check_wire(wire)
+    _check_arith(arith)
     if wire.device.type == "cpu":
-        return expand_compressed_points_plain(wire)
+        return expand_compressed_points_plain(wire, arith)
     if wire.device.type != "cuda":
         raise ValueError(f"unsupported device {wire.device}")
     wire = wire.contiguous()
@@ -147,6 +163,7 @@ def expand_compressed_points(wire):
     out = torch.empty((B, 4, NLIMBS, N), dtype=torch.int16,
                       device=wire.device)
     if B * N:
-        _cuda.KERNELS["expand_compressed"].launch(
+        _cuda.kernel("expand_compressed" if arith == "u32" else
+                     "expand_compressed-l20").launch(
             wire.device, wire.data_ptr(), out.data_ptr(), B, N)
     return out

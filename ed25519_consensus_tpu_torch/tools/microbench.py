@@ -8,7 +8,9 @@ With no argument: the micro-probes, a chain of dependent int32 additions,
 multiplies, multiply-adds and shifts on a (32, 128) tile (additions also on
 (8, 128)), and a chain of field multiplies on (20, 32, 128) and (20, 8,
 128), each timed at two chain lengths (CHAIN_STEPS, FMUL_STEPS); the slope
-is the cost of one step (ns per operation, µs per field multiply).
+is the cost of one step (ns per operation, µs per field multiply).  Then a
+chain of complete additions on the 8 × 32-bit arithmetic (ge8_add) in one
+warp (GE8_STEPS): µs per addition, the latency of K3's serial step.
 
 `--profile-ledger`: the stage decomposition of one production-shape call
 (B = 8, N = 12,288 by default) as differences of real forms at the same
@@ -19,10 +21,10 @@ then the 20-limb K2t (`window_sums_tables-l20`) and K2s, the select-only form
 of that design ("l20", csrc/window_sums.cuh).  It prints one
 `device_program_profile` JSON line with the JAX tool's keys, each bucket
 labelled with its arithmetic under "arithmetic": table_build_ms = K2 −
-K2t and kernel_tables_ms = K2t (u32); xla_fold_ms = full − K2 (the K3
-fold, itself in the 20-limb arithmetic); select_ms = K2s and
-fold_in_kernel_ms = K2t-l20 − K2s (l20).  The windows per block are every
-window in one block: the default kernels hold no other form.
+K2t, kernel_tables_ms = K2t and xla_fold_ms = full − K2 (the K3 fold) are
+"u32"; select_ms = K2s and fold_in_kernel_ms = K2t-l20 − K2s are "l20".
+The windows per block are every window in one block: the default kernels
+hold no other form.
 
 Without a CUDA device it prints a "skipped" line and exits 0.
 """
@@ -46,6 +48,7 @@ from .kernel_lab import device_name, log, timed_calls
 # the kernel to dominate; the lengths are arguments.
 CHAIN_STEPS = (4096, 65536)
 FMUL_STEPS = (64, 1024)
+GE8_STEPS = (64, 512)
 
 
 def probe_chain(op: str, tile=(32, 128), n_steps=CHAIN_STEPS, device=None,
@@ -85,6 +88,31 @@ def probe_fmul(tile=(32, 128), n_steps=FMUL_STEPS, device=None,
             "ms": [v * 1e3 for v in t], "us_per_fmul": per * 1e6}
 
 
+def ge8_tile(S: int, L: int) -> np.ndarray:
+    """(80, S, L) int32 point limbs in the bound of torch_field (|limb| <=
+    4095): the complete addition is algebra on any residues."""
+    return (np.arange(4 * NLIMBS * S * L, dtype=np.int32)
+            .reshape(4 * NLIMBS, S, L) * 37 % 8191 - 4095)
+
+
+def probe_ge8(tile=(1, 32), n_steps=GE8_STEPS, device=None,
+              reps: int = 5) -> dict:
+    """A chain of complete additions (ge8_add, csrc/fe25519_u32.cuh) on an
+    (80, S, L) tile at two lengths, one warp by default: µs per addition
+    from the slope, one addition's latency in a dependent chain."""
+    dev = msm.resolve_device(device)
+    S, L = tile
+    x = torch.from_numpy(ge8_tile(S, L)).to(dev)
+    t = [timed_calls(lambda n=n: probes.ge8_chain(x, n), dev, reps)
+         for n in n_steps]
+    per = (t[1] - t[0]) / (n_steps[1] - n_steps[0])
+    log(f"#   ge8_add chain tile={tuple(tile)}: {per * 1e6:.4f} us/add "
+        f"(t{n_steps[0]}={t[0] * 1e3:.4f}ms t{n_steps[1]}="
+        f"{t[1] * 1e3:.4f}ms)")
+    return {"tile": list(tile), "n_steps": list(n_steps),
+            "ms": [v * 1e3 for v in t], "us_per_add": per * 1e6}
+
+
 def run_probes(device=None, reps: int = 5) -> list:
     """The JAX tool's default probe set (its main, `:251-257`)."""
     out = [probe_chain(op, device=device, reps=reps)
@@ -92,6 +120,7 @@ def run_probes(device=None, reps: int = 5) -> list:
     out.append(probe_chain("add", tile=(8, 128), device=device, reps=reps))
     out.append(probe_fmul(device=device, reps=reps))
     out.append(probe_fmul(tile=(8, 128), device=device, reps=reps))
+    out.append(probe_ge8(device=device, reps=reps))
     return out
 
 
@@ -111,10 +140,11 @@ def profile_forms(digits, ext, tables):
 
 
 # The arithmetic of each bucket: the default kernels' 8 x 32-bit words
-# ("u32") or the 20 x 13-bit limbs of the 20-limb design and K3 ("l20").
-ARITHMETIC = {"total_ms": "u32 K2 + l20 K3", "kernel_ms": "u32",
+# ("u32", K2, K2t and K3) or the 20 x 13-bit limbs of the 20-limb design
+# ("l20").
+ARITHMETIC = {"total_ms": "u32", "kernel_ms": "u32",
               "kernel_tables_ms": "u32", "table_build_ms": "u32",
-              "xla_fold_ms": "l20", "kernel_tables_l20_ms": "l20",
+              "xla_fold_ms": "u32", "kernel_tables_l20_ms": "l20",
               "select_ms": "l20", "fold_in_kernel_ms": "l20"}
 
 

@@ -1,5 +1,6 @@
-"""What the compiler made of the default K2 and K2t (csrc/window_sums.cu) and
-of their field arithmetic (csrc/fe25519_u32.cuh), on the card's toolkit.
+"""What the compiler made of the kernels on the 8 x 32-bit arithmetic
+(csrc/fe25519_u32.cuh) — K1 (expand_compressed.cu), K2 and K2t
+(window_sums.cu), K3 (fold_partials.cu) — on the card's toolkit.
 
     python -m ed25519_consensus_tpu_torch.tools.ptxas_report
 
@@ -7,6 +8,10 @@ of their field arithmetic (csrc/fe25519_u32.cuh), on the card's toolkit.
   window_sums_tables_kernel as built (fe8_mul inlined) and with
   -DFE8_MUL_NOINLINE (fe8_mul out of line), each with the resident warps
   an SM they imply (`occupancy`): the report behind the choice of inlining.
+* The same for expand_compressed_kernel (K1) built at each minimum of
+  resident blocks in `K1_MIN_BLOCKS` (its __launch_bounds__ argument):
+  the report behind the choice of its launch bounds; and for
+  fold_partials_kernel (K3) as built.
 * `cuobjdump -sass` of csrc/probes.cu: the instructions of each
   out-of-line operation of the self-test kernel probe_fe8 (st_fe8_add,
   st_fe8_mul, ...), all of them and the integer multiply-adds among them
@@ -34,7 +39,18 @@ BLOCK_RESERVED = 1_024
 SM_WARPS = 64
 SM_BLOCKS = 32
 
-U32_KERNELS = ("window_sums_kernel", "window_sums_tables_kernel")
+# Threads and shared memory a block of the kernels on the fe8 arithmetic
+# (csrc/expand_compressed.cu K1_THREADS; csrc/fold_partials.cu: 128 staged
+# rows of 336 bytes).
+K1_THREADS = 128
+FOLD_SHARED_BYTES = msm.FOLD_THREADS * 21 * 16
+FE8_BLOCKS = {
+    "window_sums_kernel": (msm.U32_THREADS, msm.U32_SHARED_BYTES),
+    "window_sums_tables_kernel": (msm.U32_THREADS, msm.U32_SHARED_BYTES),
+    "expand_compressed_kernel": (K1_THREADS, 0),
+    "fold_partials_kernel": (msm.FOLD_THREADS, FOLD_SHARED_BYTES),
+}
+K1_MIN_BLOCKS = (1, 2, 3, 4, 5, 6, 8)
 
 
 def occupancy(registers: int, threads: int = msm.U32_THREADS,
@@ -50,6 +66,17 @@ def occupancy(registers: int, threads: int = msm.U32_THREADS,
     blocks = min(limits.values())
     return {"blocks": blocks, "warps": blocks * warps,
             "limited_by": min(limits, key=limits.get)}
+
+
+def usage_line(label: str, kernel: str, u: dict) -> str:
+    """One kernel's registers, spills and resident warps an SM."""
+    threads, smem = FE8_BLOCKS[kernel]
+    occ = occupancy(u.get("registers", 255), threads, smem)
+    return (f"{label} {kernel}: {u.get('registers')} registers x {threads} "
+            f"threads, {smem} B shared a block, spill stores "
+            f"{u.get('spill_stores')} B, loads {u.get('spill_loads')} B; "
+            f"{occ['blocks']} blocks = {occ['warps']} warps an SM (limited "
+            f"by {occ['limited_by']})")
 
 
 def ptxas_build(source: str, defines=(), out_dir: Path = None) -> dict:
@@ -98,7 +125,7 @@ _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
 # call sites (csrc/probes.cu).
 FE8_CALLS = ("st_fe8_add", "st_fe8_sub", "st_fe8_neg", "st_fe8_mul",
              "st_fe8_from_limbs20", "st_fe8_to_limbs20_canonical",
-             "st_ge8_add")
+             "st_ge8_add", "st_fe8_sq")
 
 
 def sass_counts(library: Path, kernel: str = "probe_fe8_kernel",
@@ -151,16 +178,20 @@ def main(argv=None) -> int:
         print("# ptxas report: SKIPPED — no nvcc (the CUDA toolkit builds "
               "the kernels on the card's machine)")
         return 0
-    for defines in ((), ("FE8_MUL_NOINLINE",)):
-        usage = ptxas_build("window_sums.cu", defines)
-        for k in U32_KERNELS:
-            u = usage.get(k, {})
-            occ = occupancy(u.get("registers", 255))
-            print(f"ptxas window_sums.cu {' '.join(defines) or 'inline'} "
-                  f"{k}: {u.get('registers')} registers, spill stores "
-                  f"{u.get('spill_stores')} B, loads {u.get('spill_loads')}"
-                  f" B; {occ['blocks']} blocks = {occ['warps']} warps an SM "
-                  f"(limited by {occ['limited_by']})")
+    from concurrent.futures import ThreadPoolExecutor
+
+    builds = [("window_sums.cu", d) for d in ((), ("FE8_MUL_NOINLINE",))]
+    builds += [("expand_compressed.cu", (f"K1_MIN_BLOCKS={m}",))
+               for m in K1_MIN_BLOCKS]
+    builds.append(("fold_partials.cu", ()))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        usages = list(pool.map(lambda b: ptxas_build(*b), builds))
+    for (source, defines), usage in zip(builds, usages):
+        for k in FE8_BLOCKS:
+            if k in usage:
+                print("ptxas " + usage_line(
+                    f"{source} {' '.join(defines) or 'as built'}", k,
+                    usage[k]))
     _cuda.build_all(["probes.cu"])
     counts = sass_counts(_cuda.library_path("probes.cu"))
     print(f"sass probes.cu: {counts}")

@@ -11,9 +11,10 @@ not need and a GPU host may not have).  Tolerance: exact equality; K2,
 K2t, K3 and K4 take the plain versions' additions in the same order (the
 default K2 and K2t, csrc/window_sums_u32.cuh, those of the `split=4`
 plain order with canonical limbs; the 20-limb forms their own); forms of
-the two designs agree as points.  The self-test of the default K2's and
-K2t's field arithmetic (probe_fe8) equals the exact-integer model word
-for word."""
+the two designs agree as points.  K1 and K3 on the 8 x 32-bit
+arithmetic equal their plain versions (canonical limbs) and, as points,
+their 20-limb forms.  The self-test of the fe8 field arithmetic
+(probe_fe8) equals the exact-integer model word for word."""
 
 import random
 
@@ -318,6 +319,71 @@ def test_probes_match_plain(dev):
     xs = torch.from_numpy(probes.fe8_operands(n_random=16))
     assert torch.equal(probes.fe8_selftest(xs.to(dev)).cpu(),
                        probes.fe8_selftest_plain(xs))
+    from ed25519_consensus_tpu_torch.tools import microbench
+
+    xg = torch.from_numpy(microbench.ge8_tile(2, 40))
+    assert torch.equal(probes.ge8_chain(xg.to(dev), 5).cpu(),
+                       probes.ge8_chain_plain(xg, 5))
+
+
+def _canonical_points(pts):
+    """(B, 4, 20, N) limbs → their canonical limbs (equal as points when Z
+    is 1 in both)."""
+    from ed25519_consensus_tpu_torch.ops import torch_field as TF
+
+    return TF.canonical_limbs20(pts.int().movedim(2, 0)).movedim(0, 2)
+
+
+def test_expand_compressed_new_and_l20_on_every_encoding(dev):
+    """The fe8 K1 and the 20-limb K1 (expand_compressed-l20) against their
+    plain versions on the ZIP215 matrix encodings under every hint value,
+    the non-canonical encodings, random points and a ragged lane count;
+    the two kernels equal as points (canonical limbs, Z = 1)."""
+    from ed25519_consensus_tpu_torch.utils import fixtures
+
+    encs = [p.compress() for p in edwards.eight_torsion()]
+    encs += fixtures.non_canonical_point_encodings()
+    lanes = [(e, h) for e in encs for h in range(4)]
+    w = _wire(301, 71)
+    for j, (e, h) in enumerate(lanes):
+        w[:32, j] = np.frombuffer(e, dtype=np.uint8)
+        w[32, j] = h
+    wire = torch.from_numpy(np.stack([w, _wire(301, 72)])).to(dev)
+    new = TD.expand_compressed_points(wire)
+    old = TD.expand_compressed_points(wire, arith="l20")
+    assert torch.equal(new, TD.expand_compressed_points_plain(wire))
+    assert torch.equal(old, TD.expand_compressed_points_plain(wire,
+                                                               arith="l20"))
+    assert torch.equal(_canonical_points(old), new.int())
+
+
+@pytest.mark.parametrize("nchunk", [0, 1, 2, 31, 33, 129, 159, 192])
+def test_fold_partials_new_and_l20(dev, nchunk):
+    """K3 on the fe8 arithmetic (128 threads, warp trees) and the 20-limb
+    K3 (fold_partials-l20) against their plain versions at chunk counts
+    around the warp and round boundaries, on K2's partials (canonical) and
+    on 20-limb partials; the int16 and 27-window forms too; new and old
+    equal as points.  A partials tensor whose storage is not 16-byte
+    aligned is copied before the 16-byte loads."""
+    rng = np.random.default_rng(nchunk)
+    pts = TD.expand_compressed_points(
+        torch.from_numpy(_wire(64, 73)[None]).to(dev), arith="l20")
+    pts = pts.int()[0].permute(2, 0, 1)  # (64, 4, 20) 20-limb points
+    idx = torch.from_numpy(rng.integers(0, 64, size=(2, nchunk, 33))).to(dev)
+    parts = pts[idx].contiguous()  # (2, nchunk, 33, 4, 20)
+    for p in (parts, parts.to(torch.int16), parts[:, :, :27].contiguous()):
+        assert torch.equal(msm.fold_partials(p), msm.fold_partials_plain(p))
+    new = msm.fold_partials(parts)
+    old = msm.fold_partials(parts, arith="l20")
+    assert torch.equal(old, msm.fold_partials_plain(parts, arith="l20"))
+    n, o = new.cpu().numpy(), old.cpu().numpy()
+    assert all(limbs.unpack_point(n[b, ..., w]) ==
+               limbs.unpack_point(o[b, ..., w])
+               for b in range(2) for w in range(33))
+    flat = torch.empty(parts.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(parts.shape)
+    shifted.copy_(parts)
+    assert torch.equal(msm.fold_partials(shifted), new)
 
 
 @pytest.mark.parametrize("env,name", [

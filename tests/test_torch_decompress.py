@@ -7,8 +7,10 @@ The wire holds the 14 ZIP215 matrix encodings (8 torsion points + 6
 non-canonical low-order encodings), the other 20 non-canonical encodings,
 random points with random sign bits, and identity padding; the hints come
 from the host decompression of each package.  Tolerance: exact int16
-equality (balanced-limb math on the same op sequence).  One JAX shape,
-(2, 33, 48), so the file pays one XLA compile."""
+equality — the plain K1 against torch_field.canonical_limbs20 of the JAX
+output (K1 writes canonical limbs), the 20-limb form (`arith="l20"`)
+against the JAX output itself (balanced-limb math on the same op
+sequence).  One JAX shape, (2, 33, 48), so the file pays one XLA compile."""
 
 import random
 
@@ -94,12 +96,18 @@ def test_host_decompression_and_hints_match_reference():
 
 
 def test_expand_compressed_matches_jnp_exactly(wire_and_points):
+    from ed25519_consensus_tpu_torch.ops import torch_field as TF
+
     wire, pts = wire_and_points
     got = TD.expand_compressed_points(torch.from_numpy(wire))
     want = np.asarray(jax.jit(JD.expand_compressed_points)(wire))
     assert got.dtype == torch.int16 and tuple(got.shape) == (B, 4, 20, N)
     assert want.dtype == np.int16
-    assert np.array_equal(got.numpy(), want)
+    canon = TF.canonical_limbs20(torch.from_numpy(want.copy()).to(torch.int32)
+                                 .movedim(2, 0)).movedim(0, 2)
+    assert np.array_equal(got.numpy(), canon.numpy())
+    l20 = TD.expand_compressed_points(torch.from_numpy(wire), arith="l20")
+    assert np.array_equal(l20.numpy(), want)
     # every lane is the host's decompressed point (identity on padding)
     flat = got.permute(1, 2, 0, 3).reshape(4, limbs.NLIMBS, B * N).numpy()
     for i, pt in enumerate(pts):

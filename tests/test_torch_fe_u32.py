@@ -1,4 +1,4 @@
-"""The exact-integer model of K2's and K2t's field arithmetic
+"""The exact-integer model of the fe8 field arithmetic of K1, K2, K2t and K3
 (`ed25519_consensus_tpu_torch.ops.fe_u32`, the model of
 csrc/fe25519_u32.cuh instruction for instruction) against Python ints mod
 p, on hypothesis draws and on fixed edge operands: 0, 1, p − 1, p, p + 1,
@@ -9,7 +9,9 @@ shows that no word leaves 32 bits and no carry is lost on these inputs;
 every operation's output must meet the weak bound (below 2^256).  The
 complete addition is held against the exact host addition and, residue
 by residue, against the 20-limb plain arithmetic (torch_edwards), whose
-op sequence it keeps.  Tolerance: exact."""
+op sequence it keeps.  fe8_sq is held against Python ints and against
+fe8_mul(a, a) as residues (the models of K1's and K3's bodies are held in
+tests/test_torch_fe_u32_kernels.py).  Tolerance: exact."""
 
 import random
 
@@ -48,6 +50,15 @@ def _check_field_ops(a: int, b: int) -> None:
     assert _weak(M.fe8_neg(A)) % P == (-a) % P
 
 
+def _check_square(a: int) -> None:
+    """fe8_sq against Python ints mod p, and against fe8_mul(a, a) as a
+    residue (the two may give different weak words)."""
+    A = M.to_words(a)
+    sq = _weak(M.fe8_sq(A))
+    assert sq % P == a * a % P
+    assert sq % P == M.value(M.fe8_mul(A, A)) % P
+
+
 def _check_canonical(a: int) -> None:
     got = M.fe8_to_limbs20_canonical(M.to_words(a))
     assert _limbs_value(got) == a % P
@@ -61,6 +72,26 @@ def test_edge_operands(a):
     for b in EDGES:
         _check_field_ops(a, b)
     _check_canonical(a)
+    _check_square(a)
+
+
+@settings(max_examples=300, deadline=None)
+@given(words256)
+def test_square_mod_p(a):
+    _check_square(a)
+
+
+def test_square_on_random_rows_and_word_patterns():
+    """fe8_sq on 500 random operands and on words at 0, 1 and 2^32 − 1 in
+    every position (the cross products' carries at their largest)."""
+    rng = random.Random(0x5E)
+    vals = [rng.getrandbits(256) for _ in range(500)]
+    for w in (0, 1, M.M32):
+        for k in range(8):
+            vals.append(sum((w if i >= k else M.M32) << (32 * i)
+                            for i in range(8)))
+    for a in vals:
+        _check_square(a)
 
 
 @settings(max_examples=300, deadline=None)
@@ -175,3 +206,4 @@ def test_selftest_plain_version_runs_the_model():
     assert o[24:32] == M.fe8_mul(row[0:8], row[8:16])
     canon = [v - (1 << 32) if v >> 31 else v for v in o[40:60]]
     assert canon == M.fe8_to_limbs20_canonical(row[0:8])
+    assert o[124:132] == M.fe8_sq(row[0:8])

@@ -12,8 +12,11 @@ random operands, whose four digit/point wire combinations in the port are
 each held to it, and the plain K2t on K4's tables too; two more (B = 1,
 N = 256) for the full 196-case ZIP215 matrix, the cold dispatch (K1, K2,
 K3) and the resident-tables dispatch (K1, K4, K2t, K3).  The partials of
-the default K2 and K2t are canonical limbs."""
+the default K2 and K2t are canonical limbs.  The plain K3's order (128
+accumulators, warp trees) against the JAX package's halving fold, as
+points, at chunk counts around its boundaries."""
 
+import functools
 import random
 
 import numpy as np
@@ -303,12 +306,13 @@ def test_fold_partials_plain_over_many_chunks():
             assert limbs.unpack_point(out[b, ..., w]) == want, (b, w)
 
 
-@pytest.mark.parametrize("nchunk", [0, 1, 5, 32, 33, 70])
+@pytest.mark.parametrize("nchunk", [0, 1, 5, 32, 33, 70, 129, 192])
 def test_fold_partials_takes_nchunk_minus_one_additions(nchunk,
                                                          monkeypatch):
-    """The fold (K3's order) starts each accumulator from its first
-    partial: nchunk - 1 complete additions per (b, window), none from the
-    identity, and the group sum of the partials for any chunk count."""
+    """The fold (K3's order: 128 accumulators from chunks t, t + 128, ...,
+    then warp trees) starts each accumulator from its first partial:
+    nchunk - 1 complete additions per (b, window), none from the identity,
+    and the group sum of the partials for any chunk count."""
     rng = random.Random(0xF02D + nchunk)
     pool = [edwards.basepoint_mul(rng.randrange(1, L)) for _ in range(4)]
     pool += edwards.eight_torsion()[1:2]
@@ -336,6 +340,76 @@ def test_fold_partials_takes_nchunk_minus_one_additions(nchunk,
         assert limbs.unpack_point(out[0, ..., w]) == want, w
 
 
+_JAX_FOLD_LANES = 96 * limbs.NWINDOWS  # the widest level at 192 chunks
+
+
+@functools.lru_cache(maxsize=None)
+def _jit_point_add():
+    import jax
+
+    from ed25519_consensus_tpu.ops import jnp_edwards as JE
+
+    return jax.jit(JE.point_add)
+
+
+def _jax_point_add(p, q):
+    """jnp_edwards.point_add on (4, 20, ...) arrays, flattened and padded
+    to one width, so every level of every fold below runs one compiled
+    shape (lanes are independent; the padding is cut off)."""
+    import jax.numpy as jnp
+
+    shape = p.shape
+    n = int(np.prod(shape[2:]))
+    pad = [(0, 0), (0, 0), (0, _JAX_FOLD_LANES - n)]
+    out = _jit_point_add()(jnp.pad(p.reshape(4, limbs.NLIMBS, n), pad),
+                           jnp.pad(q.reshape(4, limbs.NLIMBS, n), pad))
+    return out[..., :n].reshape(shape)
+
+
+def _jax_fold(parts):
+    """The JAX package's fold of the per-block partials over the block
+    axis, as ops/pallas_msm.py:424-437 takes it (halving point_adds of the
+    jnp arithmetic, an odd block carried), on (B, nchunk, nwin, 4, 20)
+    int32 → (B, 4, 20, nwin)."""
+    import jax.numpy as jnp
+
+    acc = jnp.transpose(jnp.asarray(parts), (3, 4, 0, 2, 1))
+    nb = acc.shape[-1]
+    while nb > 1:
+        half, odd = nb // 2, nb % 2
+        folded = _jax_point_add(acc[..., :half], acc[..., half:2 * half])
+        if odd:
+            folded = jnp.concatenate([folded, acc[..., 2 * half:]], axis=-1)
+        acc, nb = folded, half + odd
+    return np.asarray(jnp.transpose(acc[..., 0], (2, 0, 1, 3)))
+
+
+@pytest.mark.parametrize("nchunk", [0, 1, 2, 31, 32, 33, 159, 192])
+def test_fold_partials_plain_equals_the_jax_fold_as_points(nchunk):
+    """The plain K3 (128 accumulators, warp trees, canonical limbs) and the
+    JAX package's halving fold give the same window sums as points; with
+    no chunks the plain K3 gives the identity.  The partials are 20-limb
+    sums (balanced, negative limbs) of torsion points and random
+    multiples."""
+    from ed25519_consensus_tpu_torch.ops import torch_edwards as TE
+
+    rng = random.Random(0xF03D + nchunk)
+    pool = edwards.eight_torsion()[1:4] + [
+        edwards.basepoint_mul(rng.randrange(1, L)) for _ in range(5)]
+    packed = torch.from_numpy(limbs.pack_point_batch(pool).astype(np.int32))
+    idx = torch.from_numpy(np.random.default_rng(nchunk).integers(
+        0, len(pool), size=(2, nchunk * limbs.NWINDOWS)))
+    parts = TE.point_add(packed[..., idx[0]], packed[..., idx[1]]).reshape(
+        4, limbs.NLIMBS, 1, nchunk, limbs.NWINDOWS).permute(2, 3, 4, 0, 1) \
+        .contiguous()
+    got = msm.fold_partials(parts).numpy()
+    if not nchunk:
+        assert all(limbs.unpack_point(got[0, ..., w]).is_identity()
+                   for w in range(limbs.NWINDOWS))
+        return
+    _assert_windows_equal(got, _jax_fold(parts.numpy()), batches=1)
+
+
 def test_wrappers_reject_bad_operands():
     pts = torch.zeros((1, 4, limbs.NLIMBS, 64), dtype=torch.int16)
     with pytest.raises(ValueError):
@@ -356,3 +430,10 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError):
         msm.fold_partials(torch.zeros((1, 2, 27, 4, limbs.NLIMBS),
                                       dtype=torch.int16))
+    # the 20-limb K3 is built for 33 windows of int32 only
+    with pytest.raises(ValueError):
+        msm.fold_partials(torch.zeros((1, 2, 27, 4, limbs.NLIMBS),
+                                      dtype=torch.int32), arith="l20")
+    with pytest.raises(ValueError):
+        msm.fold_partials(torch.zeros((1, 2, 33, 4, limbs.NLIMBS),
+                                      dtype=torch.int32), arith="l64")
