@@ -21,8 +21,8 @@ card, drives the port's two paths, and times the kernels.
   K1).  K5 and K6 are held against their plain versions on the operands
   those paths gave them, and the routing model's constants `a` and `b`
   are measured.
-* The lab: the 20-limb K2 and K2t (`-l20`) timed in turns with the default
-  K2 and K2t (window_sums_u32.cuh) on the main path's operands; the
+* The lab: the 20-limb K1, K2, K2t, K3 and K4 (`-l20`) timed in turns with
+  the default ones (fe25519_u32.cuh) on the main path's operands; the
   self-test of their field arithmetic (probe_fe8) against the exact-
   integer model, with the SASS of each operation counted; the kernel
   lab's sweep, the two knobs, the stage profile and the probes.
@@ -369,6 +369,25 @@ def phase_kernels(report: dict) -> None:
     report["build_tables"]["max_abs_err"] = err4
     report["window_sums_tables"]["max_abs_err"] = err2t
 
+    # K4 at its limits against its plain version: one lane, an odd lane
+    # count, and points whose limbs sit at |limb| = 8191.
+    from ed25519_consensus_tpu_torch.ops import probes
+
+    extreme = torch.from_numpy(np.stack([probes.extreme_points(96, s)
+                                         for s in (1, 2)])).to(dev)
+    limits = {"N = 1": points[..., :1], "N = 333": points[..., 1000:1333],
+              "|limb| = 8191": extreme}
+    for label, p in limits.items():
+        p = p.contiguous()
+        err = int((msm.multiples_tables(p).int()
+                   - msm.build_tables_plain(p).int()).abs().max())
+        sync()
+        log(f"K4 build_tables vs plain at {label} (B={p.shape[0]}, "
+            f"N={p.shape[-1]}): max |diff| = {err}")
+        if err:
+            raise AssertionError(f"K4 disagrees with its plain version at "
+                                 f"{label}")
+
 
 def zcash10k(rng):
     """The bench.py `zcash10k` deployment: 10,000 signatures over 64 keys
@@ -581,9 +600,9 @@ def phase_vectors(report: dict) -> None:
 
 def no_lab_forms(label: str, counts: dict) -> None:
     """Fails if a verdict path launched a 20-limb (-l20) kernel — the
-    lab's window_sums-l20, window_sums_tables-l20, expand_compressed-l20
-    or fold_partials-l20: every verdict path runs the default K1, K2, K2t
-    and K3."""
+    lab's window_sums-l20, window_sums_tables-l20, expand_compressed-l20,
+    fold_partials-l20 or build_tables-l20: every verdict path runs the
+    default K1, K2, K2t, K3 and K4."""
     lab = [k for k, v in counts.items() if v and "-l20" in k]
     if lab:
         raise AssertionError(f"{label} launched the lab's {lab}")
@@ -665,6 +684,45 @@ def fold_work(B: int, nchunk: int, nwin: int, part_bytes: int = 4) -> Work:
     conv, conv_mads = conversions(B * nchunk * nwin, B * nwin)
     return adds_work(B * nchunk * nwin * 80 * part_bytes + B * nwin * 320,
                      B * nwin * max(nchunk - 1, 0), conv, conv_mads, 0)
+
+
+def k4_work(pts, window_bits: int = 4, arith: str = "u32") -> Work:
+    """Work K4 must do on points (B, 4, 20, N): read each point once and
+    write its table.  The default form builds K2's tree: 7 complete
+    additions a lane, the 4 coordinates in and the 8 entries past the
+    identity out as canonical limbs (32 conversions).  The 20-limb chain
+    (build_tables-l20, build_tables-r32): NTBL - 1 additions a lane, priced
+    with every point converted in and every entry out."""
+    from ed25519_consensus_tpu_torch.ops import msm
+
+    B, _, _, N = pts.shape
+    lanes = B * N
+    ntbl = msm._table_entries(window_bits)
+    nbytes = lanes * 160 * (1 + ntbl)
+    if msm._u32_tables(window_bits, arith):
+        return adds_work(nbytes, lanes * 7, *conversions(lanes, lanes * 8),
+                         0)
+    return adds_work(nbytes, lanes * (ntbl - 1),
+                     *conversions(lanes, lanes * ntbl), 0)
+
+
+def same_table_points(a, b) -> bool:
+    """Whether tables a and b (B, NTBL, 4, 20, N) hold the same points,
+    entry by entry and lane by lane: Z nonzero mod p in both (so an entry
+    of zeros is no point) and X1 Z2 = X2 Z1, Y1 Z2 = Y2 Z1 and T1 Z2 = T2
+    Z1 mod p, in the plain field arithmetic on a's device."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import torch_field as TF
+
+    x, y = a.int().movedim(3, 0), b.int().movedim(3, 0)  # limbs first
+    if not all(bool(TF.canonical_limbs20(t[:, :, :, 2]).any(dim=0).all())
+               for t in (x, y)):
+        return False
+    return all(torch.equal(
+        TF.canonical_limbs20(TF.mul(x[:, :, :, c], y[:, :, :, 2])),
+        TF.canonical_limbs20(TF.mul(y[:, :, :, c], x[:, :, :, 2])))
+        for c in (0, 1, 3))
 
 
 def fold_serial_adds(nchunk: int) -> int:
@@ -805,12 +863,7 @@ def phase_profile(state: dict) -> None:
         t = time.perf_counter()
         bv.verify_gpu(rng=random.Random(300))
         wall = time.perf_counter() - t
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us, ev.key, ev.count))
+    rows = device_rows(prof)
     busy = sum(us for us, _, _ in rows) / 1e6
     if not rows:
         log("profiled verify_gpu: the profiler captured no device time "
@@ -818,8 +871,44 @@ def phase_profile(state: dict) -> None:
         return
     log(f"profiled verify_gpu: wall {wall:.3f} s, device busy "
         f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.5f}")
-    for us, key, count in sorted(rows, reverse=True)[:8]:
+    for us, key, count in rows[:8]:
         log(f"  {us / 1e3:9.3f} ms  x{count}  {key[:70]}")
+
+
+def device_rows(prof) -> list:
+    """[(device microseconds, name, count)] of every kernel and copy a
+    torch.profiler run saw on the card, the longest first.  The host ops
+    that launched them (aten::copy_ carries its copy's device time again)
+    and the profiler's own buffer requests are left out."""
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0 and not ev.key.startswith("aten::") \
+                and ev.key != "Activity Buffer Request":
+            rows.append((us, ev.key, ev.count))
+    return sorted(rows, reverse=True)
+
+
+def dispatch_split(label: str, fn) -> None:
+    """One call of the dispatch `fn` under torch.profiler, after a warm-up
+    call: the device time of each kernel and copy in it, and their sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    rows = device_rows(prof)
+    if not rows:
+        log(f"  {label}: the profiler captured no device time (not "
+            f"measured)")
+        return
+    log(f"  {label}: device busy {sum(r[0] for r in rows) / 1e3:.4f} ms; "
+        + "; ".join(f"{key[:40]} {us / 1e3:.4f} ms x{count}"
+                    for us, key, count in rows))
 
 
 def device_ms(fn, reps: int = 5) -> float:
@@ -1608,16 +1697,13 @@ def hold_tables(report: dict, label: str, digits, head, head_tables,
         f"TH = B{', full-tables form' if same_points else ''}) equal their "
         f"plain versions (max |diff| 0); K2t's window sums equal the "
         f"head-resident dispatch's as points")
-    nr = B * r_pts.shape[-1]
-    k4 = adds_work(r_pts.numel() * 2 + r_tbl.numel() * 2,
-                   nr * (msm.NTABLE - 1),
-                   *conversions(nr, nr * msm.NTABLE), 0)
     cases = {
         "expand_compressed R wire": (
             lambda: TD.expand_compressed_points(rw),
             lambda: TD.expand_compressed_points_plain(rw), k1_work(rw)),
         "build_tables": (lambda: msm.multiples_tables(r_pts),
-                         lambda: msm.build_tables_plain(r_pts), k4),
+                         lambda: msm.build_tables_plain(r_pts),
+                         k4_work(r_pts)),
         "window_sums_tables": (
             lambda: msm.window_partials_tables(d, ht, r_tbl),
             lambda: msm.window_partials_tables_plain(d, ht, r_tbl),
@@ -1646,7 +1732,9 @@ def phase_tables_times(report: dict, state: dict) -> None:
     resident-tables dispatches of the main path were given — the zcash10k
     chunk (B = 8, N = 10,176, 130 head lanes; the JSON record's times) and
     a cometbft128 chunk (B = 8, 258 head + 190 R lanes, 128 of them
-    signatures) — and K4 against the host-built head tables as points."""
+    signatures) — and K4 against the host-built head tables as points;
+    then each chunk's whole dispatch once under the profiler, split by
+    kernel and copy (`dispatch_split`)."""
     import numpy as np
     import torch
 
@@ -1669,8 +1757,12 @@ def phase_tables_times(report: dict, state: dict) -> None:
         rwire = np.stack([o[1] for o in ops])
         host_tbl = staged[0].head_tables_tensor()
         hold_tables(report, label, digits, head, host_tbl, rwire, record)
+        dispatch_split(f"{label}: one resident-tables dispatch (profiler)",
+                       lambda: msm.dispatch_window_sums_many_tables(
+                           digits, host_tbl, rwire, DEV))
         if record:
             state["tables_operands"] = (digits, host_tbl, rwire)
+        state.setdefault("tables_rwire", {})[label] = rwire
         # K4 on the head points against the host-built tables: exact
         # against its plain version, equal to the host tables as points
         hp = torch.from_numpy(head[None]).to(DEV)
@@ -1816,17 +1908,12 @@ def phase_variants(report: dict, state: dict) -> None:
             if wb not in tables:
                 kt = "build_tables" + ("-r32" if wb == 5 else "")
                 pts1 = e[:1]
-                ntbl = msm._table_entries(wb)
                 tables[wb] = msm.multiples_tables(pts1, window_bits=wb)
                 hold_row(report, kt,
                          lambda p=pts1, wb=wb: msm.multiples_tables(
                              p, window_bits=wb),
                          lambda p=pts1, wb=wb: msm.build_tables_plain(p, wb),
-                         adds_work(pts1.numel() * 2 * (1 + ntbl),
-                                   STACK_N * (ntbl - 1),
-                                   *conversions(STACK_N, STACK_N * ntbl),
-                                   0),
-                         cache, ("K4", wb))
+                         k4_work(pts1, wb), cache, ("K4", wb))
             tb = tables[wb]
 
             arith = kw.get("arith", "u32")
@@ -2029,11 +2116,15 @@ def phase_old_new(report: dict, state: dict) -> None:
     this phase runs): K1 on the stacked zcash10k wire (B = 8, N = 12,288)
     and on verify_gpu's (B = 1, N = 10,176); K2 on the stacked call; K3 on
     the stacked call's partials; K2t on the zcash10k resident-tables chunk
-    (B = 8, N = 10,176, 130 head lanes).  Each pair is equal as points: K1's
-    coordinates (Z = 1 in both) as canonical limbs, limb for limb; K2's and
-    K2t's window sums folded by K3 and K3's sums, window by window.  Each
+    (B = 8, N = 10,176, 130 head lanes); K4 on the R points of that chunk
+    (B = 8, 10,046 lanes) and of the cometbft128 chunk (B = 8, 190 lanes).
+    Each pair is equal as points: K1's coordinates (Z = 1 in both) as
+    canonical limbs, limb for limb; K2's and K2t's window sums folded by K3
+    and K3's sums, window by window; K4's tables entry by entry and lane by
+    lane (`same_table_points`: the chain and the tree give other projective
+    representatives of one point), the new tables' limbs canonical.  Each
     kernel's device time under the profiler beside (`device_ms`).  Then
-    the two -l20 forms of K1 and K3 against their plain versions, timed
+    the -l20 forms of K1, K3 and K4 against their plain versions, timed
     beside their bounds.  Prints one `old_new` JSON line."""
     import torch
 
@@ -2055,6 +2146,9 @@ def phase_old_new(report: dict, state: dict) -> None:
     ht = torch.from_numpy(t_head).to(DEV)[None]
     rt = msm.multiples_tables(TD.expand_compressed_points(
         torch.from_numpy(t_rwire).to(DEV)))
+    r_pts = {label.split()[0]: TD.expand_compressed_points(
+        torch.from_numpy(w).to(DEV))
+        for label, w in state["tables_rwire"].items()}
 
     def same_sums(a, b):
         a, b = a.cpu().numpy(), b.cpu().numpy()
@@ -2065,6 +2159,11 @@ def phase_old_new(report: dict, state: dict) -> None:
     def same_points(a, b):
         canon = TF.canonical_limbs20(a.int().movedim(2, 0)).movedim(0, 2)
         return torch.equal(canon, b.int())
+
+    def same_tables(a, b):
+        flat = b.int().movedim(3, 0)
+        return same_table_points(a, b) and torch.equal(
+            TF.canonical_limbs20(flat), flat)
 
     pairs = {
         f"expand_compressed (B={w8.shape[0]}, N={w8.shape[-1]})": (
@@ -2087,9 +2186,14 @@ def phase_old_new(report: dict, state: dict) -> None:
             lambda a, b: same_sums(msm.fold_partials(a),
                                    msm.fold_partials(b))),
     }
+    for chunk, p in r_pts.items():
+        pairs[f"build_tables ({chunk} chunk, B={p.shape[0]}, "
+              f"N={p.shape[-1]})"] = (
+            lambda p=p: msm.multiples_tables(p, arith="l20"),
+            lambda p=p: msm.multiples_tables(p), same_tables)
     out = {}
-    log("old (-l20) and new K1 / K2 / K3 / K2t in turns (old, new, new, "
-        "old) x 3, each the median of 5 (CUDA events), ms:")
+    log("old (-l20) and new K1 / K2 / K3 / K2t / K4 in turns (old, new, "
+        "new, old) x 3, each the median of 5 (CUDA events), ms:")
     for name, (old, new, equal) in pairs.items():
         if not equal(old(), new()):
             raise AssertionError(f"{name}: the -l20 and the new kernel "
@@ -2119,7 +2223,12 @@ def phase_old_new(report: dict, state: dict) -> None:
              lambda: msm.fold_partials(parts, arith="l20"),
              lambda: msm.fold_partials_plain(parts, arith="l20"),
              fold_work(parts.shape[0], parts.shape[1], 33), plain_reps=1)
-    lab = ("expand_compressed-l20", "fold_partials-l20")
+    zr = r_pts["zcash10k"]
+    hold_row(report, "build_tables-l20",
+             lambda: msm.multiples_tables(zr, arith="l20"),
+             lambda: msm.build_tables_plain(zr, arith="l20"),
+             k4_work(zr, arith="l20"), plain_reps=1)
+    lab = ("expand_compressed-l20", "fold_partials-l20", "build_tables-l20")
     counts = _cuda.launch_counts()
     add_launches(report, {k: counts[k] for k in lab})
     need_launches("the old/new turns", counts, lab)
@@ -2200,8 +2309,8 @@ def sanitize_path() -> int:
     chunk), K5, K6; the cometbft128 tables chunk (B = 8, N = 448, 258 head
     lanes: chunk 4 straddles the head/R boundary) through K1, K4, K2t and
     K3; every sweep form of the kernel lab (K2, K2t, K3, K4 instantiations
-    and windows per block), K2s, the probes and the -l20 forms of K1 and
-    K3.  Returns the number of kernels that differ."""
+    and windows per block), K2s, the probes and the -l20 forms of K1, K3
+    and K4.  Returns the number of kernels that differ."""
     import numpy as np
     import torch
 
@@ -2241,6 +2350,8 @@ def sanitize_path() -> int:
           msm.fold_partials_plain(parts, arith="l20"))
     tbl = msm.multiples_tables(pts)
     check("K4 build_tables", tbl, msm.build_tables_plain(pts))
+    check("K4 build_tables-l20", msm.multiples_tables(pts, arith="l20"),
+          msm.build_tables_plain(pts, arith="l20"))
     for th in (1, B):
         head = tbl[:th, ..., :130].contiguous()
         r = tbl[..., 130:].contiguous()

@@ -1,9 +1,9 @@
 // GF(2^255 - 19) and complete Edwards25519 addition on 20 x 13-bit balanced
-// int32 limbs, as __device__ functions: the arithmetic of K4
-// (build_tables.cu), K5 (fold_shards), K6 (expand_affine.cu), the lab's
-// window-sum forms and the 20-limb K1 and K3 the lab keeps as
-// expand_compressed-l20 and fold_partials-l20.  K1, K2, K2t and K3 run
-// on fe25519_u32.cuh.
+// int32 limbs, as __device__ functions: the arithmetic of K5 (fold_shards),
+// K6 (expand_affine.cu), the lab's window-sum forms and the 20-limb K1, K3
+// and K4 the lab keeps as expand_compressed-l20, fold_partials-l20 and
+// build_tables-l20 (with build_tables-r32).  K1, K2, K2t, K3 and K4 run on
+// fe25519_u32.cuh.
 //
 // This is ops/torch_field.py and ops/torch_edwards.py op for op (which are
 // in turn the JAX package's ops/jnp_field.py and ops/jnp_edwards.py), so a

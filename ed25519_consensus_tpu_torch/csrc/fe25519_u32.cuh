@@ -1,9 +1,10 @@
 // GF(2^255 - 19) and complete Edwards25519 addition on 8 x 32-bit words
 // with PTX carry chains: the field arithmetic of K1 (expand_compressed.cu,
-// squarings by fe8_sq), K2 and K2t (window_sums_u32.cuh) and K3
-// (fold_partials.cu).  csrc/fe25519.cuh, the 20 x 13-bit balanced-limb
-// arithmetic carried over from the TPU (no 64-bit multiply, no carry flag
-// on a VPU lane), stays for K4, K5, K6 and the lab's -l20 forms.
+// squarings by fe8_sq), K2 and K2t (window_sums_u32.cuh), K3
+// (fold_partials.cu) and K4 (build_tables.cu).  csrc/fe25519.cuh, the 20 x
+// 13-bit balanced-limb arithmetic carried over from the TPU (no 64-bit
+// multiply, no carry flag on a VPU lane), stays for K5, K6 and the lab's
+// -l20 and -r32 forms.
 //
 // A Hopper thread is a scalar machine with a carry flag: a full 256 x 256
 // product is 64 32 x 32 -> 64-bit multiplies whose halves add into the

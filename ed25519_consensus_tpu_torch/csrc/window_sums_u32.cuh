@@ -44,9 +44,10 @@
 //    through a shared exchange that aliases the table once every thread
 //    has passed the barrier after its sub-sum.  The chain is 15 + 2
 //    additions a thread, not 31 + 1.
-//  * Table build (K2): two threads a lane (128 of the 160), T2 = P + P,
-//    then T3 = T2 + P | T4 = T2 + T2, a barrier, then T5 = T4 + P, T7 =
-//    T4 + T3 | T6 = T4 + T2, T8 = T4 + T4: a chain of 4 additions, not 7.
+//  * Table build (K2, and K4 in build_tables.cu: `build_table`): two
+//    threads a lane (128 of the 160), T2 = P + P, then T3 = T2 + P | T4 =
+//    T2 + T2, a barrier, then T5 = T4 + P, T7 = T4 + T3 | T6 = T4 + T2, T8
+//    = T4 + T4: a chain of 4 additions, not 7.
 //  * Table copy (K2t): 16-byte global loads.  A thread takes 4 lanes of one
 //    coordinate of one entry: for each of its 20 limb rows it loads the
 //    aligned 16 bytes holding the lanes (and the next 16 when they
@@ -270,29 +271,20 @@ __device__ __forceinline__ void window_phase(
   }
 }
 
-// K2.  digits: (B, 17, N) uint8 nibble-packed when `packed`, else (B, 33,
-// N) int8.  points: (B, 4, 20, N) int16.  partials: (B, nchunk, 33, 4, 20)
-// int32.  Grid (nchunk, B); block THREADS.
-__device__ __forceinline__ void k2_body(unsigned char* smem,
-                                        const uint8_t* __restrict__ digits,
-                                        int packed,
-                                        const int16_t* __restrict__ points,
-                                        int32_t* __restrict__ partials,
-                                        int N, int nchunk) {
-  uint4* tbl = (uint4*)smem;
-  int8_t* dig = (int8_t*)(smem + TABLE_BYTES);
-  const int chunk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int lane0 = chunk * CHUNK;
-  load_digits(digits, packed, dig, b, lane0, N);
-
-  // The table: thread (lane, h), h = 0 or 1, for the block's first 128
-  // threads.  Step 0: T2 = P + P (both); step 1: T3 = T2 + P (h = 0) or
-  // T4 = T2 + T2 (h = 1); a barrier; steps 2 and 3 add T4 to P and T3
-  // (h = 0: T5, T7) or to T2 and T4 (h = 1: T6, T8).  Only the running
-  // sum `a` lives in registers across steps; the other operand is read
-  // from the table (P and T2 at step 1 are the thread's own stores, so no
-  // barrier is needed before it).
+// Entries 1..8 of the multiples tables of lanes [lane0, lane0 + CHUNK) of
+// batch b into the u32 table, as K2 builds its chunk's and K4
+// (build_tables.cu) every R lane's: thread (lane, h), h = 0 or 1, for the
+// block's first 2 CHUNK threads.  Step 0: T2 = P + P (both); step 1: T3 =
+// T2 + P (h = 0) or T4 = T2 + T2 (h = 1); a barrier; steps 2 and 3 add T4
+// to P and T3 (h = 0: T5, T7) or to T2 and T4 (h = 1: T6, T8).  Only the
+// running sum `a` lives in registers across steps; the other operand is
+// read from the table (P and T2 at step 1 are the thread's own stores, so
+// no barrier is needed before it).  points: (B, 4, 20, N) int16; lanes
+// past N take the identity.  Every thread of the block calls it (the
+// others only pass the barrier); the caller's barrier ends it.
+__device__ __forceinline__ void build_table(uint4* tbl,
+                                            const int16_t* __restrict__ points,
+                                            int b, int lane0, int N) {
   const int tid = threadIdx.x;
   const bool table_thread = tid < 2 * CHUNK;
   const int lane = tid & (CHUNK - 1);
@@ -328,6 +320,24 @@ __device__ __forceinline__ void k2_body(unsigned char* smem,
       }
     }
   }
+}
+
+// K2.  digits: (B, 17, N) uint8 nibble-packed when `packed`, else (B, 33,
+// N) int8.  points: (B, 4, 20, N) int16.  partials: (B, nchunk, 33, 4, 20)
+// int32.  Grid (nchunk, B); block THREADS.
+__device__ __forceinline__ void k2_body(unsigned char* smem,
+                                        const uint8_t* __restrict__ digits,
+                                        int packed,
+                                        const int16_t* __restrict__ points,
+                                        int32_t* __restrict__ partials,
+                                        int N, int nchunk) {
+  uint4* tbl = (uint4*)smem;
+  int8_t* dig = (int8_t*)(smem + TABLE_BYTES);
+  const int chunk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int lane0 = chunk * CHUNK;
+  load_digits(digits, packed, dig, b, lane0, N);
+  build_table(tbl, points, b, lane0, N);
   __syncthreads();
   window_phase(tbl, dig, partials, b, chunk, nchunk);
 }

@@ -149,9 +149,10 @@ INSTANTIATIONS = {
     "window_sums-hybrid": ("window_sums_hybrid.cu", _K2),
     "fold_partials-i16fold": ("fold_partials.cu", _POINTS),
     "fold_partials-r32": ("fold_partials.cu", _POINTS),
-    # the 20-limb K1 and K3, timed beside the fe8 ones
+    # the 20-limb K1, K3 and K4, timed beside the fe8 ones
     "expand_compressed-l20": ("expand_compressed.cu", _POINTS),
     "fold_partials-l20": ("fold_partials.cu", _POINTS),
+    "build_tables-l20": ("build_tables.cu", _POINTS),
     "build_tables-r32": ("build_tables.cu", _POINTS),
     # the micro-probes (probes.cu)
     "probe_chain-add": ("probes.cu", _POINTS),

@@ -1,6 +1,6 @@
 """An exact-integer model of csrc/fe25519_u32.cuh, step for step.
 
-The kernels K1, K2, K2t and K3 compute in GF(2^255 - 19) on 8 x 32-bit
+The kernels K1, K2, K2t, K3 and K4 compute in GF(2^255 - 19) on 8 x 32-bit
 words with 64-bit products (`mul.wide.u32`) and PTX carry chains (`add.cc`,
 `addc.cc`, `sub.cc`, ...).  No compiler for them runs on the CPU, so this
 module runs the same instructions, in the same order, on Python ints: every
@@ -9,8 +9,9 @@ it, every carry or borrow flag is 0 or 1, and where the CUDA source drops a
 carry-out (the last instruction of a chain without `.cc`) the model asserts
 that it is 0.  The tests (tests/test_torch_fe_u32.py) hold the model against
 Python ints mod p, and the card's self-test kernel (csrc/probes.cu
-`probe_fe8`) against the model, word for word.  `expand_lane` and
-`fold_lane` are K1's and K3's bodies for one lane and one (batch, window).
+`probe_fe8`) against the model, word for word.  `expand_lane`,
+`tables_lane` and `fold_lane` are K1's and K4's bodies for one lane and
+K3's for one (batch, window).
 
 An element is a list of 8 words, least significant first, a value below
 2^256 (the weak form; p = 2^255 - 19 < 2^256, so a residue may have two
@@ -404,6 +405,28 @@ def expand_lane(wire33):
     x = fe8_neg(r) if hint & 2 else r
     t = fe8_mul(x, y)
     return [fe8_to_limbs20_canonical(c) for c in (x, y, t)]
+
+
+# -- K4: the multiples table of one lane -----------------------------------
+
+def tables_lane(limbs80):
+    """K4's body for one lane (csrc/build_tables.cu): the lane's 80 input
+    limbs (X, Y, Z, T, 20 each, in fe8_from_limbs20's bound) → the 9
+    entries' canonical limbs, 9 × 80: entry 0 the identity, entry 1 P (a
+    conversion, no addition), then K2's tree through ge8_add: T2 = P + P;
+    T3 = T2 + P, T4 = T2 + T2; T5 = T4 + P, T6 = T4 + T2, T7 = T4 + T3,
+    T8 = T4 + T4."""
+    if len(limbs80) != 80:
+        raise ValueError("a lane is 80 limbs")
+    p = [fe8_from_limbs20(list(limbs80[20 * k:20 * k + 20]))
+         for k in range(4)]
+    t2 = ge8_add(p, p)
+    t3 = ge8_add(t2, p)
+    t4 = ge8_add(t2, t2)
+    ents = [IDENTITY, p, t2, t3, t4] + [ge8_add(t4, q)
+                                        for q in (p, t2, t3, t4)]
+    return [[x for c in e for x in fe8_to_limbs20_canonical(c)]
+            for e in ents]
 
 
 # -- K3: the fold of one (batch, window) -----------------------------------

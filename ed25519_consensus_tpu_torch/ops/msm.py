@@ -30,7 +30,7 @@ cached`: K1 on the R wire, the resident head broadcast beside it, K2, K3)
 or the tables-resident one (`dispatch_window_sums_many_tables`):
 
   K4 `build_tables` (`multiples_tables`) — the [0..8]P tables of K1's R
-     points;
+     points, built on K2's table tree;
   K2t `window_sums_tables` (`window_partials_tables`) — K2's window phase
      on prebuilt tables: the resident head tables, shared across the
      batch, and K4's R tables; then K3.
@@ -43,15 +43,18 @@ Two more kernels serve the affine wire and the sharded mesh
   K5 `fold_shards` (`fold_shards`) — the cross-shard group fold of the
      per-shard window sums gathered onto the placement's first device.
 
-K1, K2, K2t and K3 compute in 8 × 32-bit words with carry chains
+K1, K2, K2t, K3 and K4 compute in 8 × 32-bit words with carry chains
 (csrc/fe25519_u32.cuh) and write CANONICAL limbs.  K2 and K2t
 (csrc/window_sums_u32.cuh) split each window's 64 lanes into four
 sub-sums joined as (q0 + q1) + (q2 + q3); K3 folds with 128 threads a
-(window, batch) and warp trees.  Their plain versions take the same
-additions in the 20-limb arithmetic (`split=4`, the K3 order) and end with
-torch_field.canonical_limbs20.  The earlier 20-limb K1 and K3
-are the lab's `expand_compressed-l20` and `fold_partials-l20`
+(window, batch) and warp trees; K4 builds K2's table tree, T2 = P + P,
+T3 | T4, T5 … T8 from T4, so K2t on its tables gives K2's limbs.  Their
+plain versions take the same additions in the 20-limb arithmetic
+(`split=4`, the K3 order, `_u32_table_tree`) and end with
+torch_field.canonical_limbs20.  The earlier 20-limb K1, K3 and K4 are the
+lab's `expand_compressed-l20`, `fold_partials-l20` and `build_tables-l20`
 (`arith="l20"` on their wrappers); no verdict path launches them.
+K5 and K6 stay on the 20-limb arithmetic (csrc/fe25519.cuh).
 
 The kernel lab's forms (tools/kernel_lab.py, tools/microbench.py), all in
 the 20-limb design (csrc/window_sums.cuh: 20 × 13-bit limbs, two half-chunk
@@ -102,9 +105,11 @@ FOLD_THREADS_L20 = 32
 NTABLE = 9
 # Shared memory one block may take on an H100 (dynamic, after the opt-in).
 MAX_SHARED_BYTES = 232_448
-# The default K2 and K2t's block (csrc/window_sums_u32.cuh SMEM_BYTES): the
-# u32 table of 8 entries x 64 lanes x 128 B and the 33 windows' digits.
-U32_SHARED_BYTES = 8 * CHUNK * 128 + CHUNK * NWINDOWS
+# The u32 table of 8 entries x 64 lanes x 128 B (csrc/window_sums_u32.cuh
+# TABLE_BYTES): K4's block, and with the 33 windows' digits the default K2
+# and K2t's (SMEM_BYTES).
+U32_TABLE_BYTES = 8 * CHUNK * 128
+U32_SHARED_BYTES = U32_TABLE_BYTES + CHUNK * NWINDOWS
 # Sub-sums a window in the default K2 and K2t (window_sums_u32.cuh S); the
 # -l20 forms and every other lab form sum two halves.
 U32_SPLIT = 4
@@ -432,9 +437,10 @@ def window_partials_plain(digits, points, *,
 
 def _u32_table_tree(P):
     """Entries 1..8 of the default K2's table, built as its kernel builds
-    them (two threads a lane, a chain of 4 additions): T2 = P + P; T3 =
-    T2 + P and T4 = T2 + T2; T5 = T4 + P, T6 = T4 + T2, T7 = T4 + T3 and
-    T8 = T4 + T4."""
+    them (two threads a lane, a chain of 4 additions; the default K4 runs
+    the same code, window_sums_u32.cuh build_table): T2 = P + P; T3 = T2 +
+    P and T4 = T2 + T2; T5 = T4 + P, T6 = T4 + T2, T7 = T4 + T3 and T8 =
+    T4 + T4."""
     T2 = E.point_add(P, P)
     T3 = E.point_add(T2, P)
     T4 = E.point_add(T2, T2)
@@ -702,28 +708,53 @@ def select_only(digits, head_tables, r_tables=None, *,
 
 # -- K4: multiples tables --------------------------------------------------
 
-def build_tables_plain(points, window_bits: int = limbs.WINDOW_BITS):
+def _u32_tables(window_bits: int, arith: str) -> bool:
+    """Whether K4 at these arguments is the default kernel on the 8 x
+    32-bit arithmetic (radix 16, `arith` "u32"): K2's table tree, canonical
+    limbs.  Every other form is the 20-limb chain: `arith="l20"`, and the
+    radix-32 17-entry form whatever `arith`."""
+    if arith not in ARITHS:
+        raise ValueError(f"arith must be one of {ARITHS}: {arith!r}")
+    return arith == "u32" and window_bits == limbs.WINDOW_BITS
+
+
+def build_tables_plain(points, window_bits: int = limbs.WINDOW_BITS,
+                       arith: str = "u32"):
     """Plain PyTorch version of K4: extended points (B, 4, NLIMBS, N) int16
-    → tables (B, NTBL, 4, NLIMBS, N) int16, entry 0 the identity, entry k =
-    entry (k−1) + P — the reference's table_scan (ops/msm.py:194-220),
-    step for step, with NTBL = 9 or 17 by `window_bits`."""
+    → tables (B, NTBL, 4, NLIMBS, N) int16, entry 0 the identity, NTBL = 9
+    or 17 by `window_bits`.  The default (radix 16, `arith="u32"`, the
+    kernel `build_tables`): entry 1 P, entries 2..8 K2's table tree
+    (`_u32_table_tree`) in the 20-limb arithmetic, every entry as canonical
+    limbs (torch_field.canonical_limbs20) — the kernel's limbs, and the
+    JAX package's build_multiples_tables as points, entry by entry.
+    `arith="l20"` and the radix-32 form (`build_tables-l20`,
+    `build_tables-r32`): entry k = entry (k−1) + P, the reference's
+    table_scan (ops/msm.py:194-220) step for step, equal to its
+    build_multiples_tables byte for byte."""
     pts = points.permute(1, 2, 0, 3).to(torch.int32)  # (4, NLIMBS, B, N)
     ents = [E.identity_like(pts)]
-    for _ in range(_table_entries(window_bits) - 1):
-        ents.append(E.point_add(ents[-1], pts))
-    return torch.stack(ents).to(torch.int16).permute(3, 0, 1, 2, 4) \
-        .contiguous()
+    if _u32_tables(window_bits, arith):
+        tbl = torch.stack(ents + _u32_table_tree(pts))
+        tbl = F.canonical_limbs20(tbl.movedim(2, 0)).movedim(0, 2)
+    else:
+        for _ in range(_table_entries(window_bits) - 1):
+            ents.append(E.point_add(ents[-1], pts))
+        tbl = torch.stack(ents)
+    return tbl.to(torch.int16).permute(3, 0, 1, 2, 4).contiguous()
 
 
-def multiples_tables(points, window_bits: int = limbs.WINDOW_BITS):
-    """K4 wrapper: launches build_tables (9 entries) or build_tables_r32
-    (17, csrc/build_tables.cu) on a CUDA tensor, runs `build_tables_plain`
-    on a CPU tensor."""
+def multiples_tables(points, window_bits: int = limbs.WINDOW_BITS,
+                     arith: str = "u32"):
+    """K4 wrapper: launches build_tables (9 entries, the 8 x 32-bit
+    kernel), build_tables-l20 (`arith="l20"`, 9 entries, 20 limbs) or
+    build_tables-r32 (17, 20 limbs) of csrc/build_tables.cu on a CUDA
+    tensor, runs `build_tables_plain` on a CPU tensor."""
     _check_points(points)
     n_tbl = _table_entries(window_bits)
     nwindows(window_bits)
+    u32 = _u32_tables(window_bits, arith)
     if points.device.type == "cpu":
-        return build_tables_plain(points, window_bits)
+        return build_tables_plain(points, window_bits, arith)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     points = points.contiguous()
@@ -731,9 +762,11 @@ def multiples_tables(points, window_bits: int = limbs.WINDOW_BITS):
     out = torch.empty((B, n_tbl, 4, NLIMBS, N), dtype=torch.int16,
                       device=points.device)
     if B * N:
-        _cuda.kernel("build_tables" if window_bits == limbs.WINDOW_BITS
-                     else "build_tables-r32").launch(
-            points.device, points.data_ptr(), out.data_ptr(), B, N)
+        name = "build_tables" if u32 else (
+            "build_tables-l20" if window_bits == limbs.WINDOW_BITS
+            else "build_tables-r32")
+        _cuda.kernel(name).launch(points.device, points.data_ptr(),
+                                  out.data_ptr(), B, N)
     return out
 
 
@@ -743,9 +776,11 @@ def build_multiples_tables(points, device=None,
     N) int16 (numpy or tensor) → (B, NTBL, 4, NLIMBS, N) int16 tensor on
     `device` (None means CUDA): row 0 the identity, row k the exact [k]P,
     equal byte for byte to the reference's build_multiples_tables
-    (ops/msm.py:626-635)."""
+    (ops/msm.py:626-635) — the 20-limb K4 (`arith="l20"`).  No verdict
+    path calls it: the resident-tables dispatch builds its tables with
+    `multiples_tables`'s default."""
     return multiples_tables(as_tensor(points, resolve_device(device)),
-                            window_bits)
+                            window_bits, arith="l20")
 
 
 # -- K3: fold of the chunk partials ----------------------------------------

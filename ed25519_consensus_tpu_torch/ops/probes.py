@@ -20,6 +20,8 @@ one step (tools/microbench.py).
   K1, K2, K2t and K3, once each → (n, 132) int32; the plain version runs
   ops/fe_u32.py, the exact-integer model of that header, so kernel and
   plain version agree word for word.
+* `extreme_points(n)`: point operands at the limbs' bound, |limb| = 8191,
+  for K4's limits (chip_smoke.py, tests/test_torch_fe_u32_kernels.py).
 * `ge8_chain(x, n_steps)`: x (80, S, L) int32 point limbs in the bound of
   torch_field; the (a, b) recurrence from a = b = x with f = ge8_add (the
   complete addition of fe25519_u32.cuh), out = b's canonical limbs: one
@@ -149,6 +151,30 @@ def fe8_operands(n_random: int = 64, seed: int = 0xFE8) -> np.ndarray:
         rows.append(words)
     arr = np.array(rows, dtype=np.int64)
     return (arr & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+def extreme_points(n: int, seed: int = 0xE4) -> np.ndarray:
+    """(4, NLIMBS, n) int16 extended points whose limbs reach the bound
+    |limb| = 8191 that fe8_from_limbs20 and the 20-limb arithmetic accept:
+    random basepoint multiples scaled by λ (X, Y, Z, T all times λ: the
+    same projective point) so that one coordinate, in turn, is the field
+    element whose limbs are all +8191 or all −8191, held with those limbs
+    (the limits K4 is held to on the card and in the CPU tests)."""
+    from . import edwards, limbs
+    from .scalar import L
+
+    rng = random.Random(seed)
+    out = np.zeros((4, limbs.NLIMBS, n), dtype=np.int16)
+    for j in range(n):
+        pt = edwards.basepoint_mul(rng.randrange(1, L))
+        coord, sign = j % 4, 1 if j % 8 < 4 else -1
+        ext = [sign * 8191] * limbs.NLIMBS
+        c = (pt.X, pt.Y, pt.Z, pt.T)[coord] % P
+        lam = limbs.limbs_to_int(ext) % P * pow(c, P - 2, P) % P
+        for k, v in enumerate((pt.X, pt.Y, pt.Z, pt.T)):
+            out[k, :, j] = ext if k == coord else limbs.int_to_limbs(
+                v * lam % P)
+    return out
 
 
 def _row_plain(x):

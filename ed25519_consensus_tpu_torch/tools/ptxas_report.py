@@ -1,6 +1,7 @@
 """What the compiler made of the kernels on the 8 x 32-bit arithmetic
 (csrc/fe25519_u32.cuh) — K1 (expand_compressed.cu), K2 and K2t
-(window_sums.cu), K3 (fold_partials.cu) — on the card's toolkit.
+(window_sums.cu), K3 (fold_partials.cu), K4 (build_tables.cu) — on the
+card's toolkit.
 
     python -m ed25519_consensus_tpu_torch.tools.ptxas_report
 
@@ -10,7 +11,10 @@
   an SM they imply (`occupancy`): the report behind the choice of inlining.
 * The same for expand_compressed_kernel (K1) built at each minimum of
   resident blocks in `K1_MIN_BLOCKS` (its __launch_bounds__ argument):
-  the report behind the choice of its launch bounds; and for
+  the report behind the choice of its launch bounds; the same for
+  build_tables_kernel (K4) at each `K4_MIN_BLOCKS`, with its time in each
+  build on the card (`k4_times`, at the zcash10k and cometbft128 chunks'
+  R lanes): the report behind its launch bounds; and for
   fold_partials_kernel (K3) as built.
 * `cuobjdump -sass` of csrc/probes.cu: the instructions of each
   out-of-line operation of the self-test kernel probe_fe8 (st_fe8_add,
@@ -41,16 +45,21 @@ SM_BLOCKS = 32
 
 # Threads and shared memory a block of the kernels on the fe8 arithmetic
 # (csrc/expand_compressed.cu K1_THREADS; csrc/fold_partials.cu: 128 staged
-# rows of 336 bytes).
+# rows of 336 bytes; csrc/build_tables.cu: K2's table threads, two a lane,
+# and its u32 table).
 K1_THREADS = 128
 FOLD_SHARED_BYTES = msm.FOLD_THREADS * 21 * 16
+K4_THREADS = 2 * msm.CHUNK
 FE8_BLOCKS = {
     "window_sums_kernel": (msm.U32_THREADS, msm.U32_SHARED_BYTES),
     "window_sums_tables_kernel": (msm.U32_THREADS, msm.U32_SHARED_BYTES),
     "expand_compressed_kernel": (K1_THREADS, 0),
     "fold_partials_kernel": (msm.FOLD_THREADS, FOLD_SHARED_BYTES),
+    "build_tables_kernel": (K4_THREADS, msm.U32_TABLE_BYTES),
 }
 K1_MIN_BLOCKS = (1, 2, 3, 4, 5, 6, 8)
+# K4's table holds 3 blocks an SM whatever the registers.
+K4_MIN_BLOCKS = (1, 2, 3)
 
 
 def occupancy(registers: int, threads: int = msm.U32_THREADS,
@@ -79,14 +88,18 @@ def usage_line(label: str, kernel: str, u: dict) -> str:
             f"by {occ['limited_by']})")
 
 
-def ptxas_build(source: str, defines=(), out_dir: Path = None) -> dict:
-    """Compiles csrc/`source` with the kernel cache's flags and the `-D`
-    `defines`; returns {kernel: {"registers", "spill_stores",
-    "spill_loads"}} from ptxas's report."""
-    out_dir = out_dir or _cuda.BUILD_DIR / "ptxas"
-    out_dir.mkdir(parents=True, exist_ok=True)
+def variant_path(source: str, defines=()) -> Path:
+    """Where `ptxas_build` puts csrc/`source` built with `defines`."""
     tag = "-".join(d.lower() for d in defines) or "default"
-    out = out_dir / f"{Path(source).stem}-{tag}.so"
+    return _cuda.BUILD_DIR / "ptxas" / f"{Path(source).stem}-{tag}.so"
+
+
+def ptxas_build(source: str, defines=()) -> dict:
+    """Compiles csrc/`source` with the kernel cache's flags and the `-D`
+    `defines` to `variant_path`; returns {kernel: {"registers",
+    "spill_stores", "spill_loads"}} from ptxas's report."""
+    out = variant_path(source, defines)
+    out.parent.mkdir(parents=True, exist_ok=True)
     p = subprocess.run(
         [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, *[f"-D{d}" for d in defines],
          "-o", str(out), str(_cuda.CSRC / source)],
@@ -171,6 +184,62 @@ def sass_counts(library: Path, kernel: str = "probe_fe8_kernel",
     return counts
 
 
+def k4_times(B: int = 8, N: int = 10_046, launches: int = 20,
+             reps: int = 5) -> dict:
+    """{K4_MIN_BLOCKS: ms a launch} of build_tables_kernel in each build
+    of `K4_MIN_BLOCKS` (`ptxas_build`), on one card: the same random points
+    (limbs in [-4096, 4095]; the kernel's work does not depend on the
+    data), B x N lanes (by default the zcash10k chunk's R lanes; main also
+    times the cometbft128 chunk's, B = 8, N = 190); CUDA events around
+    `launches` launches, the median of `reps`, after a warm-up.  Every
+    build's tables equal the first's."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    pts = torch.randint(-4096, 4096, (B, 4, 20, N), dtype=torch.int16,
+                        generator=gen).to(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out, first = {}, None
+    for m in K4_MIN_BLOCKS:
+        fn = ctypes.CDLL(str(variant_path(
+            "build_tables.cu", (f"K4_MIN_BLOCKS={m}",)))).build_tables_launch
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        tbl = torch.empty((B, msm.NTABLE, 4, 20, N), dtype=torch.int16,
+                          device=dev)
+
+        def run():
+            err = fn(pts.data_ptr(), tbl.data_ptr(), B, N, stream)
+            if err:
+                raise _cuda.CudaError(f"build_tables K4_MIN_BLOCKS={m}",
+                                      err)
+
+        run()
+        torch.cuda.synchronize()
+        if first is None:
+            first = tbl.clone()
+        elif not torch.equal(tbl, first):
+            raise AssertionError(f"build_tables K4_MIN_BLOCKS={m} "
+                                 f"differs from {K4_MIN_BLOCKS[0]}")
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(launches):
+                run()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / launches)
+        out[m] = statistics.median(times)
+    return out
+
+
 def main(argv=None) -> int:
     try:
         _cuda.nvcc_path()
@@ -183,6 +252,8 @@ def main(argv=None) -> int:
     builds = [("window_sums.cu", d) for d in ((), ("FE8_MUL_NOINLINE",))]
     builds += [("expand_compressed.cu", (f"K1_MIN_BLOCKS={m}",))
                for m in K1_MIN_BLOCKS]
+    builds += [("build_tables.cu", (f"K4_MIN_BLOCKS={m}",))
+               for m in K4_MIN_BLOCKS]
     builds.append(("fold_partials.cu", ()))
     with ThreadPoolExecutor(len(builds)) as pool:
         usages = list(pool.map(lambda b: ptxas_build(*b), builds))
@@ -192,6 +263,14 @@ def main(argv=None) -> int:
                 print("ptxas " + usage_line(
                     f"{source} {' '.join(defines) or 'as built'}", k,
                     usage[k]))
+    import torch
+
+    if torch.cuda.is_available():
+        for N in (10_046, 190):
+            for m, ms in k4_times(N=N).items():
+                print(f"time build_tables_kernel K4_MIN_BLOCKS={m}: "
+                      f"{ms:.4f} ms a launch (B = 8, N = {N}; "
+                      f"{torch.cuda.get_device_name(0)})")
     _cuda.build_all(["probes.cu"])
     counts = sass_counts(_cuda.library_path("probes.cu"))
     print(f"sass probes.cu: {counts}")

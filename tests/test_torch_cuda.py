@@ -13,7 +13,7 @@ default K2 and K2t, csrc/window_sums_u32.cuh, those of the `split=4`
 plain order with canonical limbs; the 20-limb forms their own); forms of
 the two designs agree as points.  K1 and K3 on the 8 x 32-bit
 arithmetic equal their plain versions (canonical limbs) and, as points,
-their 20-limb forms.  The self-test of the fe8 field arithmetic
+their 20-limb forms; so does K4 (build_tables and build_tables-l20).  The self-test of the fe8 field arithmetic
 (probe_fe8) equals the exact-integer model word for word."""
 
 import random
@@ -384,6 +384,53 @@ def test_fold_partials_new_and_l20(dev, nchunk):
     shifted = flat[1:].view(parts.shape)
     shifted.copy_(parts)
     assert torch.equal(msm.fold_partials(shifted), new)
+
+
+@pytest.mark.parametrize("N", [1, 31, 33, 63, 65, 333])
+def test_build_tables_new_and_l20_at_the_limits(dev, N):
+    """The fe8 K4 (build_tables) and the 20-limb K4 (build_tables-l20)
+    against their plain versions at one lane and odd lane counts around a
+    block of 64 lanes, on K1's output and on points whose limbs sit at
+    |limb| = 8191; the new tables are canonical and equal the old ones as
+    points, entry by entry; each launch counted under its own name."""
+    from ed25519_consensus_tpu_torch.ops import probes
+
+    pts = [TD.expand_compressed_points(torch.from_numpy(
+        np.stack([_wire(N, 80), _wire(N, 81)])).to(dev)),
+        torch.from_numpy(np.stack([probes.extreme_points(N, s)
+                                   for s in (3, 4)])).to(dev)]
+    for p in pts:
+        before = _cuda.launch_counts()
+        new = msm.multiples_tables(p)
+        old = msm.multiples_tables(p, arith="l20")
+        torch.cuda.synchronize()
+        after = _cuda.launch_counts()
+        assert after["build_tables"] == before["build_tables"] + 1
+        assert after["build_tables-l20"] == before["build_tables-l20"] + 1
+        assert torch.equal(new, msm.build_tables_plain(p))
+        assert torch.equal(old, msm.build_tables_plain(p, arith="l20"))
+        n, o = new.cpu().numpy(), old.cpu().numpy()
+        assert all(limbs.unpack_point(n[b, k, ..., j]) ==
+                   limbs.unpack_point(o[b, k, ..., j])
+                   for b in range(2) for k in range(msm.NTABLE)
+                   for j in range(N))
+
+
+def test_tables_dispatch_launches_the_fe8_k4(dev):
+    """The resident-tables dispatch builds the R lanes' tables with the fe8
+    K4, never the 20-limb one."""
+    B, N, n_head = 2, 200, 70
+    pts = TD.expand_compressed_points(
+        torch.from_numpy(np.stack([_wire(N, 82), _wire(N, 83)])).to(dev))
+    head = msm.multiples_tables(pts[:1, ..., :n_head].contiguous())[0]
+    rwire = torch.from_numpy(np.stack([_wire(N - n_head, 84),
+                                       _wire(N - n_head, 85)])).to(dev)
+    d = torch.from_numpy(_digits(4, B, N, 86)).to(dev)
+    _cuda.reset_launch_counts()
+    msm.dispatch_window_sums_many_tables(d, head, rwire, dev)
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    assert counts["build_tables"] == 1 and counts["build_tables-l20"] == 0
 
 
 @pytest.mark.parametrize("env,name", [

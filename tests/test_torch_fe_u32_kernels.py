@@ -1,13 +1,15 @@
-"""The models of K1's and K3's bodies on the 8 × 32-bit arithmetic
-(ops/fe_u32.py `expand_lane`, `fold_lane`: csrc/expand_compressed.cu and
-csrc/fold_partials.cu, instruction for instruction through the field
-model) against the plain K1 and K3 (torch_decompress.
-expand_compressed_points_plain, msm.fold_partials_plain), limb for limb:
-K1 on the ZIP215 matrix encodings under every hint, every non-canonical
-encoding and random points; K3's order at chunk counts around its warp
-and round boundaries (0, 1, 2, 31, 32, 33, 159, 192; 128 threads a
-block).  The card holds each kernel against the same plain versions
-(chip_smoke.py, tests/test_torch_cuda.py).  Tolerance: exact."""
+"""The models of K1's, K3's and K4's bodies on the 8 × 32-bit arithmetic
+(ops/fe_u32.py `expand_lane`, `fold_lane`, `tables_lane`:
+csrc/expand_compressed.cu, csrc/fold_partials.cu and csrc/build_tables.cu,
+instruction for instruction through the field model) against the plain
+K1, K3 and K4 (torch_decompress.expand_compressed_points_plain,
+msm.fold_partials_plain, msm.build_tables_plain), limb for limb: K1 on the
+ZIP215 matrix encodings under every hint, every non-canonical encoding and
+random points; K3's order at chunk counts around its warp and round
+boundaries (0, 1, 2, 31, 32, 33, 159, 192; 128 threads a block); K4 on
+K1's output for those lanes and on points whose limbs sit at |limb| = 8191.
+The card holds each kernel against the same plain versions (chip_smoke.py,
+tests/test_torch_cuda.py).  Tolerance: exact."""
 
 import random
 
@@ -15,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from ed25519_consensus_tpu_torch.ops import edwards, limbs, msm
+from ed25519_consensus_tpu_torch.ops import edwards, limbs, msm, probes
 from ed25519_consensus_tpu_torch.ops import fe_u32 as M
 from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
 from ed25519_consensus_tpu_torch.ops import torch_edwards as TE
@@ -107,3 +109,38 @@ def test_fold_lane_equals_the_plain_k3(nchunk):
     for w in (0, 32):
         rows = [parts[0, c, w].reshape(-1).tolist() for c in range(nchunk)]
         assert M.fold_lane(rows) == plain[0, ..., w].reshape(-1).tolist(), w
+
+
+def _k4_points(case: str):
+    """(1, 4, 20, n) int16 inputs of K4: K1's plain output on the 14 ZIP215
+    matrix encodings (8 torsion points, 6 non-canonical low-order ones)
+    under every hint, on the other 20 non-canonical encodings, on 32 random
+    points (the R lanes of the tables dispatch); or the |limb| = 8191
+    representatives."""
+    if case == "extreme":
+        return torch.from_numpy(probes.extreme_points(16))[None]
+    lanes, _ = _k1_lanes()
+    part = {"matrix": lanes[:56], "non_canonical": lanes[56:76],
+            "random": lanes[76:]}[case]
+    wire = torch.tensor(part, dtype=torch.uint8).T.contiguous()[None]
+    return TD.expand_compressed_points_plain(wire)
+
+
+@pytest.mark.parametrize("case", ["matrix", "non_canonical", "random",
+                                  "extreme"])
+def test_tables_lane_equals_the_plain_k4(case):
+    """The model of K4's body (fe_u32.tables_lane: entry 1 P converted,
+    K2's tree T2 = P + P, T3 | T4, T5 … T8 by ge8_add, canonical limbs out)
+    equals the plain K4 (build_tables_plain, arith "u32") limb for limb,
+    entry by entry, on every lane."""
+    pts = _k4_points(case)
+    assert case != "extreme" or int(pts.abs().max()) == 8191
+    plain = msm.build_tables_plain(pts)[0]  # (9, 4, 20, n)
+    for j in range(pts.shape[-1]):
+        got = M.tables_lane(pts[0, ..., j].reshape(-1).tolist())
+        assert got == plain[..., j].reshape(msm.NTABLE, -1).tolist(), j
+
+
+def test_tables_lane_refuses_a_short_lane():
+    with pytest.raises(ValueError):
+        M.tables_lane([0] * 79)

@@ -258,6 +258,27 @@ ptxas info    : Used 96 registers, used 0 barriers, 376 bytes cmem[0]
                               "spill_loads": 0}}
 
 
+def test_k4_runs_k2s_table_phase():
+    """K4 (build_tables.cu) builds its tables with K2's own table phase
+    (window_sums_u32.cuh build_table), not a second copy of the tree: one
+    block is K2's chunk of 64 lanes and its 128 table threads over the u32
+    table, so the report prices 128 threads and 65,536 B a block, which
+    holds 3 blocks (12 warps) an SM at K2's 128 registers, and the launch
+    bounds swept stop there."""
+    src = (_cuda.CSRC / "build_tables.cu").read_text(encoding="utf-8")
+    k4 = src[:src.index("// -- the 20-limb kernels")]
+    assert '#include "window_sums_u32.cuh"' in k4
+    assert "ws8::build_table(" in k4 and "ge8_add" not in k4.split(
+        "#include", 1)[1]
+    header = (_cuda.CSRC / "window_sums_u32.cuh").read_text(encoding="utf-8")
+    assert "build_table(tbl, points, b, lane0, N);" in header
+    assert ptxas_report.FE8_BLOCKS["build_tables_kernel"] == (
+        2 * msm.CHUNK, msm.U32_TABLE_BYTES) == (128, 65_536)
+    occ = ptxas_report.occupancy(128, 128, msm.U32_TABLE_BYTES)
+    assert occ == {"blocks": 3, "warps": 12, "limited_by": "shared memory"}
+    assert max(ptxas_report.K4_MIN_BLOCKS) == occ["blocks"]
+
+
 def test_occupancy_and_sass_parsing(monkeypatch, tmp_path):
     """The resident warps a register count implies for the default K2 /
     K2t block (160 threads, 67,648 B), and the SASS parser: the n-th CALL

@@ -489,7 +489,7 @@ def test_l20_plain_forms_equal_their_earlier_outputs():
     partials byte for byte, and the default K2 and K2t give the same
     window sums as group elements."""
     d, e = _l20_operands()
-    tb = msm.build_tables_plain(e)
+    tb = msm.build_tables_plain(e, arith="l20")
     head, r = tb[:1, ..., :130].contiguous(), tb[..., 130:].contiguous()
     k2 = msm.window_partials(d, e, arith="l20")
     k2t = msm.window_partials_tables(d, head, r, arith="l20")
