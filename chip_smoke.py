@@ -601,8 +601,9 @@ def phase_vectors(report: dict) -> None:
 def no_lab_forms(label: str, counts: dict) -> None:
     """Fails if a verdict path launched a 20-limb (-l20) kernel — the
     lab's window_sums-l20, window_sums_tables-l20, expand_compressed-l20,
-    fold_partials-l20 or build_tables-l20: every verdict path runs the
-    default K1, K2, K2t, K3 and K4."""
+    fold_partials-l20, build_tables-l20, fold_shards-l20 or
+    expand_affine-l20: every verdict path runs the default K1 to K6 and
+    K2t."""
     lab = [k for k, v in counts.items() if v and "-l20" in k]
     if lab:
         raise AssertionError(f"{label} launched the lab's {lab}")
@@ -725,6 +726,17 @@ def same_table_points(a, b) -> bool:
         for c in (0, 1, 3))
 
 
+def tree_levels(live: int) -> int:
+    """The levels of a warp's halving tree (csrc/fold_partials.cu
+    warp_fold) over `live` values at which lane 0 adds: ceil(log2 live)."""
+    n, s = 0, 16
+    while s:
+        n += s < live
+        live = min(live, s)
+        s //= 2
+    return n
+
+
 def fold_serial_adds(nchunk: int) -> int:
     """The complete additions on K3's longest dependent path (thread 0's,
     csrc/fold_partials.cu): its own partials after the first, then every
@@ -733,17 +745,41 @@ def fold_serial_adds(nchunk: int) -> int:
     from ed25519_consensus_tpu_torch.ops.msm import FOLD_THREADS as threads
 
     held = min(nchunk, threads)
+    return (max(-(-nchunk // threads) - 1, 0) + tree_levels(min(held, 32))
+            + tree_levels(-(-held // 32)))
 
-    def levels(live):
-        n, s = 0, 16
-        while s:
-            n += s < live
-            live = min(live, s)
-            s //= 2
-        return n
 
-    return (max(-(-nchunk // threads) - 1, 0) + levels(min(held, 32))
-            + levels(-(-held // 32)))
+def k5_serial_adds(D: int) -> int:
+    """The complete additions on K5's longest dependent path (lane 0 of a
+    warp, csrc/fold_partials.cu fold_shards_kernel): the levels of one
+    halving tree over the D shards, ceil(log2 D); the 20-limb body
+    (fold_shards-l20) takes D - 1 in a row."""
+    return tree_levels(D)
+
+
+def k5_work(D: int, B: int) -> Work:
+    """Work of K5 on D shards of B window sums: read each shard's sums once
+    and write the fold; D - 1 additions a (b, w), each shard's point
+    converted in and the fold out."""
+    return adds_work(D * B * 33 * 320 + B * 33 * 320, B * 33 * max(D - 1, 0),
+                     *conversions(D * B * 33, B * 33), 0)
+
+
+def k6_work(a, arith: str = "u32") -> Work:
+    """Work of K6 on the affine wire a (B, 2, 20, N): 80 bytes read and
+    160 written a lane, one field product priced as fe8_mul; the default
+    form also converts X and Y in and X, Y and T out as canonical limbs,
+    which the 20-limb form (expand_affine-l20) does not."""
+    B, _, _, N = a.shape
+    lanes = B * N
+    if arith == "l20":
+        return Work(lanes * 240, lanes * OPS8_FE_MUL, lanes * MADS8_FE_MUL,
+                    lanes * OPS_FE_MUL)
+    return Work(lanes * 240,
+                lanes * (OPS8_FE_MUL + 2 * OPS8_FROM_LIMBS20
+                         + 3 * OPS8_TO_CANONICAL),
+                lanes * (MADS8_FE_MUL + 3 * MADS8_TO_CANONICAL),
+                lanes * OPS_FE_MUL)
 
 
 def kernel_work(d, w, parts):
@@ -834,6 +870,7 @@ def phase_times(report: dict, state: dict) -> None:
     from ed25519_consensus_tpu_torch.tools import microbench
 
     ge8_us = microbench.probe_ge8(device=torch.device(DEV))["us_per_add"]
+    state["ge8_us"] = ge8_us
     log("kernels vs plain versions at the main path's shapes (exact), "
         "then times (median of 5, CUDA events), ms:")
     # The operands of the second zcash10k verify_gpu and of the
@@ -1017,10 +1054,14 @@ class record_calls:
 
 
 def first_per_shape(calls) -> list:
-    """The first input tensor of each shape among recorded calls."""
+    """The first input of each shape among recorded calls: a tensor, or a
+    list of tensors (K5's shard sums), told apart by its length and its
+    first tensor's shape."""
     first = {}
     for (x, *_), _out in calls:
-        first.setdefault(tuple(x.shape), x)
+        key = tuple(x.shape) if hasattr(x, "shape") else \
+            (len(x),) + tuple(x[0].shape)
+        first.setdefault(key, x)
     return list(first.values())
 
 
@@ -1501,42 +1542,64 @@ def phase_affine(report: dict, state: dict) -> None:
 
 
 def phase_mesh_kernels(report: dict, state: dict) -> None:
-    """K5 and K6 against their plain versions on the first operands the
-    mesh and affine paths gave them (exact), then timed beside their
-    bounds; and K1, K2, K3 held on one pod100k mesh shard's operands."""
+    """K5 and K6 against their plain versions on the operands the mesh and
+    affine paths gave them, at every shape (exact; K5 in both call forms,
+    the shard list as the path passes it and the stacked tensor, which must
+    agree), then timed at the largest beside their bounds, with their
+    device time under the profiler and K5's latency floor (its serial
+    additions, `k5_serial_adds`, times one addition's latency in a chain,
+    probe_ge8); K5's device time and floor also at every other shape.
+    Then one pod100k D = 4 cold mesh dispatch under the profiler with the
+    stacked fold (the shard sums stacked, then the 20-limb K5 on the
+    stack) and with K5 on the shard list, each split by kernel and copy,
+    and timed in turns (`mesh_fold_split`); and K1, K2, K3 held on one
+    pod100k mesh shard's operands."""
+    import numpy as np
+    import torch
+
     from ed25519_consensus_tpu_torch.ops import msm
     from ed25519_consensus_tpu_torch.parallel import sharded_msm
 
+    ge8_us = state["ge8_us"]
     log("K5 / K6 vs plain versions on the path's operands (exact, every "
         "shape), then times at the largest (median of 5, CUDA events), ms:")
-    for name, xs, kern, plain in (
-            ("fold_shards", state["fold_shards_inputs"], msm.fold_shards,
-             msm.fold_shards_plain),
-            ("expand_affine", state["expand_affine_inputs"],
-             msm.expand_affine_points, msm.expand_affine_points_plain)):
-        for x in xs:
-            err = int((kern(x).int() - plain(x).int()).abs().max())
+    for parts in state["fold_shards_inputs"]:
+        stacked = torch.stack(parts)
+        want = msm.fold_shards_plain(parts)
+        for form, x in (("list", parts), ("stacked", stacked)):
+            err = int((msm.fold_shards(x) - want).abs().max())
             if err:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version at {tuple(x.shape)}: {err}")
-        log(f"  {name}: equal to its plain version at "
-            f"{[tuple(x.shape) for x in xs]}")
-    g = max(state["fold_shards_inputs"], key=lambda x: x.numel())
+                raise AssertionError(f"fold_shards ({form}) disagrees with "
+                                     f"its plain version at D={len(parts)} "
+                                     f"B={parts[0].shape[0]}: {err}")
+        D, B = len(parts), parts[0].shape[0]
+        n_serial = k5_serial_adds(D)
+        dms = device_ms(lambda: msm.fold_shards(parts))
+        log(f"  fold_shards D={D} B={B}: list and stacked forms equal the "
+            f"plain version; device {dms:.5f} ms (profiler, mean of 5), "
+            f"latency floor "
+            f"{n_serial * ge8_us / 1e3:.5f} ms ({n_serial} serial additions "
+            f"x {ge8_us:.4f} us, conversions not counted)")
+    for x in state["expand_affine_inputs"]:
+        err = int((msm.expand_affine_points(x).int()
+                   - msm.expand_affine_points_plain(x).int()).abs().max())
+        if err:
+            raise AssertionError(f"expand_affine disagrees with its plain "
+                                 f"version at {tuple(x.shape)}: {err}")
+    log(f"  expand_affine: equal to its plain version at "
+        f"{[tuple(x.shape) for x in state['expand_affine_inputs']]}")
+    g = max(state["fold_shards_inputs"],
+            key=lambda x: len(x) * x[0].numel())
     a = max(state["expand_affine_inputs"], key=lambda x: x.numel())
-    D, B = g.shape[:2]
+    D, B = len(g), g[0].shape[0]
     Ba, _, _, Na = a.shape
     cases = {
         "fold_shards": (lambda: msm.fold_shards(g),
-                        lambda: msm.fold_shards_plain(g),
-                        adds_work(D * B * 33 * 320 + B * 33 * 320,
-                                  B * 33 * max(D - 1, 0),
-                                  *conversions(D * B * 33, B * 33), 0),
+                        lambda: msm.fold_shards_plain(g), k5_work(D, B),
                         f"D={D} B={B}"),
         "expand_affine": (lambda: msm.expand_affine_points(a),
                           lambda: msm.expand_affine_points_plain(a),
-                          Work(Ba * Na * (80 + 160), Ba * Na * OPS8_FE_MUL,
-                               Ba * Na * MADS8_FE_MUL, Ba * Na * OPS_FE_MUL),
-                          f"B={Ba} N={Na}"),
+                          k6_work(a), f"B={Ba} N={Na}"),
     }
     for name, (kern, plain, work, shape) in cases.items():
         got, want = kern(), plain()
@@ -1547,9 +1610,19 @@ def phase_mesh_kernels(report: dict, state: dict) -> None:
                                  f"({shape}): {err}")
         ms = cuda_ms(kern)
         pms = cuda_ms(plain)
+        dms = device_ms(kern)
         bms, by = bound_ms(work)
-        log(f"  {shape} {name:14s} kernel {ms:10.4f}  plain {pms:10.3f}  "
-            f"bound {bms:8.5f} ({by}; {bound_note(work)}); max |diff| 0")
+        log(f"  {shape} {name:14s} kernel {ms:10.4f}  device {dms:10.5f}  "
+            f"plain {pms:10.3f}  bound {bms:8.5f} ({by}; "
+            f"{bound_note(work)}); device share of the bound "
+            f"{bms / dms:.3f}; max |diff| 0")
+        row = {"kernel": name, "shape": shape, "ms": ms, "device_ms": dms,
+               "plain_ms": pms, "bound_ms": bms, "bound_by": by}
+        if name == "fold_shards":
+            n_serial = k5_serial_adds(D)
+            row.update(serial_additions=n_serial, us_per_addition=ge8_us,
+                       floor_ms=n_serial * ge8_us / 1e3)
+        print(json.dumps({"mesh_kernel": row}), flush=True)
         report[name].update(max_abs_err=err, ms=ms, plain_ms=pms,
                             bound_ms=bms, bound_by=by)
     # One pod100k shard's operands as the D = 4 mesh gives them.
@@ -1558,11 +1631,73 @@ def phase_mesh_kernels(report: dict, state: dict) -> None:
     pad = max(sharded_msm.shard_pad(s.n_device_terms, 4) for s in staged)
     ops = [s.device_operands(lambda n: pad) for s in staged]
     per = pad // 4
-    import numpy as np
+    digits = np.stack([o[0] for o in ops])
+    wire = np.stack([o[1] for o in ops])
+    mesh_fold_split(digits, wire)
+    hold_and_time(report, "pod100k D=4 shard 0",
+                  np.ascontiguousarray(digits[..., :per]),
+                  np.ascontiguousarray(wire[..., :per]), False)
 
-    digits = np.ascontiguousarray(np.stack([o[0] for o in ops])[..., :per])
-    wire = np.ascontiguousarray(np.stack([o[1] for o in ops])[..., :per])
-    hold_and_time(report, "pod100k D=4 shard 0", digits, wire, False)
+
+def mesh_fold_split(digits, wire) -> None:
+    """One cold D = 4 mesh dispatch (sharded_window_sums_many) of the
+    pod100k operands under the profiler, with the stacked fold — the shard
+    sums stacked to (D, B, 4, 20, 33) and folded by the 20-limb K5, as the
+    mesh folded before K5 read the shards in place — and with K5 on the
+    shard list, each split by kernel and copy (`dispatch_split`); then both
+    timed in turns (stacked, list, list, stacked, x3, each the median of 5
+    CUDA-event runs).  The two folds must give the same window sums as
+    points."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import msm
+    from ed25519_consensus_tpu_torch.parallel import sharded_msm
+
+    devices, label = mesh_placement(4)
+    d = torch.from_numpy(digits).to(devices[0])
+    w = torch.from_numpy(wire).to(devices[0])
+    list_fold = sharded_msm._gather_fold
+
+    def stacked_fold(parts, placement, chips, audit):
+        lead = placement[0]
+        return msm.fold_shards(torch.stack([p.to(lead) for p in parts]),
+                               arith="l20")
+
+    def run(fold):
+        sharded_msm._gather_fold = fold
+        try:
+            return sharded_msm.sharded_window_sums_many(d, w, 4,
+                                                        devices=devices)
+        finally:
+            sharded_msm._gather_fold = list_fold
+
+    forms = {"stacked": lambda: run(stacked_fold),
+             "list": lambda: run(list_fold)}
+    if not same_window_sums(forms["stacked"](), forms["list"]()):
+        raise AssertionError("the stacked and the list mesh folds differ "
+                             "as points")
+    log(f"one cold D = 4 mesh dispatch, pod100k B={d.shape[0]} "
+        f"N={d.shape[-1]}, placement {label}:")
+    for name, fn in forms.items():
+        dispatch_split(f"{name} fold", fn)
+    times = {"stacked": [], "list": []}
+    for _ in range(3):
+        for name in ("stacked", "list", "list", "stacked"):
+            times[name].append(cuda_ms(forms[name]))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"  in turns (CUDA events): stacked {med['stacked']:.4f} ms "
+        f"{times['stacked']}, list {med['list']:.4f} ms {times['list']}")
+    print(json.dumps({"mesh_fold_turns": times}), flush=True)
+
+
+def same_window_sums(a, b) -> bool:
+    """Window sums (B, 4, 20, 33) equal as points, window by window."""
+    from ed25519_consensus_tpu_torch.ops import limbs
+
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return all(limbs.unpack_point(a[i, ..., w]) ==
+               limbs.unpack_point(b[i, ..., w])
+               for i in range(a.shape[0]) for w in range(a.shape[-1]))
 
 
 def phase_routing(state: dict) -> None:
@@ -2112,23 +2247,26 @@ def phase_old_new(report: dict, state: dict) -> None:
     on the 8 x 32-bit arithmetic, timed in turns on the same operands —
     old, new, new, old, three rounds, each time the median of 5 CUDA-event
     runs — with the launch counts set to 0 just before and read just
-    after (the rows count the launches of the two -l20 forms that only
-    this phase runs): K1 on the stacked zcash10k wire (B = 8, N = 12,288)
+    after (the rows count the launches of the -l20 forms that only this
+    phase runs): K1 on the stacked zcash10k wire (B = 8, N = 12,288)
     and on verify_gpu's (B = 1, N = 10,176); K2 on the stacked call; K3 on
     the stacked call's partials; K2t on the zcash10k resident-tables chunk
     (B = 8, N = 10,176, 130 head lanes); K4 on the R points of that chunk
-    (B = 8, 10,046 lanes) and of the cometbft128 chunk (B = 8, 190 lanes).
-    Each pair is equal as points: K1's coordinates (Z = 1 in both) as
-    canonical limbs, limb for limb; K2's and K2t's window sums folded by K3
-    and K3's sums, window by window; K4's tables entry by entry and lane by
-    lane (`same_table_points`: the chain and the tree give other projective
+    (B = 8, 10,046 lanes) and of the cometbft128 chunk (B = 8, 190 lanes);
+    K5 on the pod100k D = 4 shard sums the mesh path gathered (the old on
+    their stack, the new on the shard list, as each path passes them); K6
+    on the affine pass's largest input.  Each pair is equal as points:
+    K1's and K6's coordinates as canonical limbs, limb for limb; K2's and
+    K2t's window sums folded by K3 and K3's and K5's sums, window by
+    window; K4's tables entry by entry and lane by lane
+    (`same_table_points`: the chain and the tree give other projective
     representatives of one point), the new tables' limbs canonical.  Each
     kernel's device time under the profiler beside (`device_ms`).  Then
-    the -l20 forms of K1, K3 and K4 against their plain versions, timed
-    beside their bounds.  Prints one `old_new` JSON line."""
+    the -l20 forms of K1, K3, K4, K5 and K6 against their plain versions,
+    timed beside their bounds.  Prints one `old_new` JSON line."""
     import torch
 
-    from ed25519_consensus_tpu_torch.ops import _cuda, limbs, msm
+    from ed25519_consensus_tpu_torch.ops import _cuda, msm
     from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
     from ed25519_consensus_tpu_torch.ops import torch_field as TF
 
@@ -2150,12 +2288,6 @@ def phase_old_new(report: dict, state: dict) -> None:
         torch.from_numpy(w).to(DEV))
         for label, w in state["tables_rwire"].items()}
 
-    def same_sums(a, b):
-        a, b = a.cpu().numpy(), b.cpu().numpy()
-        return all(limbs.unpack_point(a[i, ..., w]) ==
-                   limbs.unpack_point(b[i, ..., w])
-                   for i in range(a.shape[0]) for w in range(a.shape[-1]))
-
     def same_points(a, b):
         canon = TF.canonical_limbs20(a.int().movedim(2, 0)).movedim(0, 2)
         return torch.equal(canon, b.int())
@@ -2175,15 +2307,15 @@ def phase_old_new(report: dict, state: dict) -> None:
         "window_sums": (
             lambda: msm.window_partials(d, pts, arith="l20"),
             lambda: msm.window_partials(d, pts),
-            lambda a, b: same_sums(msm.fold_partials(a),
+            lambda a, b: same_window_sums(msm.fold_partials(a),
                                    msm.fold_partials(b))),
         "fold_partials": (
             lambda: msm.fold_partials(parts, arith="l20"),
-            lambda: msm.fold_partials(parts), same_sums),
+            lambda: msm.fold_partials(parts), same_window_sums),
         "window_sums_tables": (
             lambda: msm.window_partials_tables(dt, ht, rt, arith="l20"),
             lambda: msm.window_partials_tables(dt, ht, rt),
-            lambda a, b: same_sums(msm.fold_partials(a),
+            lambda a, b: same_window_sums(msm.fold_partials(a),
                                    msm.fold_partials(b))),
     }
     for chunk, p in r_pts.items():
@@ -2191,9 +2323,20 @@ def phase_old_new(report: dict, state: dict) -> None:
               f"N={p.shape[-1]})"] = (
             lambda p=p: msm.multiples_tables(p, arith="l20"),
             lambda p=p: msm.multiples_tables(p), same_tables)
+    shards = max(state["fold_shards_inputs"],
+                 key=lambda x: len(x) * x[0].numel())
+    gathered = torch.stack(shards)
+    aff = max(state["expand_affine_inputs"], key=lambda x: x.numel())
+    pairs[f"fold_shards (pod100k sums, D={len(shards)}, "
+          f"B={shards[0].shape[0]})"] = (
+        lambda: msm.fold_shards(gathered, arith="l20"),
+        lambda: msm.fold_shards(shards), same_window_sums)
+    pairs[f"expand_affine (B={aff.shape[0]}, N={aff.shape[-1]})"] = (
+        lambda: msm.expand_affine_points(aff, arith="l20"),
+        lambda: msm.expand_affine_points(aff), same_points)
     out = {}
-    log("old (-l20) and new K1 / K2 / K3 / K2t / K4 in turns (old, new, "
-        "new, old) x 3, each the median of 5 (CUDA events), ms:")
+    log("old (-l20) and new K1 / K2 / K3 / K2t / K4 / K5 / K6 in turns "
+        "(old, new, new, old) x 3, each the median of 5 (CUDA events), ms:")
     for name, (old, new, equal) in pairs.items():
         if not equal(old(), new()):
             raise AssertionError(f"{name}: the -l20 and the new kernel "
@@ -2228,7 +2371,16 @@ def phase_old_new(report: dict, state: dict) -> None:
              lambda: msm.multiples_tables(zr, arith="l20"),
              lambda: msm.build_tables_plain(zr, arith="l20"),
              k4_work(zr, arith="l20"), plain_reps=1)
-    lab = ("expand_compressed-l20", "fold_partials-l20", "build_tables-l20")
+    hold_row(report, "fold_shards-l20",
+             lambda: msm.fold_shards(gathered, arith="l20"),
+             lambda: msm.fold_shards_plain(gathered, arith="l20"),
+             k5_work(len(shards), shards[0].shape[0]), plain_reps=1)
+    hold_row(report, "expand_affine-l20",
+             lambda: msm.expand_affine_points(aff, arith="l20"),
+             lambda: msm.expand_affine_points_plain(aff, arith="l20"),
+             k6_work(aff, arith="l20"), plain_reps=1)
+    lab = ("expand_compressed-l20", "fold_partials-l20", "build_tables-l20",
+           "fold_shards-l20", "expand_affine-l20")
     counts = _cuda.launch_counts()
     add_launches(report, {k: counts[k] for k in lab})
     need_launches("the old/new turns", counts, lab)
@@ -2306,11 +2458,12 @@ def sanitize_path() -> int:
     the run `compute-sanitizer` watches (python3 chip_smoke.py --sanitize
     under --tool memcheck, racecheck, initcheck and synccheck; README).
     K1, K2, K3, K4, K2t (TH = 1 and TH = B, the head boundary inside a
-    chunk), K5, K6; the cometbft128 tables chunk (B = 8, N = 448, 258 head
+    chunk), K5 (both call forms), K6 (N = 200: 16-byte rows; N = 197: one
+    int16 a thread); the cometbft128 tables chunk (B = 8, N = 448, 258 head
     lanes: chunk 4 straddles the head/R boundary) through K1, K4, K2t and
     K3; every sweep form of the kernel lab (K2, K2t, K3, K4 instantiations
-    and windows per block), K2s, the probes and the -l20 forms of K1, K3
-    and K4.  Returns the number of kernels that differ."""
+    and windows per block), K2s, the probes and the -l20 forms of K1, K3,
+    K4, K5 and K6.  Returns the number of kernels that differ."""
     import numpy as np
     import torch
 
@@ -2359,11 +2512,20 @@ def sanitize_path() -> int:
               msm.window_partials_tables(dp, head, r),
               msm.window_partials_tables_plain(dp, head, r))
     ws = msm.fold_partials(parts)
-    g = torch.stack([ws, ws])
-    check("K5 fold_shards", msm.fold_shards(g), msm.fold_shards_plain(g))
-    aff = pts[:, :2].contiguous()
-    check("K6 expand_affine", msm.expand_affine_points(aff),
-          msm.expand_affine_points_plain(aff))
+    shards = [ws, msm.fold_partials(msm.window_partials(dp.flip(0), pts)),
+              ws]
+    g = torch.stack(shards)
+    check("K5 fold_shards (list)", msm.fold_shards(shards),
+          msm.fold_shards_plain(shards))
+    check("K5 fold_shards (stacked)", msm.fold_shards(g),
+          msm.fold_shards_plain(g))
+    check("K5 fold_shards-l20", msm.fold_shards(g, arith="l20"),
+          msm.fold_shards_plain(g, arith="l20"))
+    for aff in (pts[:, :2].contiguous(), pts[:, :2, :, :197].contiguous()):
+        for arith in ("u32", "l20"):
+            check(f"K6 expand_affine {arith} N={aff.shape[-1]}",
+                  msm.expand_affine_points(aff, arith=arith),
+                  msm.expand_affine_points_plain(aff, arith=arith))
 
     # the cometbft128 tables chunk: 258 head lanes, 190 R lanes
     B, N, n_head = 8, 448, 258

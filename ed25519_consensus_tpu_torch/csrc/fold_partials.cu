@@ -6,8 +6,8 @@
 // fold_partials_r32 (27, int32), the radix-32 variant's; all three on
 // csrc/fe25519_u32.cuh.  fold_partials_l20 (33, int32) is K3's earlier
 // 20-limb body (the lab's fold_partials-l20; no verdict path launches it).
-// K5 fold_shards (below, 20 limbs): folds the sharded mesh's gathered
-// per-shard window sums.
+// K5 fold_shards (below, on K3's warp tree) folds the sharded mesh's
+// per-shard window sums; fold_shards_l20 is its earlier 20-limb body.
 //
 // Replaces: the XLA fold of the Pallas kernel's per-block partials,
 // ed25519_consensus_tpu/ops/pallas_msm.py:_compiled_pipeline (the
@@ -176,7 +176,7 @@ __device__ __forceinline__ void fold_partials_body(
   store_coord<NW>(o + (size_t)3 * FE_NLIMBS * NW, acc.T);
 }
 
-// -- the 20-limb K3 (the lab's fold_partials-l20) and K5 ---------------------
+// -- the 20-limb K3 (the lab's fold_partials-l20) ---------------------------
 
 constexpr int THREADS_L20 = 32;
 
@@ -244,25 +244,124 @@ __device__ __forceinline__ void fold_partials_l20_body(
   }
 }
 
-// K5 fold_shards: the cross-shard group fold of the sharded mesh, gathered
-// per-shard window sums (D, B, 4, 20, 33) int32 -> (B, 4, 20, 33) int32.
+}  // namespace
+
+// One instantiation of K3: the kernel NAME_kernel (unmangled, so ptxas's
+// report names it) and its C entry NAME_launch(partials, out, B, nchunk,
+// stream); BODY fold_partials_body (FOLD_THREADS a block) or
+// fold_partials_l20_body (THREADS_L20).
+#define FOLD_PARTIALS(NAME, NW, PT, BODY, NT)                                 \
+  extern "C" __global__ void __launch_bounds__(NT)                           \
+      NAME##_kernel(const PT* __restrict__ partials,                          \
+                    int32_t* __restrict__ out, int nchunk) {                  \
+    BODY<NW, PT>(partials, out, nchunk);                                      \
+  }                                                                           \
+  extern "C" int NAME##_launch(const void* partials, void* out, int B,        \
+                               int nchunk, void* stream) {                    \
+    dim3 grid(NW, B);                                                         \
+    NAME##_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(                     \
+        (const PT*)partials, (int32_t*)out, nchunk);                          \
+    return (int)cudaGetLastError();                                           \
+  }
+
+FOLD_PARTIALS(fold_partials, 33, int32_t, fold_partials_body, FOLD_THREADS)
+FOLD_PARTIALS(fold_partials_i16fold, 33, int16_t, fold_partials_body,
+              FOLD_THREADS)
+FOLD_PARTIALS(fold_partials_r32, 27, int32_t, fold_partials_body,
+              FOLD_THREADS)
+FOLD_PARTIALS(fold_partials_l20, 33, int32_t, fold_partials_l20_body,
+              THREADS_L20)
+
+// -- K5 fold_shards: the cross-shard group fold -----------------------------
+//
+// Folds the sharded mesh's D per-shard window sums, each (B, 4, 20, 33)
+// int32 on the placement's first device, to (B, 4, 20, 33) int32 with
+// canonical limbs.
 //
 // Replaces: the all_gather + lax.scan fold of point_add in
 // ed25519_consensus_tpu/parallel/sharded_msm.py
 // (_compiled_sharded_kernel_many and its audit and cached forms, :139-145).
-// Plain PyTorch version: ops/msm.py fold_shards_plain, the same additions in
-// the same order.  The JAX fold starts from the identity (D additions); this
-// one starts from shard 0 (D - 1), so the two agree as points, not limbs.
+// Plain PyTorch version: ops/msm.py fold_shards_plain, the same additions
+// in the same order (msm._warp_tree over the D shards) ending with
+// canonical_limbs20, so the two agree limb for limb; ops/fe_u32.py
+// fold_lane(rows, 32) models one (b, w).  The JAX fold starts from the
+// identity and takes the shards in order (D additions); this one takes
+// D - 1, so the two agree as points, not limbs.
 //
-// A group fold, never an elementwise limb add.  Bound: int32 multiply-adds,
-// (D - 1) complete additions per (b, w), against D * 320 bytes read per
-// (b, w): a few microseconds of work at the mesh's shapes, so the launch
-// dominates.  Design: one thread per (b, w), reading the gathered layout in
-// place (coordinate-limb stride 33, shard stride B * 4 * 20 * 33): no
-// transpose copy; consecutive threads take consecutive windows.
-__global__ void __launch_bounds__(64)
-fold_shards_kernel(const int32_t* __restrict__ gathered,
-                   int32_t* __restrict__ out, int D, int B) {
+// Every shard's sums come from K3, whose limbs are canonical: inside
+// fe8_from_limbs20's bound |limb| <= 8191.
+//
+// A group fold, never an elementwise limb add.  Bound: D * 320 bytes read
+// and 320 written a (b, w), a few kilobytes at the mesh's shapes, and D - 1
+// additions: its time is latency, the additions on the longest dependent
+// path plus a conversion in and one out.  Design: one warp a (b, w),
+// K5_WARPS a block; lane d < D reads shard d's point through a by-value
+// table of shard pointers (no stacked copy of the shards), so the D loads
+// run side by side, and K3's warp_fold takes ceil(log2 D) additions on
+// its longest path (the 20-limb body: D - 1 in a row); lane 0 writes
+// canonical limbs with K3's store_coord.  D <= MAX_SHARDS, one warp's
+// lanes; the C entry refuses more.
+
+namespace {
+
+constexpr int MAX_SHARDS = 32;  // ops/msm.py MAX_SHARDS
+constexpr int K5_WARPS = 4;     // (b, w) folds a block
+
+struct ShardPtrs {
+  const int32_t* p[MAX_SHARDS];
+};
+
+}  // namespace
+
+extern "C" __global__ void __launch_bounds__(32 * K5_WARPS)
+    fold_shards_kernel(const ShardPtrs shards, int32_t* __restrict__ out,
+                       int D, int B) {
+  const int lane = threadIdx.x & 31;
+  const int fold = blockIdx.x * K5_WARPS + (threadIdx.x >> 5);
+  if (fold >= B * NWIN) return;  // the whole warp: warp_fold shuffles
+  const int b = fold / NWIN;
+  const int w = fold - b * NWIN;
+  // (B, 4, 20, NWIN): coordinate-limb major, window minor.
+  const size_t at = (size_t)b * COORDS * NWIN + w;
+  ge8 acc = ge8_identity();
+  if (lane < D) {
+    const int32_t* s = shards.p[lane] + at;
+    acc.X = fe8_from_limbs20(s, NWIN);
+    acc.Y = fe8_from_limbs20(s + (size_t)FE_NLIMBS * NWIN, NWIN);
+    acc.Z = fe8_from_limbs20(s + (size_t)2 * FE_NLIMBS * NWIN, NWIN);
+    acc.T = fe8_from_limbs20(s + (size_t)3 * FE_NLIMBS * NWIN, NWIN);
+  }
+  acc = warp_fold(acc, lane, D);
+  if (lane) return;
+  int32_t* o = out + at;
+  store_coord<NWIN>(o, acc.X);
+  store_coord<NWIN>(o + (size_t)FE_NLIMBS * NWIN, acc.Y);
+  store_coord<NWIN>(o + (size_t)2 * FE_NLIMBS * NWIN, acc.Z);
+  store_coord<NWIN>(o + (size_t)3 * FE_NLIMBS * NWIN, acc.T);
+}
+
+// shards: D pointers, one a shard's (B, 4, 20, 33) int32 sums.
+extern "C" int fold_shards_launch(const void* const* shards, int D,
+                                  void* out, int B, void* stream) {
+  if (D < 0 || D > MAX_SHARDS || B < 0) return (int)cudaErrorInvalidValue;
+  ShardPtrs p = {};
+  for (int d = 0; d < D; ++d) p.p[d] = (const int32_t*)shards[d];
+  const int blocks = (B * NWIN + K5_WARPS - 1) / K5_WARPS;
+  fold_shards_kernel<<<blocks, 32 * K5_WARPS, 0, (cudaStream_t)stream>>>(
+      p, (int32_t*)out, D, B);
+  return (int)cudaGetLastError();
+}
+
+// fold_shards_l20 (the lab's fold_shards-l20): K5's earlier 20-limb body,
+// the stacked shards (D, B, 4, 20, 33) int32 -> (B, 4, 20, 33) int32.  One
+// thread a (b, w) starts from shard 0 and adds shards 1, 2, ... in order
+// (D - 1 additions), reading the stacked layout in place (shard stride
+// B * 4 * 20 * 33); the limbs as the additions leave them.  Plain version:
+// ops/msm.py fold_shards_plain(arith="l20"), limb for limb.  No verdict
+// path launches it.
+extern "C" __global__ void __launch_bounds__(64)
+    fold_shards_l20_kernel(const int32_t* __restrict__ gathered,
+                           int32_t* __restrict__ out, int D, int B) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= B * NWIN) return;
   const int b = idx / NWIN;
@@ -293,39 +392,11 @@ fold_shards_kernel(const int32_t* __restrict__ gathered,
   }
 }
 
-}  // namespace
-
-// One instantiation of K3: the kernel NAME_kernel (unmangled, so ptxas's
-// report names it) and its C entry NAME_launch(partials, out, B, nchunk,
-// stream); BODY fold_partials_body (FOLD_THREADS a block) or
-// fold_partials_l20_body (THREADS_L20).
-#define FOLD_PARTIALS(NAME, NW, PT, BODY, NT)                                 \
-  extern "C" __global__ void __launch_bounds__(NT)                           \
-      NAME##_kernel(const PT* __restrict__ partials,                          \
-                    int32_t* __restrict__ out, int nchunk) {                  \
-    BODY<NW, PT>(partials, out, nchunk);                                      \
-  }                                                                           \
-  extern "C" int NAME##_launch(const void* partials, void* out, int B,        \
-                               int nchunk, void* stream) {                    \
-    dim3 grid(NW, B);                                                         \
-    NAME##_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(                     \
-        (const PT*)partials, (int32_t*)out, nchunk);                          \
-    return (int)cudaGetLastError();                                           \
-  }
-
-FOLD_PARTIALS(fold_partials, 33, int32_t, fold_partials_body, FOLD_THREADS)
-FOLD_PARTIALS(fold_partials_i16fold, 33, int16_t, fold_partials_body,
-              FOLD_THREADS)
-FOLD_PARTIALS(fold_partials_r32, 27, int32_t, fold_partials_body,
-              FOLD_THREADS)
-FOLD_PARTIALS(fold_partials_l20, 33, int32_t, fold_partials_l20_body,
-              THREADS_L20)
-
-extern "C" int fold_shards_launch(const void* gathered, void* out, int D,
-                                  int B, void* stream) {
+extern "C" int fold_shards_l20_launch(const void* gathered, void* out, int D,
+                                      int B, void* stream) {
   const int threads = 64;
   const int blocks = (B * NWIN + threads - 1) / threads;
-  fold_shards_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  fold_shards_l20_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)gathered, (int32_t*)out, D, B);
   return (int)cudaGetLastError();
 }

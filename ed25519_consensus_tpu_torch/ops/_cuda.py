@@ -126,6 +126,8 @@ _K2 = [_P, _I, _P, _P, _I, _I, _I, _P]    # digits, packed, points, out,
 #                                           B, N, W, stream
 _K2T = [_P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P]  # digits, packed, head,
 #                    head_batched, n_head, r_tables, out, B, N, W, stream
+_K5 = [ctypes.POINTER(_P), _I, _P, _I, _P]  # shard pointers, D, out, B,
+#                                             stream
 
 INSTANTIATIONS = {
     "expand_compressed": ("expand_compressed.cu", _POINTS),
@@ -133,7 +135,7 @@ INSTANTIATIONS = {
     "fold_partials": ("fold_partials.cu", _POINTS),
     "window_sums_tables": ("window_sums.cu", _K2T),
     "build_tables": ("build_tables.cu", _POINTS),
-    "fold_shards": ("fold_partials.cu", _POINTS),
+    "fold_shards": ("fold_partials.cu", _K5),
     "expand_affine": ("expand_affine.cu", _POINTS),
     # the kernel lab's variants (window_sums.cuh templates): first the 20-limb
     # default K2 and K2t, timed beside window_sums_u32.cuh's
@@ -149,10 +151,12 @@ INSTANTIATIONS = {
     "window_sums-hybrid": ("window_sums_hybrid.cu", _K2),
     "fold_partials-i16fold": ("fold_partials.cu", _POINTS),
     "fold_partials-r32": ("fold_partials.cu", _POINTS),
-    # the 20-limb K1, K3 and K4, timed beside the fe8 ones
+    # the 20-limb K1, K3, K4, K5 and K6, timed beside the fe8 ones
     "expand_compressed-l20": ("expand_compressed.cu", _POINTS),
     "fold_partials-l20": ("fold_partials.cu", _POINTS),
     "build_tables-l20": ("build_tables.cu", _POINTS),
+    "fold_shards-l20": ("fold_partials.cu", _POINTS),
+    "expand_affine-l20": ("expand_affine.cu", _POINTS),
     "build_tables-r32": ("build_tables.cu", _POINTS),
     # the micro-probes (probes.cu)
     "probe_chain-add": ("probes.cu", _POINTS),

@@ -54,7 +54,10 @@ plain versions take the same additions in the 20-limb arithmetic
 torch_field.canonical_limbs20.  The earlier 20-limb K1, K3 and K4 are the
 lab's `expand_compressed-l20`, `fold_partials-l20` and `build_tables-l20`
 (`arith="l20"` on their wrappers); no verdict path launches them.
-K5 and K6 stay on the 20-limb arithmetic (csrc/fe25519.cuh).
+K5 and K6 run on the same arithmetic and write canonical limbs too: K5
+folds the shards with K3's warp tree, reading each shard's sums in place;
+K6 stages its rows through shared memory with 16-byte accesses.  Their
+20-limb kernels are the lab's `fold_shards-l20` and `expand_affine-l20`.
 
 The kernel lab's forms (tools/kernel_lab.py, tools/microbench.py), all in
 the 20-limb design (csrc/window_sums.cuh: 20 × 13-bit limbs, two half-chunk
@@ -79,6 +82,7 @@ Public entry points take `device=None`, meaning "cuda", and raise when no
 CUDA device exists and the caller did not ask for the CPU.
 """
 
+import ctypes
 import threading
 
 import numpy as np
@@ -101,6 +105,9 @@ CHUNK = 64
 HALF = CHUNK // 2
 FOLD_THREADS = 128
 FOLD_THREADS_L20 = 32
+# The most shards K5 folds, one a lane of a warp (csrc/fold_partials.cu
+# MAX_SHARDS).
+MAX_SHARDS = 32
 # Entries of a multiples table, [0..8]P.
 NTABLE = 9
 # Shared memory one block may take on an H100 (dynamic, after the opt-in).
@@ -889,57 +896,115 @@ def _check_window_sums(ws, name: str, ndim: int):
                          f"{ws.dtype}")
 
 
-def fold_shards_plain(gathered):
-    """Plain PyTorch version of K5: gathered per-shard window sums (D, B,
-    4, NLIMBS, 33) int32 → (B, 4, NLIMBS, 33) int32, shard 0 plus shards 1,
-    2, ... in order by complete addition (D − 1 additions; D = 0 gives the
-    identity), as csrc/fold_partials.cu fold_shards_kernel takes them."""
-    g = gathered.permute(0, 2, 3, 1, 4)  # (D, 4, NLIMBS, B, 33)
-    if not g.shape[0]:
-        out = torch.zeros(gathered.shape[1:], dtype=torch.int32,
-                          device=gathered.device)
-        out[:, 1, 0] = 1
-        out[:, 2, 0] = 1
-        return out
-    acc = g[0]
-    for d in range(1, g.shape[0]):
-        acc = E.point_add(acc, g[d])
+def _shard_sums(shards):
+    """(the D shard sums as a list, B, device) of `shards`: a sequence of
+    D (B, 4, NLIMBS, 33) int32 tensors on one device, or one stacked (D,
+    B, 4, NLIMBS, 33) tensor (its slices; D = 0 only this way).  Raises
+    ValueError past MAX_SHARDS on every device."""
+    if isinstance(shards, torch.Tensor):
+        _check_window_sums(shards, "stacked shard sums", 5)
+        parts, B, device = list(shards.unbind(0)), shards.shape[1], \
+            shards.device
+    else:
+        parts = list(shards)
+        if not parts:
+            raise ValueError("no shard sums: pass D = 0 as a stacked (0, "
+                             "B, 4, 20, 33) tensor")
+        for p in parts:
+            _check_window_sums(p, "a shard's window sums", 4)
+        B, device = parts[0].shape[0], parts[0].device
+        if any(p.shape != parts[0].shape or p.device != device
+               for p in parts):
+            raise ValueError("the shard sums must share one shape and one "
+                             "device")
+    if len(parts) > MAX_SHARDS:
+        raise ValueError(f"K5 folds at most {MAX_SHARDS} shards, got "
+                         f"{len(parts)}")
+    return parts, B, device
+
+
+def fold_shards_plain(shards, arith: str = "u32"):
+    """Plain PyTorch version of K5: the D per-shard window sums (a
+    sequence of (B, 4, NLIMBS, 33) int32 tensors or one stacked (D, B, 4,
+    NLIMBS, 33) tensor) → (B, 4, NLIMBS, 33) int32, the same additions in
+    the same order as csrc/fold_partials.cu, D − 1 per (b, window); D = 0
+    gives the identity.  The default K5 (`arith="u32"`): one warp's halving
+    tree over the shards (`_warp_tree`), canonical limbs out.  The lab's
+    20-limb K5 (`"l20"`): shard 0 plus shards 1, 2, ... in order, the limbs
+    as the additions leave them."""
+    if arith not in ARITHS:
+        raise ValueError(f"arith must be one of {ARITHS}: {arith!r}")
+    parts, B, device = _shard_sums(shards)
+    if not parts:
+        return _identity_sums(B, NWINDOWS, device)
+    pts = [p.permute(1, 2, 0, 3) for p in parts]  # (4, NLIMBS, B, 33)
+    if arith == "l20":
+        acc = pts[0]
+        for p in pts[1:]:
+            acc = E.point_add(acc, p)
+    else:
+        acc = _warp_tree(torch.stack(pts, dim=-1), [len(pts)], [0])[..., 0]
+        acc = F.canonical_limbs20(acc.movedim(1, 0)).movedim(0, 1)
     return acc.permute(2, 0, 1, 3).contiguous()
 
 
-def fold_shards(gathered):
-    """K5 wrapper: launches fold_shards (csrc/fold_partials.cu) on a CUDA
-    tensor, runs `fold_shards_plain` on a CPU tensor.  A group fold by
-    complete additions — never an elementwise limb add."""
-    _check_window_sums(gathered, "gathered shard sums", 5)
-    if gathered.device.type == "cpu":
-        return fold_shards_plain(gathered)
-    if gathered.device.type != "cuda":
-        raise ValueError(f"unsupported device {gathered.device}")
-    gathered = gathered.contiguous()
-    D, B = gathered.shape[:2]
+def fold_shards(shards, arith: str = "u32"):
+    """K5 wrapper: the D per-shard window sums, as a sequence of (B, 4,
+    NLIMBS, 33) int32 tensors or one stacked (D, B, 4, NLIMBS, 33) tensor,
+    → (B, 4, NLIMBS, 33) int32 on their device.  Launches fold_shards
+    (csrc/fold_partials.cu) on CUDA tensors — every shard on one device,
+    contiguous; the kernel reads each in place, so nothing is stacked or
+    copied — or the lab's 20-limb `fold_shards-l20` (`arith="l20"`, on the
+    stacked layout; a sequence is stacked for it); runs
+    `fold_shards_plain` on CPU tensors.  A group fold by complete
+    additions — never an elementwise limb add."""
+    if arith not in ARITHS:
+        raise ValueError(f"arith must be one of {ARITHS}: {arith!r}")
+    parts, B, device = _shard_sums(shards)
+    if device.type == "cpu":
+        return fold_shards_plain(shards, arith)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
     out = torch.empty((B, 4, NLIMBS, NWINDOWS), dtype=torch.int32,
-                      device=gathered.device)
-    if B:
-        _cuda.KERNELS["fold_shards"].launch(
-            gathered.device, gathered.data_ptr(), out.data_ptr(), D, B)
+                      device=device)
+    if not B:
+        return out
+    if arith == "l20":
+        g = shards if isinstance(shards, torch.Tensor) else \
+            torch.stack(parts)
+        g = g.contiguous()
+        _cuda.kernel("fold_shards-l20").launch(
+            device, g.data_ptr(), out.data_ptr(), len(parts), B)
+        return out
+    if not all(p.is_contiguous() for p in parts):
+        raise ValueError("K5 reads every shard's sums in place: each must "
+                         "be contiguous")
+    ptrs = (ctypes.c_void_p * MAX_SHARDS)(*[p.data_ptr() for p in parts])
+    _cuda.KERNELS["fold_shards"].launch(device, ptrs, len(parts),
+                                        out.data_ptr(), B)
     return out
 
 
 # -- K6: the affine point wire ---------------------------------------------
 
-def expand_affine_points_plain(points):
+def expand_affine_points_plain(points, arith: str = "u32"):
     """Plain PyTorch version of K6: (B, 2, NLIMBS, N) int16 X‖Y limbs →
-    (B, 4, NLIMBS, N) int16 with Z = 1 and T = X·Y (one torch_field.mul;
-    the product's limbs stay inside |limb| ≤ 8191, so the int16 cast is
-    exact)."""
+    (B, 4, NLIMBS, N) int16 with Z = 1 and T = X·Y (one torch_field.mul):
+    every coordinate as canonical limbs (`arith="u32"`, the default K6's),
+    or X and Y as they came and T as the product leaves it (`"l20"`, the
+    JAX function's limbs; they stay inside |limb| ≤ 8191, so the int16
+    cast is exact)."""
+    if arith not in ARITHS:
+        raise ValueError(f"arith must be one of {ARITHS}: {arith!r}")
     X = points[:, 0].to(torch.int32).transpose(0, 1)  # (NLIMBS, B, N)
     Y = points[:, 1].to(torch.int32).transpose(0, 1)
     T = F.mul(X, Y)
     Z = torch.zeros_like(X)
     Z[0] = 1
-    return torch.stack([X, Y, Z, T]).permute(2, 0, 1, 3).to(
-        torch.int16).contiguous()
+    out = torch.stack([X, Y, Z, T])  # (4, NLIMBS, B, N)
+    if arith == "u32":
+        out = F.canonical_limbs20(out.movedim(1, 0)).movedim(0, 1)
+    return out.permute(2, 0, 1, 3).to(torch.int16).contiguous()
 
 
 def _check_affine(points):
@@ -949,13 +1014,16 @@ def _check_affine(points):
                          f"got {tuple(points.shape)} {points.dtype}")
 
 
-def expand_affine_points(points):
+def expand_affine_points(points, arith: str = "u32"):
     """K6 wrapper: (B, 2, NLIMBS, N) int16 affine wire → (B, 4, NLIMBS, N)
     int16 extended points.  Launches csrc/expand_affine.cu on a CUDA
-    tensor, runs `expand_affine_points_plain` on a CPU tensor."""
+    tensor (`arith="l20"`: the lab's 20-limb `expand_affine-l20`), runs
+    `expand_affine_points_plain` on a CPU tensor."""
     _check_affine(points)
+    if arith not in ARITHS:
+        raise ValueError(f"arith must be one of {ARITHS}: {arith!r}")
     if points.device.type == "cpu":
-        return expand_affine_points_plain(points)
+        return expand_affine_points_plain(points, arith)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     points = points.contiguous()
@@ -963,7 +1031,8 @@ def expand_affine_points(points):
     out = torch.empty((B, 4, NLIMBS, N), dtype=torch.int16,
                       device=points.device)
     if B * N:
-        _cuda.KERNELS["expand_affine"].launch(
+        _cuda.kernel("expand_affine" if arith == "u32" else
+                     "expand_affine-l20").launch(
             points.device, points.data_ptr(), out.data_ptr(), B, N)
     return out
 

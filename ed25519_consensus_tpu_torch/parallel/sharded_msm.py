@@ -14,8 +14,8 @@ from one process (PERF.md says why, against `torch.distributed`):
   K2, K3 — launched for every shard before anything is copied back, so
   the shards of a multi-card placement run side by side;
 * the D per-shard window sums, (B, 4, NLIMBS, 33) int32 each, are copied
-  to the placement's first device, stacked to (D, B, 4, NLIMBS, 33) and
-  folded there by K5 (`msm.fold_shards`).
+  to the placement's first device and folded there by K5
+  (`msm.fold_shards`), which reads each in place: nothing is stacked.
 
 The result lives on the first device only; the Horner combine and every
 verdict stay on the host.  The audit form also returns the stacked partials
@@ -65,21 +65,20 @@ def _on(dev, placement, chips):
 
 
 def _gather_fold(parts, placement, chips, audit: bool):
-    """The per-shard window sums copied to the first device, stacked in
-    mesh order and folded by K5: (B, 4, NLIMBS, 33), or with `audit`
-    (1 + D, B, 4, NLIMBS, 33) — the fold, then the partials that fed it."""
-    import torch
-
+    """The per-shard window sums copied to the first device and folded by
+    K5 in mesh order: (B, 4, NLIMBS, 33), or with `audit` (1 + D, B, 4,
+    NLIMBS, 33) — the fold, then the partials that fed it."""
     lead = placement[0]
     moved = []
     for p, dev in zip(parts, placement):
         with _on(dev, placement, chips):
             moved.append(p.to(lead))
     with _on(lead, placement, chips):
-        gathered = torch.stack(moved)
-        folded = msm_lib.fold_shards(gathered)
+        folded = msm_lib.fold_shards(moved)
     if audit:
-        return torch.cat([folded[None], gathered])
+        import torch
+
+        return torch.stack([folded, *moved])
     return folded
 
 

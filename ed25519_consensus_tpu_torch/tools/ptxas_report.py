@@ -1,7 +1,7 @@
 """What the compiler made of the kernels on the 8 x 32-bit arithmetic
 (csrc/fe25519_u32.cuh) — K1 (expand_compressed.cu), K2 and K2t
-(window_sums.cu), K3 (fold_partials.cu), K4 (build_tables.cu) — on the
-card's toolkit.
+(window_sums.cu), K3 and K5 (fold_partials.cu), K4 (build_tables.cu), K6
+(expand_affine.cu) — on the card's toolkit.
 
     python -m ed25519_consensus_tpu_torch.tools.ptxas_report
 
@@ -14,8 +14,10 @@ card's toolkit.
   the report behind the choice of its launch bounds; the same for
   build_tables_kernel (K4) at each `K4_MIN_BLOCKS`, with its time in each
   build on the card (`k4_times`, at the zcash10k and cometbft128 chunks'
-  R lanes): the report behind its launch bounds; and for
-  fold_partials_kernel (K3) as built.
+  R lanes): the report behind its launch bounds; the same for
+  expand_affine_kernel (K6) at each `K6_MIN_BLOCKS`, timed at the affine
+  pass's single-lane and D = 2 shapes (`k6_times`); and for
+  fold_partials_kernel (K3) and fold_shards_kernel (K5) as built.
 * `cuobjdump -sass` of csrc/probes.cu: the instructions of each
   out-of-line operation of the self-test kernel probe_fe8 (st_fe8_add,
   st_fe8_mul, ...), all of them and the integer multiply-adds among them
@@ -45,21 +47,29 @@ SM_BLOCKS = 32
 
 # Threads and shared memory a block of the kernels on the fe8 arithmetic
 # (csrc/expand_compressed.cu K1_THREADS; csrc/fold_partials.cu: 128 staged
-# rows of 336 bytes; csrc/build_tables.cu: K2's table threads, two a lane,
-# and its u32 table).
+# rows of 336 bytes, and K5's K5_WARPS = 4 warps; csrc/build_tables.cu:
+# K2's table threads, two a lane, and its u32 table; csrc/expand_affine.cu:
+# 128 lanes, 40 int16 rows staged in and 60 out).
 K1_THREADS = 128
 FOLD_SHARED_BYTES = msm.FOLD_THREADS * 21 * 16
 K4_THREADS = 2 * msm.CHUNK
+K5_THREADS = 4 * 32
+K6_LANES = 128
+K6_SHARED_BYTES = (40 + 60) * K6_LANES * 2
 FE8_BLOCKS = {
     "window_sums_kernel": (msm.U32_THREADS, msm.U32_SHARED_BYTES),
     "window_sums_tables_kernel": (msm.U32_THREADS, msm.U32_SHARED_BYTES),
     "expand_compressed_kernel": (K1_THREADS, 0),
     "fold_partials_kernel": (msm.FOLD_THREADS, FOLD_SHARED_BYTES),
     "build_tables_kernel": (K4_THREADS, msm.U32_TABLE_BYTES),
+    "fold_shards_kernel": (K5_THREADS, 0),
+    "expand_affine_kernel": (K6_LANES, K6_SHARED_BYTES),
 }
 K1_MIN_BLOCKS = (1, 2, 3, 4, 5, 6, 8)
 # K4's table holds 3 blocks an SM whatever the registers.
 K4_MIN_BLOCKS = (1, 2, 3)
+# K6's two staging areas hold 8 blocks an SM.
+K6_MIN_BLOCKS = (1, 2, 4, 5, 6, 8)
 
 
 def occupancy(registers: int, threads: int = msm.U32_THREADS,
@@ -184,48 +194,42 @@ def sass_counts(library: Path, kernel: str = "probe_fe8_kernel",
     return counts
 
 
-def k4_times(B: int = 8, N: int = 10_046, launches: int = 20,
-             reps: int = 5) -> dict:
-    """{K4_MIN_BLOCKS: ms a launch} of build_tables_kernel in each build
-    of `K4_MIN_BLOCKS` (`ptxas_build`), on one card: the same random points
-    (limbs in [-4096, 4095]; the kernel's work does not depend on the
-    data), B x N lanes (by default the zcash10k chunk's R lanes; main also
-    times the cometbft128 chunk's, B = 8, N = 190); CUDA events around
-    `launches` launches, the median of `reps`, after a warm-up.  Every
-    build's tables equal the first's."""
+def bound_times(source: str, macro: str, values, pts, out_shape,
+                launches: int = 20, reps: int = 5) -> dict:
+    """{value: ms a launch} of the points kernel of csrc/`source` (C entry
+    <stem>_launch(points, out, B, N, stream)) in each build of `values` of
+    its launch-bound macro (`ptxas_build` with -D`macro`=value), on one
+    card, on the points `pts` (B, ., 20, N) int16 into an int16 tensor of
+    `out_shape`: CUDA events around `launches` launches, the median of
+    `reps`, after a warm-up.  Every build's output equals the first's."""
     import ctypes
     import statistics
 
     import torch
 
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(4)
-    pts = torch.randint(-4096, 4096, (B, 4, 20, N), dtype=torch.int16,
-                        generator=gen).to(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    B, N = pts.shape[0], pts.shape[-1]
+    stream = torch.cuda.current_stream(pts.device).cuda_stream
     out, first = {}, None
-    for m in K4_MIN_BLOCKS:
-        fn = ctypes.CDLL(str(variant_path(
-            "build_tables.cu", (f"K4_MIN_BLOCKS={m}",)))).build_tables_launch
+    for m in values:
+        tag = f"{Path(source).stem} {macro}={m}"
+        fn = getattr(ctypes.CDLL(str(variant_path(
+            source, (f"{macro}={m}",)))), Path(source).stem + "_launch")
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        tbl = torch.empty((B, msm.NTABLE, 4, 20, N), dtype=torch.int16,
-                          device=dev)
+        res = torch.empty(out_shape, dtype=torch.int16, device=pts.device)
 
         def run():
-            err = fn(pts.data_ptr(), tbl.data_ptr(), B, N, stream)
+            err = fn(pts.data_ptr(), res.data_ptr(), B, N, stream)
             if err:
-                raise _cuda.CudaError(f"build_tables K4_MIN_BLOCKS={m}",
-                                      err)
+                raise _cuda.CudaError(tag, err)
 
         run()
         torch.cuda.synchronize()
         if first is None:
-            first = tbl.clone()
-        elif not torch.equal(tbl, first):
-            raise AssertionError(f"build_tables K4_MIN_BLOCKS={m} "
-                                 f"differs from {K4_MIN_BLOCKS[0]}")
+            first = res.clone()
+        elif not torch.equal(res, first):
+            raise AssertionError(f"{tag} differs from {values[0]}")
         times = []
         for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
@@ -238,6 +242,34 @@ def k4_times(B: int = 8, N: int = 10_046, launches: int = 20,
             times.append(start.elapsed_time(end) / launches)
         out[m] = statistics.median(times)
     return out
+
+
+def _random_limbs(shape, lo: int, seed: int):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(lo, -lo, shape, dtype=torch.int16,
+                         generator=gen).to("cuda")
+
+
+def k4_times(B: int = 8, N: int = 10_046) -> dict:
+    """{K4_MIN_BLOCKS: ms a launch} of build_tables_kernel (`bound_times`)
+    on random points (limbs in [-4096, 4095]; the kernel's work does not
+    depend on the data), B x N lanes: by default the zcash10k chunk's R
+    lanes; main also times the cometbft128 chunk's, B = 8, N = 190."""
+    pts = _random_limbs((B, 4, 20, N), -4096, 4)
+    return bound_times("build_tables.cu", "K4_MIN_BLOCKS", K4_MIN_BLOCKS,
+                       pts, (B, msm.NTABLE, 4, 20, N))
+
+
+def k6_times(B: int = 8, N: int = 10_176) -> dict:
+    """{K6_MIN_BLOCKS: ms a launch} of expand_affine_kernel (`bound_times`)
+    on a random affine wire (limbs in [-8191, 8190], the wire's bound),
+    B x N lanes: by default the affine pass's single-lane chunk; main also
+    times a D = 2 shard's, N = 5,088."""
+    pts = _random_limbs((B, 2, 20, N), -8191, 6)
+    return bound_times("expand_affine.cu", "K6_MIN_BLOCKS", K6_MIN_BLOCKS,
+                       pts, (B, 4, 20, N))
 
 
 def main(argv=None) -> int:
@@ -254,6 +286,8 @@ def main(argv=None) -> int:
                for m in K1_MIN_BLOCKS]
     builds += [("build_tables.cu", (f"K4_MIN_BLOCKS={m}",))
                for m in K4_MIN_BLOCKS]
+    builds += [("expand_affine.cu", (f"K6_MIN_BLOCKS={m}",))
+               for m in K6_MIN_BLOCKS]
     builds.append(("fold_partials.cu", ()))
     with ThreadPoolExecutor(len(builds)) as pool:
         usages = list(pool.map(lambda b: ptxas_build(*b), builds))
@@ -266,11 +300,16 @@ def main(argv=None) -> int:
     import torch
 
     if torch.cuda.is_available():
-        for N in (10_046, 190):
-            for m, ms in k4_times(N=N).items():
-                print(f"time build_tables_kernel K4_MIN_BLOCKS={m}: "
-                      f"{ms:.4f} ms a launch (B = 8, N = {N}; "
-                      f"{torch.cuda.get_device_name(0)})")
+        for kernel, macro, fn, shapes in (
+                ("build_tables_kernel", "K4_MIN_BLOCKS", k4_times,
+                 (10_046, 190)),
+                ("expand_affine_kernel", "K6_MIN_BLOCKS", k6_times,
+                 (10_176, 5_088))):
+            for N in shapes:
+                for m, ms in fn(N=N).items():
+                    print(f"time {kernel} {macro}={m}: {ms:.4f} ms a "
+                          f"launch (B = 8, N = {N}; "
+                          f"{torch.cuda.get_device_name(0)})")
     _cuda.build_all(["probes.cu"])
     counts = sass_counts(_cuda.library_path("probes.cu"))
     print(f"sass probes.cu: {counts}")

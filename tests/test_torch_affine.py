@@ -1,9 +1,11 @@
 """The affine point wire (`ED25519_TPU_WIRE=affine`) of the port on the CPU:
-K6's plain version (`msm.expand_affine_points_plain`) against the JAX
-package's `ops/msm.py expand_affine_points`, the affine device operands
-against the JAX package's after carry.py, and the same verdicts on either
-wire.  Tolerance: exact — limbs for the expansion (the port's torch_field
-is the JAX package's jnp_field carry for carry), bytes for the operands."""
+K6's plain versions (`msm.expand_affine_points_plain`) against the JAX
+package's `ops/msm.py expand_affine_points` — the lab's 20-limb form limb
+for limb (the port's torch_field is the JAX package's jnp_field carry for
+carry), the default form limb for limb against canonical_limbs20 of the
+JAX output — the affine device operands against the JAX package's after
+carry.py, and the same verdicts on either wire.  Tolerance: exact — limbs
+for the expansion, bytes for the operands."""
 
 import random
 
@@ -43,26 +45,41 @@ def _affine_limbs(n, seed):
     return np.concatenate([real, ext], axis=-1)[None]
 
 
+def _canonical(points):
+    """canonical_limbs20 of every coordinate of (B, 4, NLIMBS, N) limbs."""
+    from ed25519_consensus_tpu_torch.ops import torch_field as F
+
+    x = torch.from_numpy(np.asarray(points).astype(np.int32)).movedim(2, 0)
+    return F.canonical_limbs20(x).movedim(0, 2).to(torch.int16)
+
+
 def test_expand_affine_matches_reference_limb_for_limb():
+    """The lab's 20-limb K6 equals the JAX function limb for limb; the
+    default K6 equals canonical_limbs20 of it, limb for limb."""
     a = _affine_limbs(40, seed=1)
     want = np.asarray(jmsm.expand_affine_points(a))
-    got = msm.expand_affine_points(torch.from_numpy(a))
+    got = msm.expand_affine_points(torch.from_numpy(a), arith="l20")
     assert got.dtype == torch.int16
     assert np.array_equal(got.numpy(), want)
+    canon = msm.expand_affine_points(torch.from_numpy(a))
+    assert canon.dtype == torch.int16
+    assert torch.equal(canon, _canonical(want))
     single = msm.expand_affine_points_single(torch.from_numpy(a[0]))
-    assert np.array_equal(single.numpy(), want[0])
+    assert torch.equal(single, canon[0])
 
 
 def test_expand_affine_at_the_limb_extremes():
-    """T = X·Y on limbs at ±8191 stays inside |limb| ≤ 8191, so K6's int16
-    store is exact: the int32 product equals its int16 cast, and it is the
-    exact product mod p."""
+    """T = X·Y on limbs at ±8191 stays inside |limb| ≤ 8191, so the 20-limb
+    K6's int16 store is exact: the int32 product equals its int16 cast,
+    and it is the exact product mod p; the default K6 writes the canonical
+    limbs of the same X, Y and product."""
     from ed25519_consensus_tpu_torch.ops import torch_field as F
 
     for xs, ys in ((8191, 8191), (8191, -8191), (-8191, -8191)):
         a = np.zeros((1, 2, limbs.NLIMBS, 1), np.int16)
         a[0, 0], a[0, 1] = xs, ys
-        out = msm.expand_affine_points(torch.from_numpy(a))[0, ..., 0]
+        out = msm.expand_affine_points(torch.from_numpy(a),
+                                       arith="l20")[0, ..., 0]
         X = torch.from_numpy(a[0, 0].astype(np.int32))
         Y = torch.from_numpy(a[0, 1].astype(np.int32))
         t32 = F.mul(X, Y)[:, 0]
@@ -71,6 +88,10 @@ def test_expand_affine_at_the_limb_extremes():
         xi, yi = (limbs.limbs_to_int(v[:, 0].tolist()) for v in (X, Y))
         assert limbs.limbs_to_int(out[3].tolist()) % P == xi * yi % P
         assert out[2].tolist() == [1] + [0] * (limbs.NLIMBS - 1)
+        canon = msm.expand_affine_points(torch.from_numpy(a))
+        assert torch.equal(canon, _canonical(out[None, ..., None].numpy()))
+        for c, v in ((0, xi), (1, yi), (2, 1), (3, xi * yi)):
+            assert limbs.limbs_to_int(canon[0, c, :, 0].tolist()) == v % P
 
 
 def _pair(n, n_keys, seed, tamper_at=None):

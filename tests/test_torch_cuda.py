@@ -13,7 +13,8 @@ default K2 and K2t, csrc/window_sums_u32.cuh, those of the `split=4`
 plain order with canonical limbs; the 20-limb forms their own); forms of
 the two designs agree as points.  K1 and K3 on the 8 x 32-bit
 arithmetic equal their plain versions (canonical limbs) and, as points,
-their 20-limb forms; so does K4 (build_tables and build_tables-l20).  The self-test of the fe8 field arithmetic
+their 20-limb forms; so do K4, K5 and K6 (and each -l20 form its own
+plain version).  The self-test of the fe8 field arithmetic
 (probe_fe8) equals the exact-integer model word for word."""
 
 import random
@@ -160,9 +161,11 @@ def test_verify_many_from_resident_tables(dev):
         batch._DeviceLane.reset_all()
 
 
-@pytest.mark.parametrize("n_shards", [1, 3])
+@pytest.mark.parametrize("n_shards", [1, 3, 32])
 def test_fold_shards_matches_plain(dev, n_shards):
-    """K5 on per-shard window sums of real points and digits (B = 2)."""
+    """K5 on per-shard window sums of real points and digits (B = 2), as a
+    sequence of shard tensors and as one stacked tensor; the lab's
+    fold_shards-l20 against its own plain version."""
     B, N = 2, 128
     parts = []
     for k in range(n_shards):
@@ -171,28 +174,40 @@ def test_fold_shards_matches_plain(dev, n_shards):
         w = np.stack([_wire(N, 30 + k), _wire(N, 40 + k)])
         parts.append(msm.dispatch_window_sums_many(d, w, dev))
     gathered = torch.stack(parts)
-    before = _cuda.KERNELS["fold_shards"].launches
-    got = msm.fold_shards(gathered)
     want = msm.fold_shards_plain(gathered)
+    for shards in (parts, gathered):
+        before = _cuda.KERNELS["fold_shards"].launches
+        got = msm.fold_shards(shards)
+        torch.cuda.synchronize()
+        assert _cuda.KERNELS["fold_shards"].launches == before + 1
+        assert torch.equal(got, want)
+    before = _cuda.KERNELS["fold_shards-l20"].launches
+    got = msm.fold_shards(gathered, arith="l20")
     torch.cuda.synchronize()
-    assert _cuda.KERNELS["fold_shards"].launches == before + 1
-    assert torch.equal(got, want)
+    assert _cuda.KERNELS["fold_shards-l20"].launches == before + 1
+    assert torch.equal(got, msm.fold_shards_plain(gathered, arith="l20"))
 
 
-def test_expand_affine_matches_plain(dev):
-    """K6 on decompressed points and on limbs at the bound |limb| = 8191."""
+@pytest.mark.parametrize("n", [300, 200])
+def test_expand_affine_matches_plain(dev, n):
+    """K6 and the lab's expand_affine-l20 on decompressed points and on
+    limbs at the bound |limb| = 8191: N = 300 moves one int16 a thread
+    (rows not 16-byte aligned) with a ragged last tile, N = 200 16 bytes a
+    thread with a ragged last tile."""
     pts = TD.expand_compressed_points(
-        torch.from_numpy(np.stack([_wire(300, 50)])).to(dev))[:, :2]
+        torch.from_numpy(np.stack([_wire(n, 50)])).to(dev))[:, :2]
     ext = torch.from_numpy(np.random.default_rng(51).choice(
         np.array([-8191, 8191, -1, 0, 1], dtype=np.int16),
-        size=(1, 2, limbs.NLIMBS, 300))).to(dev)
+        size=(1, 2, limbs.NLIMBS, n))).to(dev)
     for aff in (pts.contiguous(), ext):
-        before = _cuda.KERNELS["expand_affine"].launches
-        got = msm.expand_affine_points(aff)
-        want = msm.expand_affine_points_plain(aff)
-        torch.cuda.synchronize()
-        assert _cuda.KERNELS["expand_affine"].launches == before + 1
-        assert torch.equal(got, want)
+        for arith, name in (("u32", "expand_affine"),
+                            ("l20", "expand_affine-l20")):
+            before = _cuda.KERNELS[name].launches
+            got = msm.expand_affine_points(aff, arith=arith)
+            want = msm.expand_affine_points_plain(aff, arith=arith)
+            torch.cuda.synchronize()
+            assert _cuda.KERNELS[name].launches == before + 1
+            assert torch.equal(got, want)
 
 
 def test_virtual_mesh_on_the_card(dev):
