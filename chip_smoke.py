@@ -11,6 +11,11 @@ card, drives the port's two paths, and times the kernels.
   resident tables (K1, K4, K2t, K3) and hot with resident heads (K1, K2,
   K3); then a 256-height cometbft128 commit stream through verify_many's
   defaults and per commit.
+* The front door, `VerifyService(device="cuda:0", hybrid=False)`: the cometbft128
+  stream as mempool admission (with the zcash10k block and rpc traffic),
+  block inclusion from the verdict memo, and vote replay after a
+  validator-set rotation (K1, K2, K3, K4, K2t); then the overload soak
+  (tools/load_soak.py --storm mixed).
 * The sharded mesh at D = 2 and D = 4 — shard k on cuda:k when that many
   cards are visible, else every shard on cuda:0 (a virtual mesh; the log
   names the placement): the 1M-signature pod batch and a tampered copy
@@ -596,6 +601,273 @@ def phase_vectors(report: dict) -> None:
                              f"the host at {bad}")
     need_launches("the vectors", counts, SLICE0_KERNELS)
     no_lab_forms("the vectors", counts)
+
+
+SERVICE_KERNELS = ("expand_compressed", "window_sums", "fold_partials",
+                   "build_tables", "window_sums_tables")
+RPC_SUBMISSIONS = 256
+
+
+def pct(xs, q: float) -> float:
+    """The q-quantile of xs by the nearest rank (xs non-empty)."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, int(round(q * len(xs))) - 1))]
+
+
+def rpc_batches(n: int):
+    """`n` seeded rpc submissions of 1-4 fresh signatures (fresh keys and
+    messages), a quarter with one tampered → [(entries, host truth)]."""
+    from ed25519_consensus_tpu_torch import SigningKey
+
+    rng = random.Random(0x59C)
+    out = []
+    for i in range(n):
+        k = rng.randint(1, 4)
+        bad_at = rng.randrange(k) if rng.random() < 0.25 else -1
+        ents = []
+        for j in range(k):
+            sk = SigningKey.new(rng)
+            msg = b"rpc/%d/%d" % (i, j)
+            sig = sk.sign(msg)
+            ents.append((sk.verification_key_bytes(), sig,
+                         msg + b"!" if j == bad_at else msg))
+        out.append((ents, bad_at < 0))
+    return out
+
+
+LEG_SUMS = ("device_batches", "device_unions", "host_batches",
+            "host_unions", "device_rejects_confirmed",
+            "device_rejects_overturned", "stage_seconds", "device_seconds",
+            "combine_seconds", "host_seconds", "seconds")
+
+
+def service_leg(label: str, subs, merge: str = "auto") -> dict:
+    """One leg on a service of its own: a VerifyService(device="cuda:0",
+    mesh=0, hybrid=False) — device only, so every verdict of a device
+    wave is the kernels' or a device reject re-decided on the host — on
+    the real clock with default capacity and watermarks, over the
+    process-default device operand cache and verdict memo the legs share.
+    `subs` — (verifier, class, tenant, host truth) — go in as fast as the
+    front door admits them, with the launch counts set to 0 just before;
+    after every ticket resolved, close(drain=True) joins the dispatcher
+    (the last wave's memo stores included) and the counts are read.
+    Every verdict must equal the host truth, consensus class shed nothing,
+    the breaker stay closed and no wave crash or fail on the device.
+    Logs the per-class submit→resolve p50/p99 (VerifyTicket.resolved_at),
+    the rate and the service's totals → the leg's record."""
+    from ed25519_consensus_tpu_torch import service, tenancy
+    from ed25519_consensus_tpu_torch.ops import _cuda
+
+    svc = service.VerifyService(
+        device="cuda:0" if DEV == "cuda" else DEV, mesh=0, hybrid=False,
+        merge=merge)
+    log(f"  {label}: VerifyService(device={svc.device}, mesh=0, "
+        f"hybrid=False, merge={merge}), capacity {svc.capacity_sigs} sigs, "
+        f"watermarks "
+        f"{ {c: p.shed_watermark for c, p in svc.class_policies.items()} }")
+    tickets, overloaded = [], {}
+    try:
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        for v, cls, tenant, want in subs:
+            sigs = v.batch_size
+            t = time.perf_counter()
+            try:
+                ticket = svc.submit(v, cls=cls, tenant=tenant)
+            except service.Overloaded:
+                overloaded[cls] = overloaded.get(cls, 0) + 1
+                continue
+            tickets.append((ticket, t, cls, sigs, want))
+        bad = [i for i, (ticket, _t, _c, _s, want) in enumerate(tickets)
+               if ticket.result(timeout=600) != want]
+    finally:
+        svc.close(drain=True)
+    counts = _cuda.launch_counts()
+    dt = max(ticket.resolved_at for ticket, *_r in tickets) - t0
+    if bad:
+        raise AssertionError(f"{label}: verdicts differ from the host at "
+                             f"tickets {bad[:10]}")
+    st = svc.stats()
+    totals = {k: st[k] for k in (
+        "submitted", "resolved", "rejected_overloaded", "shed_deadline",
+        "waves", "host_waves", "device_waves", "probe_waves",
+        "crash_fallbacks", "device_error_waves", "dedup_fanout",
+        "verdict_cache_hits", "verdict_cache_stores",
+        "devcache_hot_waves", "devcache_dispatch_hits")}
+    cons = st["by_class"][tenancy.CLASS_CONSENSUS]
+    if cons["rejected_overloaded"] or cons["shed_deadline"]:
+        raise AssertionError(f"{label}: consensus class shed: {cons}")
+    if svc.breaker.transitions:
+        raise AssertionError(f"{label}: the breaker left closed: "
+                             f"{svc.breaker.transitions}")
+    if st["crash_fallbacks"] or st["device_error_waves"]:
+        raise AssertionError(f"{label}: crash fallbacks "
+                             f"{st['crash_fallbacks']}, device-error waves "
+                             f"{st['device_error_waves']}")
+    if st["submitted"] != (st["resolved"] + st["rejected_overloaded"]
+                           + st["shed_deadline"]):
+        raise AssertionError(f"{label}: tickets lost: {st}")
+    waves = [w for route, w in svc.wave_stats if route == "device"]
+    if len(svc.wave_stats) != st["host_waves"] + st["device_waves"]:
+        raise AssertionError(f"{label}: {len(svc.wave_stats)} wave stats "
+                             f"for {st['host_waves'] + st['device_waves']} "
+                             f"routed groups")
+    dev = {k: sum(w.get(k, 0) for w in waves) for k in LEG_SUMS}
+    dev["table_dispatch_hits"] = sum(
+        (w.get("devcache") or {}).get("table_dispatch_hits", 0)
+        for w in waves)
+    lat = {}
+    for ticket, t, cls, _s, _w in tickets:
+        lat.setdefault(cls, []).append((ticket.resolved_at - t) * 1e3)
+    sigs = sum(s for _t, _t0, _c, s, _w in tickets)
+    log(f"  {label}: {len(tickets)} tickets ({sigs} sigs) resolved in "
+        f"{dt:.3f} s = {sigs / dt:.0f} sigs/s; overloaded {overloaded}; "
+        f"{smi_line()}")
+    for cls in sorted(lat, key=tenancy.class_rank):
+        xs = lat[cls]
+        log(f"    {cls}: {len(xs)} tickets, submit→resolve p50 "
+            f"{pct(xs, 0.50):.3f} ms, p99 {pct(xs, 0.99):.3f} ms")
+    log(f"    totals {totals}; device waves' verify_many {dev}; "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    return {"seconds": dt, "sigs": sigs, "totals": totals,
+            "by_class": st["by_class"], "launches": counts,
+            "verify_many": dev, "overloaded": overloaded,
+            "latency_ms": {c: {"p50": pct(x, 0.5), "p99": pct(x, 0.99)}
+                           for c, x in lat.items()}}
+
+
+def device_decided(label: str, leg: dict) -> None:
+    """Fails unless the leg's device waves decided verdicts on the card
+    (device batches or unions > 0) and the host decided nothing in them
+    but the device's rejects (which it re-decides by design)."""
+    d = leg["verify_many"]
+    host = d["host_batches"] + d["host_unions"]
+    rejects = d["device_rejects_confirmed"] + d["device_rejects_overturned"]
+    if not d["device_batches"] + d["device_unions"] or host != rejects:
+        raise AssertionError(f"{label}: the device decided "
+                             f"{d['device_batches']} batches and "
+                             f"{d['device_unions']} unions; the host "
+                             f"{host}, of which {rejects} device rejects")
+
+
+def phase_service(report: dict, state: dict) -> None:
+    """The front door at full width (service_leg: a VerifyService(device=
+    "cuda:0", mesh=0, hybrid=False) for each leg, default capacity and
+    watermarks, on the process default device operand cache and verdict
+    memo) and the cometbft128 stream of phase_stream (256 heights x 128
+    validators, height 77 tampered) in three legs:
+
+    * A, mempool admission: each commit a mempool-class submission under
+      tenant cometbft, the zcash10k block one consensus-class submission
+      under tenant zcash, and 256 seeded rpc submissions of 1-4 fresh
+      signatures (a quarter tampered) interleaved;
+    * B, block inclusion: the same commits as consensus class — every one
+      must resolve from the memo at submit, with no re-hash mismatch and
+      no kernel launch;
+    * C, vote replay after a validator-set rotation: rotate_tenant
+      ("cometbft") on the device operand cache and the memo, then the
+      commits a third time, verified on the device again (0 memo hits).
+
+    Gates: service_leg's in every leg, the device deciding legs A and C
+    (device_decided), device waves > 0, K1 K2 K3 K4 and K2t launched on
+    the service path and no lab form.  If leg C's waves never reach the
+    resident-tables dispatch it runs again, after another rotation, with
+    merge="never" (the per-commit form of phase_stream)."""
+    from ed25519_consensus_tpu_torch import (batch, devcache, service,
+                                             tenancy, verdictcache)
+
+    heights, bad_h = state["comet_heights"]
+    comet_truth = [h != bad_h for h in range(COMET_HEIGHTS)]
+    rpc = rpc_batches(RPC_SUBMISSIONS)
+    for ents, want in rpc[:16]:
+        if batch._host_verdict(verifiers([ents])[0],
+                               random.Random(5)) != want:
+            raise AssertionError("rpc host truth differs from its "
+                                 "construction")
+
+    def commits(cls):
+        return [(v, cls, "cometbft", want) for v, want in
+                zip(verifiers(heights), comet_truth)]
+
+    def rotate():
+        devcache.default_cache().rotate_tenant("cometbft", "smoke")
+        verdictcache.default_cache().rotate_tenant("cometbft", "smoke")
+
+    devcache.set_default_cache(devcache.DeviceOperandCache(enabled=True))
+    verdictcache.set_default_cache(None)
+    batch.reset_device_health()
+    legs = {}
+    totals = dict.fromkeys(state["stream_launches"], 0)
+    leg_a = []
+    for h, (v, cls, tenant, want) in enumerate(
+            commits(tenancy.CLASS_MEMPOOL)):
+        leg_a.append((v, cls, tenant, want))
+        ents, rwant = rpc[h]
+        leg_a.append((verifiers([ents])[0], tenancy.CLASS_RPC, None, rwant))
+        if h == COMET_HEIGHTS // 2:
+            leg_a.append((state["verifier"].clone(),
+                          tenancy.CLASS_CONSENSUS, "zcash", True))
+    legs["A"] = service_leg(
+        f"leg A, mempool admission ({COMET_HEIGHTS} commits, zcash10k, "
+        f"{RPC_SUBMISSIONS} rpc)", leg_a)
+    legs["B"] = service_leg(
+        f"leg B, block inclusion (the {COMET_HEIGHTS} commits, consensus)",
+        commits(tenancy.CLASS_CONSENSUS))
+    rotate()
+    legs["C"] = service_leg(
+        "leg C, vote replay after rotate_tenant(cometbft)",
+        commits(tenancy.CLASS_CONSENSUS))
+    if not (legs["C"]["launches"]["build_tables"]
+            and legs["C"]["launches"]["window_sums_tables"]):
+        log("  leg C never reached the resident-tables dispatch with the "
+            "default wave shaping: again, after another rotation, with "
+            "merge=never")
+        rotate()
+        legs["C-never"] = service_leg(
+            "leg C, merge=never", commits(tenancy.CLASS_CONSENSUS),
+            merge="never")
+    vc = verdictcache.default_cache().stats()
+    log(f"  verdict memo: {vc}")
+    b = legs["B"]
+    if b["totals"]["verdict_cache_hits"] != COMET_HEIGHTS \
+            or vc["rehash_mismatch"] or any(b["launches"].values()):
+        raise AssertionError(f"leg B: {b['totals']['verdict_cache_hits']} "
+                             f"memo hits of {COMET_HEIGHTS}, "
+                             f"{vc['rehash_mismatch']} re-hash mismatches, "
+                             f"launches {b['launches']}")
+    for name in [n for n in legs if n.startswith("C")]:
+        if legs[name]["totals"]["verdict_cache_hits"]:
+            raise AssertionError(f"leg {name} hit the memo after the "
+                                 f"rotation")
+    for name in legs:
+        if name != "B":
+            device_decided(f"leg {name}", legs[name])
+    if not sum(leg["totals"]["device_waves"] for leg in legs.values()):
+        raise AssertionError("no device wave")
+    for leg in legs.values():
+        for k, v in leg["launches"].items():
+            totals[k] += v
+    need_launches("the service path", totals, SERVICE_KERNELS)
+    no_lab_forms("the service path", totals)
+    state["service_launches"] = totals
+    devcache.set_default_cache(None)
+    verdictcache.set_default_cache(None)
+
+
+def phase_soak(state: dict) -> None:
+    """The port's overload soak (tools/load_soak.py) at its defaults on
+    the card — four rounds of three submitters against a 48-signature
+    VerifyService, seeded traffic classes and deadlines, and the "mixed"
+    storm (errors, stalls, corrupted sums at the lane): nothing lost,
+    every verdict host-identical."""
+    from ed25519_consensus_tpu_torch.tools import load_soak
+
+    summary = load_soak.soak(load_soak.parse_args(["--storm", "mixed"]))
+    log(f"  load_soak --storm mixed: {json.dumps(summary)}")
+    if not summary["ok"]:
+        raise AssertionError("load_soak --storm mixed: a request was "
+                             "lost or a verdict differs from the host")
+    state["soak"] = summary
 
 
 def no_lab_forms(label: str, counts: dict) -> None:
@@ -1192,6 +1464,7 @@ def phase_stream(report: dict, state: dict) -> None:
     # cometbft128: 128 validators, the same set every height
     t = time.perf_counter()
     heights, bad_h = comet_heights()
+    state["comet_heights"] = (heights, bad_h)
     state["comet_verifier"] = batch.Verifier()
     state["comet_verifier"].queue_bulk(heights[0])
 
@@ -2723,7 +2996,9 @@ def main() -> int:
     timed(phase_mesh, report, state)
     timed(phase_affine, report, state)
     timed(phase_vectors, report)
-    for path in ("stream", "mesh", "affine"):
+    timed(phase_service, report, state)
+    timed(phase_soak, state)
+    for path in ("stream", "mesh", "affine", "service"):
         no_lab_forms(f"the {path} path", state[f"{path}_launches"])
         add_launches(report, state[f"{path}_launches"])
         log(f"{path} path launches (all passes): "

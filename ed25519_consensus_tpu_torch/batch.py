@@ -580,12 +580,34 @@ class Verifier:
             return b"".join(k.to_bytes() for k in self._key_index)
         return b"".join(k.to_bytes() for k in self._materialized())
 
+    def content_payload(self) -> "bytes | None":
+        """The canonical content PAYLOAD of the queued batch, the exact
+        bytes `content_digest()` hashes: a domain prefix, the batch size,
+        the keyset blob, the per-signature group ids and the s/R/k
+        queue-order buffers.  The verdict cache (verdictcache.py) stores
+        it beside a memoized verdict and re-hashes it on every hit.  None
+        under the `content_digest()` conditions."""
+        if not self._buffers_live() or self._invalid is not None:
+            return None
+        return b"".join((
+            b"ed25519-tpu-batch-content-v1",
+            self.batch_size.to_bytes(8, "little"),
+            self._canonical_keyset_blob(),
+            self._gid.tobytes(),
+            bytes(self._s_buf),
+            bytes(self._r_buf),
+            bytes(self._k_buf),
+        ))
+
     def content_digest(self) -> "bytes | None":
         """SHA-256 over the queued batch's canonical content (batch size,
         keyset blob, group ids, the s/R/k buffers): two verifiers share a
         digest iff they received byte-identical queue streams.  None when
         the digest cannot vouch for the contents (map exposed, or
-        `invalidate()`d)."""
+        `invalidate()`d).  Streams the parts of `content_payload()`
+        through the hash, so it is bitwise sha256(content_payload())
+        without the concatenated copy (it runs on every service
+        submit)."""
         if not self._buffers_live() or self._invalid is not None:
             return None
         h = hashlib.sha256(b"ed25519-tpu-batch-content-v1")

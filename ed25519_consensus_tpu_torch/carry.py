@@ -1,11 +1,13 @@
 """Carrying state across from the JAX package.
 
 The system has no weights: its state is the staged batch and, for a
-recurring keyset, the resident head operands and multiples tables.  These
-functions take that state as plain numpy arrays, bytes and ints — never as
-objects of the JAX package, which the port does not import — and build the
-port's own, so that the same blinders give byte-identical device operands
-and the same resident bytes in both packages."""
+recurring keyset, the resident head operands and multiples tables, the
+tenant partitions of those keysets, and the memoized verdicts of the
+service's front door.  These functions take that state as plain numpy
+arrays, bytes and ints — never as objects of the JAX package, which the
+port does not import — and build the port's own, so that the same
+blinders give byte-identical device operands, the same resident bytes and
+the same memo answers in both packages."""
 
 import numpy as np
 
@@ -114,3 +116,55 @@ def chip_registry_from_reference(states, registry=None):
         elif st["state"] in ("quarantined", "probation"):
             reg.quarantine_chip(chip, "carried from the reference")
     return reg
+
+
+def tenant_map_from_reference(assignments, tenant_epochs, cache=None):
+    """A reference devcache's tenant state — `assignments` {keyset digest
+    (bytes): tenant} and `tenant_epochs` {tenant: rotation epoch} —
+    applied to the port's device operand cache (the process default when
+    None): each digest is assigned, and each tenant rotated up to its
+    epoch (rotations are counted as in the reference).  Returns the
+    cache."""
+    from . import devcache
+
+    if cache is None:
+        cache = devcache.default_cache()
+    for digest, tenant in assignments.items():
+        cache.assign_tenant(bytes(digest), str(tenant))
+    for tenant, epoch in sorted(tenant_epochs.items()):
+        while cache.tenant_epoch_of(tenant) < int(epoch):
+            cache.rotate_tenant(tenant, "carried from the reference")
+    return cache
+
+
+def verdict_cache_from_reference(entries, current_pins=None, cache=None):
+    """A reference verdict cache's memos absorbed into the port's (the
+    process default when `cache` is None).  Each entry is (digest,
+    payload, verdict, tenant, pins) or the same with the seal as a sixth
+    item, as bytes, bool, str and a 4-tuple of ints (epoch, tenant epoch,
+    companion epoch, companion tenant epoch).  With `current_pins`
+    {tenant: the reference's live pins}, an entry the reference itself
+    would find stale is skipped: carrying must not revive it.  Every
+    other entry goes through the port cache's own recovery gate
+    (`absorb_entry`: the payload must hash to the digest, the seal —
+    given — must derive from the verdict) and is pinned under the port's
+    live epochs.  Returns (absorbed, not absorbed — refused by the gate
+    or already live —, skipped as stale)."""
+    from . import verdictcache
+
+    if cache is None:
+        cache = verdictcache.default_cache()
+    absorbed = refused = stale = 0
+    for entry in entries:
+        digest, payload, verdict, tenant, pins = entry[:5]
+        seal = bytes(entry[5]) if len(entry) > 5 else None
+        if current_pins is not None and tuple(int(x) for x in pins) != \
+                tuple(int(x) for x in current_pins.get(tenant, ())):
+            stale += 1
+            continue
+        if cache.absorb_entry(bytes(digest), bytes(payload), bool(verdict),
+                              seal=seal, tenant=str(tenant)):
+            absorbed += 1
+        else:
+            refused += 1
+    return absorbed, refused, stale

@@ -132,6 +132,38 @@ KNOBS: "dict[str, Knob]" = dict([
     _k("ED25519_TPU_SUSPICION_HALF_LIFE", "float", 300.0,
        "Half-life (registry-clock seconds) of per-chip suspicion "
        "scores."),
+    _k("ED25519_TPU_CLASS_WATERMARK_MEMPOOL", "float", 0.85,
+       "Queue-depth fraction of service capacity at which NEW "
+       "mempool-class submissions shed (the VerifyService "
+       "high-watermark default; consensus-class never watermark-"
+       "sheds)."),
+    _k("ED25519_TPU_CLASS_WATERMARK_RPC", "float", 0.50,
+       "Queue-depth fraction of service capacity at which NEW "
+       "rpc-class submissions shed; must not exceed the mempool "
+       "watermark (rpc sheds first under overload)."),
+    _k("ED25519_TPU_DEGRADED_CAPACITY", "opt-out", True,
+       "Set to 0/false/no to stop VerifyService from shrinking its "
+       "admission-watermark base by the live healthy-chip fraction "
+       "when the mesh is degraded (chip loss); the hard queue bound "
+       "never shrinks either way."),
+    _k("ED25519_TPU_DEVCACHE_TENANT_QUOTA", "int", 0,
+       "Per-tenant device-operand-cache residency quota in bytes "
+       "(cache QoS): >0 partitions the byte budget so one tenant's "
+       "keyset churn can never evict another tenant's entries; 0 "
+       "keeps the single shared LRU pool."),
+    _k("ED25519_TPU_VERDICT_CACHE_ENABLED", "opt-out", True,
+       "Set to 0/false/no to disable the content-addressed verdict "
+       "cache (verdictcache.py — the mempool→consensus double-verify "
+       "memo); every submission then verifies in full."),
+    _k("ED25519_TPU_VERDICT_CACHE_BYTES", "int", 1 << 24,
+       "Verdict cache residency budget in bytes (stored content "
+       "payloads; deterministic LRU eviction above it); 0 also "
+       "disables memoization."),
+    _k("ED25519_TPU_VERDICT_CACHE_TENANT_QUOTA", "int", 0,
+       "Per-tenant verdict-cache residency quota in bytes: >0 "
+       "partitions the byte budget so one tenant's replay churn can "
+       "never evict another tenant's memoized verdicts; 0 keeps the "
+       "single shared LRU pool."),
 ])
 
 

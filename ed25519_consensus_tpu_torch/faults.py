@@ -8,7 +8,9 @@ action; `install`ing one makes the dispatch boundaries consult it:
   the payload is each shard's chip id (parallel/mesh.shard_chips; None
   reads as 0 .. mesh − 1);
 * SITE_DEVCACHE — the device operand cache's lookup (devcache.py); "call
-  index" counts lookups and the payload is the cache itself.
+  index" counts lookups and the payload is the cache itself;
+* SITE_VERDICTCACHE — the verdict cache's lookup (verdictcache.py); "call
+  index" counts memo lookups and the payload is the cache itself.
 
 Fault classes: `ErrorOn` (the call raises), `TypedErrorOn` (raises one of
 the classifier's typed shapes), `StallFor` (virtual clocks advance, real
@@ -16,7 +18,9 @@ clocks sleep), `CorruptSum` (the result comes back with flipped entries),
 `KillLane` (the worker thread dies mid-flight), at the sharded seam
 `CorruptChipSum` (one chip corrupts its partial sum) and `ChipLoss` (chips
 die mid-wave, marked dead in the ChipRegistry), and at the cache seam
-`CorruptResidentEntry`, `EvictStorm` and `StaleEpochOn`.
+`CorruptResidentEntry`, `EvictStorm`, `StaleEpochOn` and `RotateTenant`,
+and at the memo seam `CorruptStoredVerdict` (`EvictStorm` and
+`StaleEpochOn` take either cache seam).
 
 Every decision is a pure function of (plan seed, site, call index), so a
 plan replayed over the same call stream injects identically.
@@ -27,9 +31,11 @@ raises DeviceError and gives no verdict); a corrupted sum can at worst
 make the device claim
 "reject", which verify_many re-decides on the host, or — one chip's partial
 sum, audited — a divergence the sentinel catches (the call raises); a
-corrupted, evicted
-or stale resident entry is caught by the cache's epoch and hash checks and
-restages.  With no plan installed, `run_device_call` is one read and one
+corrupted, evicted,
+stale or rotated resident entry is caught by the cache's epoch and hash
+checks and restages; a corrupted, evicted or stale memoized verdict is
+caught by the verdict cache's epoch pins and re-hash and verifies in
+full.  With no plan installed, `run_device_call` is one read and one
 `is None` check.
 """
 
@@ -42,18 +48,21 @@ from contextlib import contextmanager
 import numpy as np
 
 __all__ = [
-    "SITE_LANE", "SITE_SHARDED", "SITE_DEVCACHE", "InjectedFault",
+    "SITE_LANE", "SITE_SHARDED", "SITE_DEVCACHE", "SITE_VERDICTCACHE",
+    "InjectedFault",
     "TransientDispatchError", "FatalChipError", "LaneDeathSignal", "Fault",
     "ErrorOn", "TypedErrorOn", "StallFor", "CorruptSum", "CorruptChipSum",
     "KillLane", "ChipLoss",
-    "CorruptResidentEntry", "EvictStorm", "StaleEpochOn", "FaultPlan",
-    "storm_plan", "devcache_plan", "typed_error_plan", "install",
-    "uninstall", "injected", "run_device_call",
+    "CorruptResidentEntry", "EvictStorm", "StaleEpochOn", "RotateTenant",
+    "CorruptStoredVerdict", "FaultPlan", "randomized_plan",
+    "storm_plan", "devcache_plan", "verdictcache_plan", "typed_error_plan",
+    "install", "uninstall", "injected", "active_plan", "run_device_call",
 ]
 
 SITE_LANE = "lane"
 SITE_SHARDED = "sharded"
 SITE_DEVCACHE = "devcache"
+SITE_VERDICTCACHE = "verdictcache"
 
 
 class InjectedFault(RuntimeError):
@@ -119,6 +128,9 @@ class Fault:
     def after(self, ctx, out):
         """May transform the completed result."""
         return out
+
+    def kind(self) -> str:
+        return type(self).__name__
 
 
 class ErrorOn(Fault):
@@ -323,8 +335,9 @@ class CorruptResidentEntry(Fault):
 
 
 class EvictStorm(Fault):
-    """Drop EVERY resident entry at the faulted lookup (the payload is the
-    cache): the lookup becomes a miss and the batch restages."""
+    """Drop EVERY entry at the faulted lookup (the payload is the cache):
+    the lookup becomes a miss and the batch restages, or — at the
+    verdict cache's seam — verifies in full."""
 
     def __init__(self, on=0, site: str = SITE_DEVCACHE):
         super().__init__(on=on, site=site)
@@ -336,7 +349,7 @@ class EvictStorm(Fault):
 
 class StaleEpochOn(Fault):
     """Bump the cache epoch at the faulted lookup, so the entry about to
-    be returned is stale and restages."""
+    be returned is stale and restages (or, a memo, verifies in full)."""
 
     def __init__(self, on=0, site: str = SITE_DEVCACHE):
         super().__init__(on=on, site=site)
@@ -344,6 +357,47 @@ class StaleEpochOn(Fault):
     def before(self, ctx):
         if ctx.payload is not None:
             ctx.payload.bump_epoch("stale-epoch fault")
+
+
+class CorruptStoredVerdict(Fault):
+    """Flip the STORED VERDICT BIT of the looked-up verdict-cache entry
+    (SITE_VERDICTCACHE; `out` is the entry the lookup found), and with
+    `flip_payload` a payload byte too.  The cache's per-hit re-hash runs
+    after this seam: the flipped bit fails the seal (a flipped payload
+    byte the digest), the entry drops, and the submission verifies in
+    full — a corrupted stored verdict is never published."""
+
+    def __init__(self, on=0, flip_payload: bool = False):
+        super().__init__(on=on, site=SITE_VERDICTCACHE)
+        self.flip_payload = bool(flip_payload)
+
+    def after(self, ctx, out):
+        if out is not None:
+            out.verdict = not out.verdict
+            if self.flip_payload:
+                rng = random.Random(_stable_seed(
+                    ctx.plan.seed, ctx.site, ctx.index, "verdict"))
+                b = bytearray(out.payload)
+                if b:
+                    b[rng.randrange(len(b))] ^= 1 << rng.randrange(8)
+                out.payload = bytes(b)
+        return out
+
+
+class RotateTenant(Fault):
+    """Rotate ONE tenant's keyset epoch at the faulted devcache lookup (a
+    validator-set rotation landing mid-wave): that tenant's resident
+    entries go stale and restage; every other tenant's residency is
+    untouched."""
+
+    def __init__(self, on=0, tenant: str = "default"):
+        super().__init__(on=on, site=SITE_DEVCACHE)
+        self.tenant = tenant
+
+    def before(self, ctx):
+        if ctx.payload is not None:
+            ctx.payload.rotate_tenant(self.tenant,
+                                      "rotation fault (mid-wave)")
 
 
 class _CallContext:
@@ -367,10 +421,16 @@ class FaultPlan:
         self.seed = int(seed)
         self._lock = threading.Lock()
         self._counts = {}
+        self._log = []
 
     def calls_seen(self, site: str = SITE_LANE) -> int:
         with self._lock:
             return self._counts.get(site, 0)
+
+    def injection_log(self) -> "list[tuple]":
+        """(site, index, fault kind) of every fault applied, in order."""
+        with self._lock:
+            return list(self._log)
 
     def run(self, site: str, fn, *, clock=None, payload=None, mesh=None):
         with self._lock:
@@ -379,12 +439,35 @@ class FaultPlan:
         fired = [f for f in self.faults
                  if f.site == site and f.fires_on(idx)]
         ctx = _CallContext(self, site, idx, clock, payload, mesh)
+        if fired:
+            with self._lock:
+                self._log.extend((site, idx, f.kind()) for f in fired)
         for f in fired:
             f.before(ctx)
         out = fn()
         for f in fired:
             out = f.after(ctx, out)
         return out
+
+
+def randomized_plan(seed: int, error_rate: float = 0.1,
+                    stall_rate: float = 0.05, stall_seconds: float = 0.05,
+                    corrupt_rate: float = 0.05,
+                    site: str = SITE_LANE) -> FaultPlan:
+    """Per call index, draw independently (from the seed) whether to
+    error, stall or corrupt; rates are per-call probabilities."""
+
+    def drawn(kind, rate):
+        def fires(i, kind=kind, rate=rate):
+            return random.Random(
+                _stable_seed(seed, site, i, kind)).random() < rate
+        return fires
+
+    return FaultPlan([
+        ErrorOn(on=drawn("error", error_rate), site=site),
+        StallFor(stall_seconds, on=drawn("stall", stall_rate), site=site),
+        CorruptSum(on=drawn("corrupt", corrupt_rate), site=site),
+    ], seed=seed)
 
 
 def storm_plan(seed: int, kind: str, at: int = 0, length: int = 1,
@@ -407,10 +490,11 @@ def storm_plan(seed: int, kind: str, at: int = 0, length: int = 1,
 
 
 def devcache_plan(seed: int, kind: str, at: int = 0, length: int = 1,
-                  flips: int = 4) -> FaultPlan:
+                  flips: int = 4, tenant: str = "default") -> FaultPlan:
     """A fault window over the device operand cache's LOOKUP stream:
-    ``corrupt`` (flip host-mirror bytes), ``evict`` (drop all residency)
-    or ``stale`` (bump the epoch)."""
+    ``corrupt`` (flip host-mirror bytes), ``evict`` (drop all residency),
+    ``stale`` (bump the epoch) or ``rotate`` (rotate `tenant`'s keyset
+    epoch: exactly that tenant's entries restage)."""
     window = range(at, at + max(1, length))
     if kind == "corrupt":
         faults = [CorruptResidentEntry(on=window, flips=flips)]
@@ -418,8 +502,31 @@ def devcache_plan(seed: int, kind: str, at: int = 0, length: int = 1,
         faults = [EvictStorm(on=window)]
     elif kind == "stale":
         faults = [StaleEpochOn(on=window)]
+    elif kind == "rotate":
+        faults = [RotateTenant(on=window, tenant=tenant)]
     else:
         raise ValueError(f"unknown devcache fault kind {kind!r}")
+    return FaultPlan(faults, seed=seed)
+
+
+def verdictcache_plan(seed: int, kind: str, at: int = 0,
+                      length: int = 1) -> FaultPlan:
+    """A fault window over the VERDICT CACHE's lookup stream:
+    ``corrupt-verdict`` (flip the stored verdict bit: the seal re-hash
+    catches it), ``corrupt-payload`` (the bit and a payload byte: the
+    digest re-hash catches it), ``evict`` (drop every stored verdict) or
+    ``stale`` (bump the cache epoch)."""
+    window = range(at, at + max(1, length))
+    if kind == "corrupt-verdict":
+        faults = [CorruptStoredVerdict(on=window)]
+    elif kind == "corrupt-payload":
+        faults = [CorruptStoredVerdict(on=window, flip_payload=True)]
+    elif kind == "evict":
+        faults = [EvictStorm(on=window, site=SITE_VERDICTCACHE)]
+    elif kind == "stale":
+        faults = [StaleEpochOn(on=window, site=SITE_VERDICTCACHE)]
+    else:
+        raise ValueError(f"unknown verdictcache fault kind {kind!r}")
     return FaultPlan(faults, seed=seed)
 
 
@@ -449,6 +556,11 @@ def install(plan: FaultPlan) -> FaultPlan:
 def uninstall() -> None:
     with _active_lock:
         _active[0] = None
+
+
+def active_plan() -> "FaultPlan | None":
+    with _active_lock:
+        return _active[0]
 
 
 @contextmanager

@@ -180,6 +180,11 @@ class FakeClock(Clock):
         with self._lock:
             self._now += float(seconds)
 
+    def advance_to(self, t: float) -> None:
+        """Move to `t` (never backwards)."""
+        with self._lock:
+            self._now = max(self._now, float(t))
+
 
 _lane_stuck_latch = [False]
 _latch_lock = threading.Lock()
@@ -575,6 +580,22 @@ class Backoff:
             d = self.delay_for(self._attempt)
             self._until = self.clock.monotonic() + d
             return d
+
+    def expired(self) -> bool:
+        """True once the armed delay has elapsed (or none is armed)."""
+        with self._lock:
+            return self.clock.monotonic() >= self._until
+
+    def reset(self) -> None:
+        with self._lock:
+            self._attempt = 0
+            self._until = 0.0
+
+    def __repr__(self):
+        with self._lock:
+            return (f"Backoff(attempt={self._attempt}, "
+                    f"until={self._until:.3f}, base={self.base}, "
+                    f"max_delay={self.max_delay})")
 
 
 _registry: "dict[int, DeviceHealth]" = {}

@@ -1,7 +1,8 @@
 """Conformance-test fixture generators (reference tests/util/mod.rs:66-155).
 
 These enumerate every non-canonical Ed25519 encoding class that ZIP215 forces
-implementations to agree on."""
+implementations to agree on, plus the libsodium-1.0.15 blacklist used by the
+legacy (pre-ZIP215) rules (utils/legacy.py)."""
 
 from ..ops import edwards
 from ..ops.field import P
@@ -50,3 +51,24 @@ def non_canonical_point_encodings():
         assert pt is not None and pt.compress() != enc, enc.hex()
 
     return encodings
+
+
+# Point encodings blacklisted by libsodium 1.0.15 in an (unsuccessful)
+# attempt to exclude low-order points; pinned by the Zcash protocol spec and
+# the legacy rule set (reference tests/util/mod.rs:204-265).
+EXCLUDED_POINT_ENCODINGS = [
+    bytes.fromhex(h)
+    for h in [
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0100000000000000000000000000000000000000000000000000000000000000",
+        "26e8958fc2b227b045c3f489f2ef98f0d5dfac05d3c63339b13802886d53fc05",
+        "c7176a703d4dd84fba3c0b760d10670f2a2053fa2c39ccc64ec7fd7792ac037a",
+        "13e8958fc2b227b045c3f489f2ef98f0d5dfac05d3c63339b13802886d53fc85",
+        "b4176a703d4dd84fba3c0b760d10670f2a2053fa2c39ccc64ec7fd7792ac03fa",
+        "ecffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+        "edffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+        "eeffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+        "d9ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff",
+        "daffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff",
+    ]
+]

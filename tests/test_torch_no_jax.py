@@ -4,9 +4,12 @@ import neither `jax` nor anything of the JAX package `ed25519_consensus_tpu`
 runtime), and its device entry points never fall back to the CPU unasked.
 The blocked-import run drives the native runtime, verify_many through
 resident tables, the sharded mesh (two shards on the CPU, the sentinel
-audit, the affine wire, the sharded backend) and the kernel lab's tools
-(tools/kernel_lab.py, tools/microbench.py, the probes) as well; the kernel
-sources in csrc/, probes.cu among them, include nothing outside the port.
+audit, the affine wire, the sharded backend), the kernel lab's tools
+(tools/kernel_lab.py, tools/microbench.py, the probes), and the service
+stack — serde, the legacy oracle, tenancy, the verdict memo, VerifyService
+and its two tools (tools/replay_lab.py, tools/load_soak.py) — as well; the
+kernel sources in csrc/, probes.cu among them, include nothing outside the
+port.
 
 Careful with names: `ed25519_consensus_tpu_torch` starts with
 `ed25519_consensus_tpu`, so a blocked name is matched exactly or as a
@@ -141,6 +144,32 @@ microbench.profile_ledger(1, 64, reps=1, device="cpu")
 x = torch.arange(256, dtype=torch.int32).reshape(2, 128)
 assert torch.equal(probes.chain(x, "madd", 5),
                    probes.chain_plain(x, "madd", 5))
+
+# The service stack: serde, the legacy oracle, tenancy, the verdict memo,
+# VerifyService (a memo hit at the front door) and its two tools.
+from ed25519_consensus_tpu_torch import serde, service, tenancy, verdictcache
+from ed25519_consensus_tpu_torch.tools import load_soak, replay_lab
+from ed25519_consensus_tpu_torch.utils import legacy
+
+vk = sk.verification_key()
+assert serde.from_json(serde.to_json(vk)).to_bytes() == vk.to_bytes()
+assert legacy.legacy_verify(vk.to_bytes(), sig.to_bytes(),
+                            b"port without jax")
+assert tenancy.arrivals("burst", 20.0, 5.0, seed=1)
+vc = verdictcache.VerdictCache(budget_bytes=1 << 20, enabled=True)
+with service.VerifyService(device="cpu", auto_start=False, clock=clock,
+                           health=health.DeviceHealth(clock=clock),
+                           verdict_cache=vc, chunk=2) as svc:
+    t1 = svc.submit(entries, cls="mempool", tenant="t")
+    svc.process_once()
+    t2 = svc.submit(entries, cls="consensus", tenant="t")
+    assert t1.result(0) and t2.done() and t2.result(0)
+assert svc.stats()["verdict_cache_hits"] == 1
+assert replay_lab.run_lab(replay_lab.parse_args(["--txs", "6",
+                                                 "--sigs", "2"]))["ok"]
+assert load_soak.soak(load_soak.parse_args([
+    "--device", "cpu", "--storm", "error", "--rounds", "1",
+    "--submitters", "1", "--requests", "4"]))["ok"]
 batch._DeviceLane.reset_all()
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
