@@ -870,6 +870,240 @@ def phase_soak(state: dict) -> None:
     state["soak"] = summary
 
 
+SOAK_KERNELS = ("expand_compressed", "window_sums", "fold_partials",
+                "build_tables", "window_sums_tables")
+
+
+def hold_recorded_cold(label: str, calls) -> None:
+    """Every cold dispatch (K1, K2, K3) a path made held, on the card,
+    against the plain chain on the same operands, exactly; a difference
+    fails the run naming the chunk and its batches."""
+    import torch
+
+    from ed25519_consensus_tpu_torch.ops import msm
+    from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+
+    bad = []
+    for c, ((digits, wire, *_), out) in enumerate(calls):
+        d = msm.as_tensor(digits, DEV)
+        w = msm.as_tensor(wire, DEV)
+        want = msm.fold_partials_plain(msm.window_partials_plain(
+            d, TD.expand_compressed_points_plain(w)))
+        if not torch.equal(out, want):
+            rows = [b for b in range(out.shape[0])
+                    if not torch.equal(out[b], want[b])]
+            log(f"  {label} cold chunk {c}: batches {rows} differ from the "
+                f"plain versions")
+            bad.append(c)
+    log(f"  {label}: {len(calls) - len(bad)}/{len(calls)} cold dispatches "
+        f"equal their plain versions (K1, K2, K3; exact)")
+    if bad:
+        raise AssertionError(f"{label}: device window sums differ from the "
+                             f"plain versions in cold chunks {bad}")
+
+
+def phase_verdict_soaks(state: dict) -> None:
+    """The verdict soaks on the card, through verify_many(hybrid=False,
+    merge="never") on cuda:0:
+
+    * tools/device_soak.py at three passes over its pool (24 batches of
+      20-400 signatures over 48 keys, torsion entries, half the batches
+      tampered), one batch a chunk: cold, built, then from resident tables
+      (ROADMAP §C's resident-keyset rounds).  Every verdict equals the
+      host's; every tables dispatch is held against the plain versions
+      (hold_recorded_tables) and at least one is required; a device reject
+      the host overturned fails the phase, with the cold dispatches held
+      too, so the chunk is named.
+    * tools/chaos_soak.py at its defaults for 8 rounds (randomized_plan:
+      errors, stalls, corrupted sums): no wrong verdict, rounds that raised
+      DeviceError counted, and at least one faulted round that finished
+      with verdicts (the port's gate).
+    * one chaos round with a flapping link (--flap 2) over 24 batches, so
+      the round reaches the flap's first down window (call 2): it must
+      raise DeviceError, with no wrong verdict.
+
+    Launches are counted from just before each soak to just after it (the
+    holds come after)."""
+    from ed25519_consensus_tpu_torch import devcache
+    from ed25519_consensus_tpu_torch.ops import _cuda
+    from ed25519_consensus_tpu_torch.tools import chaos_soak, device_soak
+
+    dev = "cuda:0" if DEV == "cuda" else DEV
+    totals = dict.fromkeys(_cuda.KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] += v
+
+    devcache.set_default_cache(devcache.DeviceOperandCache(enabled=True))
+    _cuda.reset_launch_counts()
+    with record_calls("dispatch_window_sums_many_tables") as tab, \
+            record_calls("dispatch_window_sums_many") as cold:
+        ds = device_soak.run(passes=3, device=dev,
+                             log=lambda m: log("  device_soak " + m))
+    counts = _cuda.launch_counts()
+    add(counts)
+    log(f"  device_soak: {ds['batches']} batches, {ds['sigs']} sigs a pass, "
+        f"chunk {ds['chunk']}; "
+        f"{[round(ds['sigs'] / p['seconds']) for p in ds['passes']]} sigs/s "
+        f"a pass; table dispatches {ds['table_dispatch_hits']}; rejects "
+        f"confirmed {[p['rejects_confirmed'] for p in ds['passes']]}, "
+        f"overturned {[p['rejects_overturned'] for p in ds['passes']]}; "
+        f"launches { {k: v for k, v in counts.items() if v} }; "
+        f"{smi_line()}")
+    if not ds["ok"]:
+        raise AssertionError(f"device_soak: verdicts differ from the host "
+                             f"at (pass, batch) {ds['wrong']}")
+    if not tab.calls or ds["table_dispatch_hits"] <= 0:
+        raise AssertionError("device_soak: no dispatch from resident tables")
+    hold_recorded_tables("device_soak", tab.calls)
+    if ds["rejects_overturned"]:
+        hold_recorded_cold("device_soak", cold.calls)
+        raise AssertionError(
+            f"device_soak: the host overturned {ds['rejects_overturned']} "
+            f"device rejects (per pass "
+            f"{[p['rejects_overturned'] for p in ds['passes']]}; one batch "
+            f"a chunk, so the chunk is the batch): ROADMAP §C's fault")
+    devcache.set_default_cache(None)
+
+    chaos = {}
+    for label, argv in (("8 rounds", ["--rounds", "8"]),
+                        ("flap 2", ["--rounds", "1", "--flap", "2",
+                                    "--batches", "24"])):
+        _cuda.reset_launch_counts()
+        summary = chaos_soak.soak(
+            chaos_soak.parse_args(argv + ["--device", dev]),
+            log=lambda m: log("  chaos_soak " + m))
+        counts = _cuda.launch_counts()
+        add(counts)
+        chaos[label] = summary
+        log(f"  chaos_soak {label}: "
+            f"{ {k: v for k, v in summary.items() if k != 'fault_counters'} }"
+            f"; launches { {k: v for k, v in counts.items() if v} }")
+        if summary["wrong_rounds"]:
+            raise AssertionError(f"chaos_soak {label}: a round passed with "
+                                 f"a wrong verdict")
+    if not chaos["8 rounds"]["ok"]:
+        raise AssertionError("chaos_soak: no round with an injected fault "
+                             "finished with verdicts")
+    flap = chaos["flap 2"]
+    if flap["rounds_raised"] != 1 or not flap["fault_kinds"].get(
+            "FlappingLink"):
+        raise AssertionError(f"chaos_soak --flap 2: the flap did not fire "
+                             f"and raise: {flap}")
+    need_launches("the verdict soaks", totals, SOAK_KERNELS)
+    no_lab_forms("the verdict soaks", totals)
+    state["verdict_soaks_launches"] = totals
+    state["verdict_soaks"] = {"device_soak": ds, "chaos": chaos}
+
+
+def phase_restart(state: dict) -> None:
+    """The durable verdict state on the card, at the front door's size: the
+    cometbft128 stream (256 commits x 128 signatures, height 77 tampered)
+    as consensus class through a VerifyService(device="cuda:0", mesh=0,
+    hybrid=False, persist_dir=<tmp>) on a fresh verdict memo and device
+    operand cache, driven by process_once.  Life 1 journals 256 records
+    and is abandoned (no close, no flush: a hard kill).  Life 2 is a fresh
+    service, memo and devcache on the same directory: it must absorb all
+    256 records and serve every commit from the memo at submit — 256
+    hits, 0 waves, 0 launches.  Then the two lives again under
+    faults.persist_plan("bitrot") on life 1's appends: life 2's load
+    report must drop a record, the dropped commits are verified on the
+    card again (K1-K3), and every verdict of every life equals the
+    host's."""
+    import tempfile
+
+    from ed25519_consensus_tpu_torch import (devcache, faults, service,
+                                             tenancy, verdictcache)
+    from ed25519_consensus_tpu_torch.ops import _cuda
+
+    heights, bad_h = state["comet_heights"]
+    truth = [h != bad_h for h in range(COMET_HEIGHTS)]
+    dev = "cuda:0" if DEV == "cuda" else DEV
+    totals = dict.fromkeys(_cuda.KERNELS, 0)
+
+    def life(label, pdir, plan=None):
+        devcache.set_default_cache(devcache.DeviceOperandCache(enabled=True))
+        vc = verdictcache.VerdictCache()
+        svc = service.VerifyService(device=dev, mesh=0, hybrid=False,
+                                    persist_dir=pdir, verdict_cache=vc,
+                                    auto_start=False)
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        if plan is not None:
+            faults.install(plan)
+        try:
+            tickets = [svc.submit(v, cls=tenancy.CLASS_CONSENSUS,
+                                  tenant="cometbft")
+                       for v in verifiers(heights)]
+            at_submit = sum(t.done() for t in tickets)
+            while svc.process_once():
+                pass
+        finally:
+            if plan is not None:
+                faults.uninstall()
+        got = [t.result(0) for t in tickets]
+        dt = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        for k, v in counts.items():
+            totals[k] += v
+        st = svc.stats()
+        journal = vc.journal()
+        rep = journal.last_load_report
+        rec = {"seconds": dt, "sigs_per_s": COMET_HEIGHTS * COMET_KEYS / dt,
+               "resolved_at_submit": at_submit,
+               "hits": st["verdict_cache_hits"], "waves": st["waves"],
+               "device_waves": st["device_waves"],
+               "device_error_waves": st["device_error_waves"],
+               "appends": journal.counters["appends"],
+               "journal_bytes": os.path.getsize(journal.path),
+               "absorbed": rep["absorbed"], "dropped": {
+                   k: v for k, v in rep["dropped"].items() if v},
+               "file_dropped": rep["file_dropped"],
+               "launches": {k: v for k, v in counts.items() if v}}
+        log(f"  {label}: {rec}")
+        rec["counts"] = counts
+        if got != truth:
+            bad = [h for h, (g, w) in enumerate(zip(got, truth)) if g != w]
+            raise AssertionError(f"{label}: verdicts differ from the host at "
+                                 f"heights {bad}")
+        return rec
+
+    runs = {}
+    for kind in ("clean", "bitrot"):
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-journal-") as d:
+            plan = None if kind == "clean" else faults.persist_plan(
+                0x5EED, "bitrot")
+            one = life(f"{kind}, life 1", d, plan)
+            # The hard kill: life 1's service was dropped unclosed.
+            two = life(f"{kind}, life 2 (revived)", d)
+        runs[kind] = (one, two)
+        if one["appends"] != COMET_HEIGHTS or one["device_error_waves"]:
+            raise AssertionError(f"{kind}: life 1 appended "
+                                 f"{one['appends']} records of "
+                                 f"{COMET_HEIGHTS}")
+        need_launches(f"{kind} life 1", one["counts"], SOAK_KERNELS[:3])
+    one, two = runs["clean"]
+    if (two["absorbed"] != COMET_HEIGHTS or two["hits"] != COMET_HEIGHTS
+            or two["resolved_at_submit"] != COMET_HEIGHTS or two["waves"]
+            or two["launches"]):
+        raise AssertionError(f"the revived service did not serve every "
+                             f"commit from the journal: {two}")
+    _one, rot = runs["bitrot"]
+    dropped = COMET_HEIGHTS - rot["absorbed"]
+    if not dropped or not rot["dropped"] or rot["hits"] != rot["absorbed"] \
+            or not rot["device_waves"]:
+        raise AssertionError(f"bitrot: the load report dropped nothing or "
+                             f"the dropped commits were not re-verified on "
+                             f"the device: {rot}")
+    need_launches("bitrot life 2", rot["counts"], SOAK_KERNELS[:3])
+    no_lab_forms("the restart path", totals)
+    state["restart_launches"] = totals
+    state["restart"] = runs
+    devcache.set_default_cache(None)
+    verdictcache.set_default_cache(None)
+
+
 def no_lab_forms(label: str, counts: dict) -> None:
     """Fails if a verdict path launched a 20-limb (-l20) kernel — the
     lab's window_sums-l20, window_sums_tables-l20, expand_compressed-l20,
@@ -1354,7 +1588,7 @@ def hold_recorded_tables(label: str, calls) -> None:
     for c, ((digits, head, rwire, *_), out) in enumerate(calls):
         d = msm.as_tensor(digits, DEV)
         rw = msm.as_tensor(rwire, DEV)
-        ht = head[None]
+        ht = msm.as_tensor(head, DEV)[None]
         ext = TD.expand_compressed_points_plain(rw)
         tbl = msm.build_tables_plain(ext)
         part = msm.window_partials_tables_plain(d, ht, tbl)
@@ -2998,7 +3232,10 @@ def main() -> int:
     timed(phase_vectors, report)
     timed(phase_service, report, state)
     timed(phase_soak, state)
-    for path in ("stream", "mesh", "affine", "service"):
+    timed(phase_verdict_soaks, state)
+    timed(phase_restart, state)
+    for path in ("stream", "mesh", "affine", "service", "verdict_soaks",
+                 "restart"):
         no_lab_forms(f"the {path} path", state[f"{path}_launches"])
         add_launches(report, state[f"{path}_launches"])
         log(f"{path} path launches (all passes): "

@@ -15,6 +15,9 @@ Type conventions:
 * ``opt-out`` — boolean, default True; ONLY ``0``/``false``/``no`` disable.
 * ``flag``    — boolean, default False; any non-empty value enables.
 * ``float`` / ``int`` — parsed strictly; unset or empty means the default.
+* ``path``    — raw string; unset returns the default, an explicitly
+  empty value is returned as is (and reads as "off" where a path is
+  optional).
 """
 
 import contextlib
@@ -26,7 +29,7 @@ __all__ = ["ConfigError", "Knob", "KNOBS", "get", "override"]
 
 _OPT_IN_TRUE = ("1", "true", "yes")
 _OPT_OUT_FALSE = ("0", "false", "no")
-_TYPES = ("choice", "opt-in", "opt-out", "flag", "float", "int")
+_TYPES = ("choice", "opt-in", "opt-out", "flag", "float", "int", "path")
 
 
 class Knob:
@@ -56,6 +59,8 @@ class Knob:
             return (raw or "").lower() not in _OPT_OUT_FALSE
         if self.type == "flag":
             return bool(raw)
+        if self.type == "path":
+            return self.default if raw is None else raw
         if not raw:
             return self.default
         try:
@@ -164,6 +169,23 @@ KNOBS: "dict[str, Knob]" = dict([
        "partitions the byte budget so one tenant's replay churn can "
        "never evict another tenant's memoized verdicts; 0 keeps the "
        "single shared LRU pool."),
+    _k("ED25519_TPU_PERSIST_DIR", "path", None,
+       "Directory for the verdict-store journal/snapshot files "
+       "(persist.py — crash-consistent restart warmth); unset/empty "
+       "disables persistence and the memo store is process-lifetime "
+       "only."),
+    _k("ED25519_TPU_PERSIST_FSYNC", "choice", "close",
+       "Verdict-journal fsync policy: `always` (fsync every appended "
+       "record), `close` (fsync on service drain/flush and snapshot "
+       "compaction), or `never` (page cache only); the policy trades "
+       "post-crash WARMTH, never correctness — an unsynced record is "
+       "simply one the loader never sees.",
+       ("always", "close", "never")),
+    _k("ED25519_TPU_PERSIST_MAX_BYTES", "int", 1 << 26,
+       "Verdict-journal size in bytes above which the next append "
+       "triggers an atomic snapshot compaction (live entries "
+       "re-exported to a temp file, then rename) — bounds disk growth "
+       "from append-only churn."),
 ])
 
 

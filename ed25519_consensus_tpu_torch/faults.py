@@ -10,17 +10,22 @@ action; `install`ing one makes the dispatch boundaries consult it:
 * SITE_DEVCACHE — the device operand cache's lookup (devcache.py); "call
   index" counts lookups and the payload is the cache itself;
 * SITE_VERDICTCACHE — the verdict cache's lookup (verdictcache.py); "call
-  index" counts memo lookups and the payload is the cache itself.
+  index" counts memo lookups and the payload is the cache itself;
+* SITE_PERSIST — the verdict journal's append (persist.py); "call index"
+  counts journal record appends and the payload is the journal itself.
 
 Fault classes: `ErrorOn` (the call raises), `TypedErrorOn` (raises one of
 the classifier's typed shapes), `StallFor` (virtual clocks advance, real
-clocks sleep), `CorruptSum` (the result comes back with flipped entries),
+clocks sleep), `FlappingLink` (every other window of calls raises),
+`CorruptSum` (the result comes back with flipped entries),
 `KillLane` (the worker thread dies mid-flight), at the sharded seam
 `CorruptChipSum` (one chip corrupts its partial sum) and `ChipLoss` (chips
 die mid-wave, marked dead in the ChipRegistry), and at the cache seam
 `CorruptResidentEntry`, `EvictStorm`, `StaleEpochOn` and `RotateTenant`,
-and at the memo seam `CorruptStoredVerdict` (`EvictStorm` and
-`StaleEpochOn` take either cache seam).
+at the memo seam `CorruptStoredVerdict` (`EvictStorm` and
+`StaleEpochOn` take either cache seam), and at the journal seam the
+persistence storms `TornWrite`, `BitRot`, `TruncateJournal`,
+`VersionSkew` and `StaleEpochPins`.
 
 Every decision is a pure function of (plan seed, site, call index), so a
 plan replayed over the same call stream injects identically.
@@ -35,8 +40,9 @@ corrupted, evicted,
 stale or rotated resident entry is caught by the cache's epoch and hash
 checks and restages; a corrupted, evicted or stale memoized verdict is
 caught by the verdict cache's epoch pins and re-hash and verifies in
-full.  With no plan installed, `run_device_call` is one read and one
-`is None` check.
+full; a corrupted journal costs recovered records, never a verdict.
+With no plan installed, `run_device_call` is one read and one `is None`
+check.
 """
 
 import hashlib
@@ -49,13 +55,15 @@ import numpy as np
 
 __all__ = [
     "SITE_LANE", "SITE_SHARDED", "SITE_DEVCACHE", "SITE_VERDICTCACHE",
-    "InjectedFault",
+    "SITE_PERSIST", "InjectedFault",
     "TransientDispatchError", "FatalChipError", "LaneDeathSignal", "Fault",
-    "ErrorOn", "TypedErrorOn", "StallFor", "CorruptSum", "CorruptChipSum",
-    "KillLane", "ChipLoss",
+    "ErrorOn", "TypedErrorOn", "StallFor", "FlappingLink", "CorruptSum",
+    "CorruptChipSum", "KillLane", "ChipLoss",
     "CorruptResidentEntry", "EvictStorm", "StaleEpochOn", "RotateTenant",
-    "CorruptStoredVerdict", "FaultPlan", "randomized_plan",
-    "storm_plan", "devcache_plan", "verdictcache_plan", "typed_error_plan",
+    "CorruptStoredVerdict", "TornWrite", "BitRot", "TruncateJournal",
+    "VersionSkew", "StaleEpochPins", "FaultPlan", "randomized_plan",
+    "storm_plan", "devcache_plan", "verdictcache_plan", "persist_plan",
+    "typed_error_plan",
     "install", "uninstall", "injected", "active_plan", "run_device_call",
 ]
 
@@ -63,6 +71,7 @@ SITE_LANE = "lane"
 SITE_SHARDED = "sharded"
 SITE_DEVCACHE = "devcache"
 SITE_VERDICTCACHE = "verdictcache"
+SITE_PERSIST = "persist"
 
 
 class InjectedFault(RuntimeError):
@@ -186,6 +195,24 @@ class StallFor(Fault):
             clock.advance(self.seconds)
         else:
             time.sleep(self.seconds)
+
+
+class FlappingLink(Fault):
+    """A link that flaps with period `period`: calls in every other
+    period-sized window raise ("down"), the rest pass ("up").  The first
+    window is up, so a probe on a freshly flapping link still
+    measures."""
+
+    def __init__(self, period: int = 2, site: str = SITE_LANE):
+        if period < 1:
+            raise ValueError("period must be >= 1")
+        super().__init__(on=lambda i, p=period: (i // p) % 2 == 1,
+                         site=site)
+        self.period = period
+
+    def before(self, ctx):
+        raise InjectedFault(
+            f"flapping link down (site={ctx.site}, call={ctx.index})")
 
 
 def _host_copy(out):
@@ -400,6 +427,119 @@ class RotateTenant(Fault):
                                       "rotation fault (mid-wave)")
 
 
+# -- persistence storms (SITE_PERSIST; ctx.payload is the journal) --------
+#
+# All five act AFTER a completed journal append: the file is corrupted
+# between two well-formed writes, the state a crash or rot leaves for the
+# next process's recovery to judge.  A journal record only re-enters a
+# cache through the absorb re-hash gate, so every storm degrades to
+# dropped records (or a dropped file) and full verification.
+
+
+class TornWrite(Fault):
+    """Tear the LAST appended record: truncate the file so only `frac`
+    of that record's bytes survive (a crash or a full disk mid-append).
+    Recovery's framing walk drops the torn tail; every record before it
+    still loads."""
+
+    def __init__(self, on=0, frac: float = 0.5):
+        super().__init__(on=on, site=SITE_PERSIST)
+        self.frac = float(frac)
+
+    def after(self, ctx, out):
+        span = getattr(ctx.payload, "last_record_span", None)
+        if span is not None:
+            offset, length = span
+            keep = offset + max(1, int(length * self.frac))
+            with open(ctx.payload.path, "rb+") as fh:
+                fh.truncate(keep)
+        return out
+
+
+class BitRot(Fault):
+    """Flip bit(s) inside the LAST appended record's bytes (seeded from
+    the plan) under an intact file structure.  The per-record hash, the
+    payload re-hash or the seal gate catches it at load."""
+
+    def __init__(self, on=0, flips: int = 1):
+        super().__init__(on=on, site=SITE_PERSIST)
+        self.flips = int(flips)
+
+    def after(self, ctx, out):
+        span = getattr(ctx.payload, "last_record_span", None)
+        if span is not None:
+            offset, length = span
+            rng = random.Random(_stable_seed(
+                ctx.plan.seed, ctx.site, ctx.index, "bitrot"))
+            with open(ctx.payload.path, "rb+") as fh:
+                for _ in range(max(1, self.flips)):
+                    pos = offset + rng.randrange(length)
+                    fh.seek(pos)
+                    b = fh.read(1)
+                    fh.seek(pos)
+                    fh.write(bytes((b[0] ^ (1 << rng.randrange(8)),)))
+        return out
+
+
+class TruncateJournal(Fault):
+    """Truncate the journal's RECORD REGION to `frac` of its bytes (the
+    header survives): a lost tail bigger than one append.  Recovery loads
+    every record before the cut and drops the torn remainder."""
+
+    def __init__(self, on=0, frac: float = 0.5):
+        super().__init__(on=on, site=SITE_PERSIST)
+        self.frac = float(frac)
+
+    def after(self, ctx, out):
+        from . import persist as _persist
+
+        path = ctx.payload.path
+        with open(path, "rb") as fh:
+            data = fh.read()
+        parsed, _reason = _persist._parse_header(data)
+        if parsed is not None:
+            start = parsed["end"]
+            keep = start + int((len(data) - start) * self.frac)
+            with open(path, "rb+") as fh:
+                fh.truncate(keep)
+        return out
+
+
+class VersionSkew(Fault):
+    """Rewrite the journal header to a FUTURE format version with a VALID
+    header hash (persist.rewrite_header), so the gate under test is the
+    version gate: recovery drops the whole file."""
+
+    def __init__(self, on=0, skew: int = 1):
+        super().__init__(on=on, site=SITE_PERSIST)
+        self.skew = int(skew)
+
+    def after(self, ctx, out):
+        from . import persist as _persist
+
+        _persist.rewrite_header(
+            ctx.payload.path,
+            version=_persist.FORMAT_VERSION + max(1, self.skew))
+        return out
+
+
+class StaleEpochPins(Fault):
+    """Bump the header's GLOBAL epoch pin far above every record's, with
+    a VALID header hash: the gate under test is the stale-pin rule, and
+    recovery drops every record as pre-forfeiture."""
+
+    def __init__(self, on=0, bump: int = 1000):
+        super().__init__(on=on, site=SITE_PERSIST)
+        self.bump = int(bump)
+
+    def after(self, ctx, out):
+        from . import persist as _persist
+
+        _persist.rewrite_header(ctx.payload.path,
+                                epoch_bump=max(1, self.bump))
+        return out
+
+
 class _CallContext:
     __slots__ = ("plan", "site", "index", "clock", "payload", "mesh")
 
@@ -452,10 +592,11 @@ class FaultPlan:
 
 def randomized_plan(seed: int, error_rate: float = 0.1,
                     stall_rate: float = 0.05, stall_seconds: float = 0.05,
-                    corrupt_rate: float = 0.05,
+                    corrupt_rate: float = 0.05, flap_period: int = 0,
                     site: str = SITE_LANE) -> FaultPlan:
     """Per call index, draw independently (from the seed) whether to
-    error, stall or corrupt; rates are per-call probabilities."""
+    error, stall or corrupt; rates are per-call probabilities.
+    `flap_period` > 0 adds a FlappingLink on top."""
 
     def drawn(kind, rate):
         def fires(i, kind=kind, rate=rate):
@@ -463,11 +604,14 @@ def randomized_plan(seed: int, error_rate: float = 0.1,
                 _stable_seed(seed, site, i, kind)).random() < rate
         return fires
 
-    return FaultPlan([
+    faults = [
         ErrorOn(on=drawn("error", error_rate), site=site),
         StallFor(stall_seconds, on=drawn("stall", stall_rate), site=site),
         CorruptSum(on=drawn("corrupt", corrupt_rate), site=site),
-    ], seed=seed)
+    ]
+    if flap_period:
+        faults.append(FlappingLink(period=flap_period, site=site))
+    return FaultPlan(faults, seed=seed)
 
 
 def storm_plan(seed: int, kind: str, at: int = 0, length: int = 1,
@@ -527,6 +671,32 @@ def verdictcache_plan(seed: int, kind: str, at: int = 0,
         faults = [StaleEpochOn(on=window, site=SITE_VERDICTCACHE)]
     else:
         raise ValueError(f"unknown verdictcache fault kind {kind!r}")
+    return FaultPlan(faults, seed=seed)
+
+
+def persist_plan(seed: int, kind: str, at: int = 0, length: int = 1,
+                 frac: float = 0.5, flips: int = 1,
+                 skew: int = 1, bump: int = 1000) -> FaultPlan:
+    """A persistence-storm window over the VERDICT JOURNAL's append stream
+    (SITE_PERSIST; indices count record appends): ``torn`` (tear the
+    appended record at `frac` of its bytes), ``bitrot`` (flip `flips`
+    bits in it), ``truncate`` (cut the record region to `frac`),
+    ``version-skew`` (header at FORMAT_VERSION + `skew`, valid hash) or
+    ``stale-pins`` (header epoch pin + `bump`, valid hash).  Each
+    degrades to dropped records or a dropped file and full verification."""
+    window = range(at, at + max(1, length))
+    if kind == "torn":
+        faults = [TornWrite(on=window, frac=frac)]
+    elif kind == "bitrot":
+        faults = [BitRot(on=window, flips=flips)]
+    elif kind == "truncate":
+        faults = [TruncateJournal(on=window, frac=frac)]
+    elif kind == "version-skew":
+        faults = [VersionSkew(on=window, skew=skew)]
+    elif kind == "stale-pins":
+        faults = [StaleEpochPins(on=window, bump=bump)]
+    else:
+        raise ValueError(f"unknown persist fault kind {kind!r}")
     return FaultPlan(faults, seed=seed)
 
 

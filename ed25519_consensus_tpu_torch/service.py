@@ -52,9 +52,9 @@ Two rungs are the port's own:
   the host route a crash is still re-decided on the host.
 
 Left out until the port has them: the hedge/straggler roll-up and the
-wave deadline passed to `verify_many` (the scheduler's hedging half),
-verdict-store persistence (`persist_dir`) and the federation's
-`replica_id` and `surrender_pending`.
+wave deadline passed to `verify_many` (the scheduler's hedging half), and
+the federation's `replica_id` and `surrender_pending`.  Verdict-store
+persistence (`persist_dir`, persist.py) is in.
 
 Soundness is inherited: every verdict comes from `verify_many`'s ladder
 (device rejects re-decided on the host) or from the host path — the
@@ -330,6 +330,11 @@ class VerifyService:
       post-wave write path memoizes each ladder-decided verdict for the
       next byte-identical submission.  A hit replays a bit-identical
       past decision on bit-identical bytes.
+    * persist_dir — the verdict journal's directory (persist.py; None =
+      the ED25519_TPU_PERSIST_DIR knob, unset keeps the memo
+      process-lifetime only).  Attached at the first memo-path submit,
+      which loads the journal before any lookup could hit;
+      `close(drain=True)` flushes it.
 
     Thread semantics: `submit` is callable from any number of threads;
     one dispatcher (thread or `process_once` caller) executes waves —
@@ -353,7 +358,8 @@ class VerifyService:
                  breaker_seed: int = 0,
                  device_time_prior: float = 2.0,
                  rng=None, auto_start: bool = True,
-                 cache=None, verdict_cache=None, device=None):
+                 cache=None, verdict_cache=None, device=None,
+                 persist_dir: "str | None" = None):
         # Per-class admission policy (tenancy.py): mempool keeps the
         # (high, low) watermark pair — the exact pre-tenancy admission
         # semantics and the class `submit()` defaults to — rpc sheds
@@ -395,6 +401,11 @@ class VerifyService:
         # effect).
         self.cache = cache
         self.verdict_cache = verdict_cache
+        # Verdict-store persistence (persist.py): attached LAZILY at the
+        # first memo-path submit, so recovery loads before the first
+        # lookup could hit.
+        self._persist_dir = persist_dir
+        self._persist_attached = False
 
         self._cv = threading.Condition()
         # One FIFO queue per traffic class, drained in CLASSES priority
@@ -548,6 +559,15 @@ class VerifyService:
                        else _tenancy.DEFAULT_TENANT)
         vc = self._verdict_cache()
         if vc is not None:
+            if not self._persist_attached:
+                # One-time persistence attach: recovery LOADS the journal,
+                # then registers write-through appends.  No directory
+                # configured → a cheap no-op; the flag keeps the knob read
+                # off the steady-state submit path.
+                self._persist_attached = True
+                from . import persist as _persist
+
+                _persist.attach(vc, directory=self._persist_dir)
             memo_digest = v.content_digest()
             if memo_digest is not None:
                 hit = vc.lookup(memo_digest, tenant=tenant_name)
@@ -1013,7 +1033,8 @@ class VerifyService:
     def close(self, drain: bool = True) -> None:
         """Stop admitting; by default DRAIN the queue (every pending
         request still resolves — nothing lost), then stop the
-        dispatcher.  `drain=False` resolves pending requests with
+        dispatcher and flush the verdict journal (fsync policy
+        permitting).  `drain=False` resolves pending requests with
         `ServiceClosed` instead (still explicit, still nothing lost)."""
         pending = []
         with self._cv:
@@ -1038,6 +1059,14 @@ class VerifyService:
         else:
             while drain and self.process_once(block=False):
                 pass
+        if drain:
+            # Every verdict the drain decided is already appended; the
+            # flush forces the records to the platter so a clean shutdown
+            # restarts warm.  A hard kill skips this by definition.
+            vc = self._verdict_cache()
+            journal = vc.journal() if vc is not None else None
+            if journal is not None:
+                journal.flush()
 
     def __enter__(self):
         return self

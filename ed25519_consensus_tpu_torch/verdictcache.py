@@ -1,6 +1,5 @@
 """Content-addressed verdict memoization for the mempool→consensus
-double-verify (a copy of the JAX package's `verdictcache.py`, without its
-journal: persistence comes with the port's `persist.py`).
+double-verify (a copy of the JAX package's `verdictcache.py`).
 
 A consensus node verifies the same (sig, key, msg) set more than once: at
 mempool admission, again in the proposed block, again on vote replay.  The
@@ -38,10 +37,14 @@ path:
   `health.register_residency_drop_listener` (`forfeit_device_trust`):
   memoized ACCEPTS are dropped and the epoch bumps (refusing in-flight
   stores), while host-confirmed REJECTS ride through, re-pinned.
+* **Persistence (persist.py).**  A `VerdictJournal` may be attached
+  (`attach_journal`): every landed store writes through an append-only,
+  self-sealed record, outside the cache lock.
 * **Recovery gate.**  `absorb_entry` admits an entry decided elsewhere
-  (the JAX package's store, through `carry.verdict_cache_from_reference`)
-  only through the same payload + seal re-hash as a hit, pinned under the
-  live epochs.
+  (a journal record, or the JAX package's store through
+  `carry.verdict_cache_from_reference`) only through the same payload +
+  seal re-hash as a hit, pinned under the live epochs; absorbing never
+  journals.
 * **Budget, deterministic LRU, tenant quotas.**  Byte-budgeted
   (`ED25519_TPU_VERDICT_CACHE_BYTES`), strict LRU in lookup order, and
   with `ED25519_TPU_VERDICT_CACHE_TENANT_QUOTA` > 0 per-tenant partitions
@@ -184,6 +187,10 @@ class VerdictCache:
             "absorbed": 0, "absorb_refused": 0, "forfeits": 0,
         }
         self._tenant_counters: "dict[str, dict]" = {}
+        # Write-through journal (persist.VerdictJournal), attached by
+        # persist.attach AFTER recovery loaded; None keeps the store
+        # process-lifetime only.
+        self._journal = None
 
     # -- companions / epochs ----------------------------------------------
 
@@ -247,6 +254,18 @@ class VerdictCache:
         return (self.epoch, self.tenant_epoch_of(tenant),
                 comp.epoch if comp is not None else 0,
                 comp.tenant_epoch_of(tenant) if comp is not None else 0)
+
+    def attach_journal(self, journal) -> None:
+        """Register a persist.VerdictJournal for write-through appends
+        (persist.attach calls this AFTER recovery loaded, so nothing
+        absorbed from disk is ever re-appended)."""
+        with self._lock:
+            self._journal = journal
+
+    def journal(self):
+        """The attached journal, or None (persistence off)."""
+        with self._lock:
+            return self._journal
 
     def drop_all(self, reason: str = "dropped") -> int:
         """Drop every stored verdict NOW (replica ejection, evict-storm
@@ -455,6 +474,7 @@ class VerdictCache:
             return False
         evicted = 0
         stored = False
+        landed = None
         key = (digest, tenant)
         with self._lock:
             def add_bytes(t, delta):
@@ -471,6 +491,7 @@ class VerdictCache:
                 del self._entries[key]
                 self._entries[key] = entry
                 add_bytes(tenant, entry.nbytes - existing.nbytes)
+                landed = entry
             else:
                 if quota > 0:
                     # Cross-tenant eviction is off the table: if OTHER
@@ -496,6 +517,7 @@ class VerdictCache:
                     self._entries[key] = entry
                     add_bytes(tenant, entry.nbytes)
                     stored = True
+                    landed = entry
 
                     def evict_own() -> bool:
                         # Dict order is recency: the first matching
@@ -529,6 +551,14 @@ class VerdictCache:
                     self._tenant_tally_locked(tenant, "stores")
         if evicted:
             _metrics.record_fault("verdictcache_evict", evicted)
+        if landed is not None:
+            # Write-through persistence OUTSIDE the cache lock: the insert
+            # already happened, and a failed append costs the durability of
+            # one record, never the store (append swallows its own I/O
+            # errors).
+            journal = self.journal()
+            if journal is not None:
+                journal.append(landed)
         self._publish()
         return stored
 

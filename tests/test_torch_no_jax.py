@@ -7,9 +7,11 @@ resident tables, the sharded mesh (two shards on the CPU, the sentinel
 audit, the affine wire, the sharded backend), the kernel lab's tools
 (tools/kernel_lab.py, tools/microbench.py, the probes), and the service
 stack — serde, the legacy oracle, tenancy, the verdict memo, VerifyService
-and its two tools (tools/replay_lab.py, tools/load_soak.py) — as well; the
-kernel sources in csrc/, probes.cu among them, include nothing outside the
-port.
+and its two tools (tools/replay_lab.py, tools/load_soak.py) — and the
+verdict soaks and durable state (persist.py, a journaled service across a
+restart, tools/soak.py, device_soak.py, chaos_soak.py and restart_lab.py)
+as well; the kernel sources in csrc/, probes.cu among them, include
+nothing outside the port.
 
 Careful with names: `ed25519_consensus_tpu_torch` starts with
 `ed25519_consensus_tpu`, so a blocked name is matched exactly or as a
@@ -170,6 +172,38 @@ assert replay_lab.run_lab(replay_lab.parse_args(["--txs", "6",
 assert load_soak.soak(load_soak.parse_args([
     "--device", "cpu", "--storm", "error", "--rounds", "1",
     "--submitters", "1", "--requests", "4"]))["ok"]
+
+# The verdict soaks and the durable verdict state: a journaled service
+# killed and revived, one round of each soak, one restart-lab scenario.
+import tempfile
+
+from ed25519_consensus_tpu_torch import persist
+from ed25519_consensus_tpu_torch.tools import (chaos_soak, device_soak,
+                                               restart_lab, soak)
+
+pdir = tempfile.mkdtemp()
+for life in (1, 2):
+    vc = verdictcache.VerdictCache(budget_bytes=1 << 20, enabled=True)
+    svc = service.VerifyService(device="cpu", auto_start=False, clock=clock,
+                                health=health.DeviceHealth(clock=clock),
+                                verdict_cache=vc, persist_dir=pdir)
+    t = svc.submit(entries, cls="consensus")
+    svc.process_once()
+    assert t.result(0) and t.done()
+    if life == 2:
+        assert vc.journal().last_load_report["absorbed"] == 1
+        assert svc.stats()["verdict_cache_hits"] == 1
+assert persist.journal_path(pdir).endswith("verdicts-default.vjournal")
+assert soak.run(rounds=1, seed=0xD00D, log=lambda m: None)["ok"]
+assert device_soak.run(device="cpu", passes=2, batches=1, clock=clock,
+                       log=lambda m: None)["ok"]
+assert chaos_soak.soak(chaos_soak.parse_args(
+    ["--device", "cpu", "--rounds", "1"]),
+    clock=health.FakeClock(), log=lambda m: None)["ok"]
+run = restart_lab.run_scenario(restart_lab.parse_args(
+    ["--txs", "6", "--sigs", "2"]), "clean")
+assert run["lost"] == 0 and run["verdict_mismatches"] == 0
+assert run["load_report"]["absorbed"] > 0
 batch._DeviceLane.reset_all()
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
@@ -221,8 +255,10 @@ def _port_sources():
     assert len(files) > 15
     assert {"mesh.py", "sharded_msm.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
-    assert {"kernel_lab.py", "microbench.py"} <= {
+    assert {"kernel_lab.py", "microbench.py", "soak.py", "device_soak.py",
+            "chaos_soak.py", "restart_lab.py"} <= {
         f.name for f in files if f.parent.name == "tools"}
+    assert "persist.py" in {f.name for f in files}
     return files
 
 
