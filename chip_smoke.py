@@ -26,6 +26,13 @@ card, drives the port's two paths, and times the kernels.
   K1).  K5 and K6 are held against their plain versions on the operands
   those paths gave them, and the routing model's constants `a` and `b`
   are measured.
+* The gray-failure half of the scheduler (`phase_gray`): the straggler
+  lab, the sentinel soak and the slowchip overload soak at their defaults;
+  the cometbft128 stream one commit a hybrid call with a deadline, clean
+  and then with chip 0 flapping slow (hedged re-dispatch); pod100k on a
+  4-chip mesh of logical chips with chip 3 corrupting until it is
+  quarantined, then on probation, probed and rejoined (K1, K2, K3, K5,
+  and K4, K2t on the stream's resident keyset).
 * The lab: the 20-limb K1, K2, K2t, K3 and K4 (`-l20`) timed in turns with
   the default ones (fe25519_u32.cuh) on the main path's operands; the
   self-test of their field arithmetic (probe_fe8) against the exact-
@@ -1104,6 +1111,289 @@ def phase_restart(state: dict) -> None:
     verdictcache.set_default_cache(None)
 
 
+# The gray-failure phase: the labs' sizes (the JAX tools' defaults; a CPU
+# rehearsal shrinks them), the hedge leg's per-commit deadline and gray
+# flap, and the probation leg's corrupting chip and mesh width.
+GRAY_LAB_DEVICES = 8
+GRAY_LAB_MIN_SAMPLES = 4
+GRAY_DEADLINE_S = 0.5
+GRAY_SLOW_S, GRAY_FLAP_PERIOD = 0.25, 8
+GRAY_MESH, GRAY_CHIP = 4, 3
+GRAY_KERNELS = ("expand_compressed", "window_sums", "fold_partials",
+                "fold_shards")
+
+
+def gray_labs(dev: str, add) -> dict:
+    """Part (a) of phase_gray: tools/straggler_lab.py, tools/sentinel_soak.py
+    and tools/load_soak.py --storm slowchip on `dev`, each gate a failure
+    of the run."""
+    from ed25519_consensus_tpu_torch.ops import _cuda
+    from ed25519_consensus_tpu_torch.tools import (load_soak, sentinel_soak,
+                                                   straggler_lab)
+
+    out = {}
+    # The tools' chips 5 and 3, inside a narrower rehearsal mesh.
+    chip = str(min(5, GRAY_LAB_DEVICES - 1))
+    for label, run, argv in (
+            ("straggler_lab", lambda a: straggler_lab.lab(
+                straggler_lab.parse_args(a)),
+             ["--devices", str(GRAY_LAB_DEVICES), "--chip", chip,
+              "--min-samples", str(GRAY_LAB_MIN_SAMPLES)]),
+            ("sentinel_soak", lambda a: sentinel_soak.soak(
+                sentinel_soak.parse_args(a)),
+             ["--devices", str(GRAY_LAB_DEVICES), "--chip", chip,
+              "--transient-chip", str(min(3, GRAY_LAB_DEVICES - 1))]),
+            ("load_soak slowchip", lambda a: load_soak.soak(
+                load_soak.parse_args(a)), ["--storm", "slowchip"])):
+        _cuda.reset_launch_counts()
+        t = time.perf_counter()
+        summary = run(argv + ["--device", dev])
+        dt = time.perf_counter() - t
+        counts = _cuda.launch_counts()
+        add(counts)
+        if label == "straggler_lab":
+            brief = straggler_lab.headline(summary)
+        elif label == "sentinel_soak":
+            brief = sentinel_soak.headline(summary)
+        else:
+            brief = {k: summary[k] for k in (
+                "ok", "verdicts", "overloaded", "deadline", "injected",
+                "device_error", "crash")}
+        log(f"  {label}: {dt:.1f} s; {json.dumps(brief)}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not summary["ok"]:
+            raise AssertionError(f"{label}: a gate failed: "
+                                 f"{json.dumps(summary)[:2000]}")
+        out[label] = summary
+    return out
+
+
+def gray_hedge_pass(label: str, vs, truth, dev: str, plan=None,
+                    cold: bool = False) -> dict:
+    """One pass of the cometbft128 stream, one verify_many call a commit
+    (hybrid, merge="never", the single lane on `dev`, a deadline
+    GRAY_DEADLINE_S ahead), under `plan` when given.  `cold` empties the
+    latency ledger before every call, so each call races its chunk on
+    the host at once: the scheduling the hedge gate replaced."""
+    from ed25519_consensus_tpu_torch import batch, faults, health
+
+    keys = ("hedges_fired", "hedges_won", "hedges_lost",
+            "straggler_suspicion_events", "device_batches", "host_batches",
+            "device_rejects_confirmed", "device_rejects_overturned")
+    agg = dict.fromkeys(keys, 0)
+    lat, got = [], []
+    rng = random.Random(len(label))
+    if plan is not None:
+        faults.install(plan)
+    t0 = time.perf_counter()
+    try:
+        for v in vs:
+            if cold:
+                health.chip_registry().latency.reset()
+            t = time.perf_counter()
+            got.extend(batch.verify_many(
+                [v], rng=rng, hybrid=True, merge="never", mesh=0,
+                device=dev, deadline=time.monotonic() + GRAY_DEADLINE_S))
+            lat.append(time.perf_counter() - t)
+            for k in keys:
+                agg[k] += batch.last_run_stats.get(k, 0)
+    finally:
+        if plan is not None:
+            faults.uninstall()
+    dt = time.perf_counter() - t0
+    rec = {"commits": len(vs), "verdicts": len(got),
+           "p50_ms": 1e3 * pct(lat, 0.5), "p99_ms": 1e3 * pct(lat, 0.99),
+           "max_ms": 1e3 * max(lat),
+           "sigs_per_s": len(vs) * COMET_KEYS / dt, **agg}
+    if plan is not None:
+        rec["injected"] = len(plan.injection_log())
+    log(f"  {label}: {json.dumps(rec)}")
+    if len(got) != len(vs):
+        raise AssertionError(f"{label}: {len(vs) - len(got)} commits lost")
+    if got != truth:
+        bad = [h for h, (g, w) in enumerate(zip(got, truth)) if g != w]
+        raise AssertionError(f"{label}: verdicts differ from the host at "
+                             f"heights {bad}")
+    return rec
+
+
+def gray_probation_leg(state: dict, dev: str) -> dict:
+    """Part (c) of phase_gray: pod100k x MESH_DEPTH through verify_many on
+    a GRAY_MESH-chip mesh of logical chips on `dev`, forced-device, every
+    chunk audited, with chip GRAY_CHIP corrupting its partial sums on
+    every call and a FakeClock on the chip registry and the lane."""
+    from ed25519_consensus_tpu_torch import (batch, config, devcache, faults,
+                                             health)
+    from ed25519_consensus_tpu_torch.error import DeviceError
+    from ed25519_consensus_tpu_torch.tools import sentinel_soak
+
+    batch.reset_device_health()
+    clock = health.FakeClock()
+    reg = health.chip_registry()
+    reg.set_clock(clock)
+    hp = health.DeviceHealth(mesh=GRAY_MESH, clock=clock)
+    devcache.set_default_cache(devcache.DeviceOperandCache(enabled=False))
+    base, bad = state["pod100k"], state["pod100k_bad"]
+    bad_at = min(2, MESH_DEPTH - 1)
+    truth = [i != bad_at for i in range(MESH_DEPTH)]
+    ids = tuple(range(GRAY_MESH))
+    passes = []
+
+    def one_pass(label):
+        vs = [bad.clone() if i == bad_at else base.clone()
+              for i in range(MESH_DEPTH)]
+        t = time.perf_counter()
+        try:
+            got = batch.verify_many(
+                vs, rng=random.Random(len(passes)), chunk=MESH_DEPTH,
+                hybrid=False, merge="never", mesh=GRAY_MESH, device=dev,
+                health=hp, sentinel_rate=1.0, device_ids=ids)
+            err = None
+        except DeviceError as e:
+            got, err = None, e
+        st = dict(batch.last_run_stats)
+        rec = {"pass": label, "seconds": time.perf_counter() - t,
+               "raised": err is not None, "mesh": st["mesh"],
+               "device_ids": st["device_ids"],
+               "reformations": st["mesh_reformations"],
+               "sentinel": st["sentinel"],
+               "device_batches": st["device_batches"],
+               "rejects_confirmed": st["device_rejects_confirmed"],
+               "state": reg.chip_state(GRAY_CHIP)}
+        log(f"  probation leg, {label}: {json.dumps(rec)}")
+        if got is not None and got != truth:
+            raise AssertionError(f"probation leg {label}: verdicts {got} "
+                                 f"differ from the host's {truth}")
+        passes.append(rec)
+        return rec
+
+    bound = sentinel_soak.waves_to_quarantine()
+    plan = faults.sentinel_plan(0x6A7, "corrupt-chip", chip=GRAY_CHIP,
+                                on=lambda i: True)
+    with faults.injected(plan):
+        for w in range(bound):
+            rec = one_pass(f"corrupting wave {w}")
+            if not rec["raised"] or rec["sentinel"]["attributed"] != \
+                    [GRAY_CHIP]:
+                raise AssertionError(f"probation leg: an audited pass "
+                                     f"did not raise naming chip "
+                                     f"{GRAY_CHIP}: {rec}")
+            if rec["state"] == health.STATE_QUARANTINED:
+                break
+        if reg.chip_state(GRAY_CHIP) != health.STATE_QUARANTINED:
+            raise AssertionError(f"chip {GRAY_CHIP} not quarantined within "
+                                 f"{bound} waves")
+        waves = len(passes)
+        rec = one_pass("reformed")
+        if rec["raised"] or rec["mesh"] != GRAY_MESH // 2 or \
+                rec["device_batches"] != MESH_DEPTH - 1 or \
+                rec["sentinel"]["divergence"]:
+            raise AssertionError(f"probation leg: the pass after the "
+                                 f"quarantine did not run at D = "
+                                 f"{GRAY_MESH // 2} on the device: {rec}")
+    clock.advance(6 * config.get("ED25519_TPU_SUSPICION_HALF_LIFE"))
+    if reg.chip_state(GRAY_CHIP) != health.STATE_PROBATION:
+        raise AssertionError("the quarantine did not relax to probation")
+    probes = []
+    for p in range(config.get("ED25519_TPU_PROBATION_PROBES")):
+        t = time.perf_counter()
+        ok = batch.run_probation_probe(state["verifier"].clone(), GRAY_CHIP,
+                                       rng=random.Random(900 + p),
+                                       device=dev)
+        probes.append({"passed": ok, "seconds": time.perf_counter() - t})
+    log(f"  probation probes (zcash10k on chip {GRAY_CHIP}): {probes}; "
+        f"state {reg.chip_state(GRAY_CHIP)}")
+    if not all(p["passed"] for p in probes) or reg.excluded_chips():
+        raise AssertionError(f"chip {GRAY_CHIP} did not rejoin: {probes}")
+    rec = one_pass("rejoined")
+    if rec["raised"] or rec["mesh"] != GRAY_MESH or rec["reformations"] \
+            or rec["device_batches"] != MESH_DEPTH - 1:
+        raise AssertionError(f"probation leg: the rejoined pass was not a "
+                             f"full-width device pass: {rec}")
+    devcache.set_default_cache(None)
+    batch.reset_device_health()
+    return {"quarantine_wave": waves - 1, "wave_bound": bound,
+            "passes": passes, "probes": probes}
+
+
+def phase_gray(state: dict) -> None:
+    """The gray-failure half of the scheduler on the card:
+
+    (a) tools/straggler_lab.py (8 logical chips, all three phases),
+        tools/sentinel_soak.py (the 8-mesh, both phases) and
+        tools/load_soak.py --storm slowchip, at the JAX tools' defaults,
+        every chip on cuda:0; each gate fails the run.
+    (b) The hedge leg: the cometbft128 stream one commit a call through
+        verify_many(hybrid=True, merge="never", mesh=0, deadline=now +
+        GRAY_DEADLINE_S) on cuda:0 on the real clock — a clean pass, whose
+        calls arm the latency ledger, then the same stream with chip 0
+        flapping GRAY_SLOW_S late every other GRAY_FLAP_PERIOD calls
+        (faults.slow_plan kind "flap": SlowChip sleeps); then both again
+        on a ledger emptied before every call, which races each commit on
+        the host at once, for comparison.  Per pass: the
+        per-commit p50/p99, sigs/s, hedges fired/won/lost, straggler
+        accruals and device-decided batches.  Fails unless every verdict
+        is the host's, no commit is lost, and the slow pass wins a hedge.
+    (c) The probation leg (gray_probation_leg): pod100k on a 4-chip mesh
+        of logical chips, chip 3 corrupting: the audited passes raise
+        naming chip 3 until it is quarantined (within ceil(threshold /
+        1.5) waves), the next pass runs at D = 2 on the device, then the
+        corruption stops, the chip decays to probation, passes
+        PROBATION_PROBES probes on a zcash10k batch and rejoins, and the
+        last pass runs at D = 4 with no reformation.
+
+    Launch counts are set to 0 before each part and read after."""
+    from ed25519_consensus_tpu_torch import batch, devcache, faults
+    from ed25519_consensus_tpu_torch.ops import _cuda
+
+    dev = "cuda:0" if DEV == "cuda" else DEV
+    totals = dict.fromkeys(_cuda.KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] += v
+
+    labs = gray_labs(dev, add)
+
+    heights, bad_h = state["comet_heights"]
+    truth = [h != bad_h for h in range(COMET_HEIGHTS)]
+    batch.reset_device_health()
+    devcache.set_default_cache(devcache.DeviceOperandCache(enabled=True))
+    hedge = {}
+
+    def flap():
+        return faults.slow_plan(0x6A7, chip=0, seconds=GRAY_SLOW_S,
+                                kind="flap", period=GRAY_FLAP_PERIOD)
+
+    for label, plan, cold in (("clean", None, False),
+                              ("gray flap", flap(), False),
+                              ("clean, cold ledger", None, True),
+                              ("gray flap, cold ledger", flap(), True)):
+        _cuda.reset_launch_counts()
+        hedge[label] = gray_hedge_pass(f"hedge leg, {label} pass",
+                                       verifiers(heights), truth, dev, plan,
+                                       cold)
+        counts = _cuda.launch_counts()
+        hedge[label]["launches"] = {k: v for k, v in counts.items() if v}
+        add(counts)
+    devcache.set_default_cache(None)
+    batch.reset_device_health()
+    if hedge["gray flap"]["hedges_won"] < 1:
+        raise AssertionError(f"the gray-flap pass won no hedge: "
+                             f"{hedge['gray flap']}")
+
+    _cuda.reset_launch_counts()
+    probation = gray_probation_leg(state, dev)
+    counts = _cuda.launch_counts()
+    add(counts)
+    need_launches("the probation leg", counts, GRAY_KERNELS)
+    need_launches("the gray phase", totals,
+                  GRAY_KERNELS + ("build_tables", "window_sums_tables"))
+    no_lab_forms("the gray phase", totals)
+    state["gray_launches"] = totals
+    state["gray"] = {"labs": labs, "hedge": hedge, "probation": probation}
+
+
 def no_lab_forms(label: str, counts: dict) -> None:
     """Fails if a verdict path launched a 20-limb (-l20) kernel — the
     lab's window_sums-l20, window_sums_tables-l20, expand_compressed-l20,
@@ -2005,6 +2295,7 @@ def phase_mesh(report: dict, state: dict) -> None:
     state["mesh_launches"] = totals
     state["fold_shards_inputs"] = first_per_shape(cap.calls)
     state["pod100k"] = base100k
+    state["pod100k_bad"] = bad100k
     sync()
 
 
@@ -3234,8 +3525,9 @@ def main() -> int:
     timed(phase_soak, state)
     timed(phase_verdict_soaks, state)
     timed(phase_restart, state)
+    timed(phase_gray, state)
     for path in ("stream", "mesh", "affine", "service", "verdict_soaks",
-                 "restart"):
+                 "restart", "gray"):
         no_lab_forms(f"the {path} path", state[f"{path}_launches"])
         add_launches(report, state[f"{path}_launches"])
         log(f"{path} path launches (all passes): "

@@ -1383,6 +1383,12 @@ def _merge_groups(verifiers):
     return groups
 
 
+# Hedging arms once the ledger's ring of recent dispatches holds this many:
+# below it the HEDGE_QUANTILE tail is noise, and the threshold would fall
+# to the bare HEDGE_MIN_MS floor.  A quarter of LatencyLedger.WAVE_WINDOW.
+_HEDGE_ARM_WAVES = 32
+
+
 # One in-flight chunk as the scheduler tracks it: `variant` is the
 # first-call grace key (0 cold, 1 resident-head, 2 resident-tables, 3 cold
 # audit) and `staged` keeps an audited chunk's (digits, pts) operands for
@@ -1540,20 +1546,22 @@ def _one_card_mesh(mesh: int, device) -> bool:
         and torch.device(device).type == "cuda"
 
 
-def _rung_placement(mesh: int, device, chips) -> tuple:
+def _rung_placement(mesh: int, device, chips, logical: bool = False
+                    ) -> tuple:
     """The devices a dispatch mode runs on, the lane's device first.  A
     mesh of D shards: `device` repeated when the caller named one — a
-    virtual mesh; on a card its every shard is that card's chip, and an
-    excluded card raises DeviceError — else the cards `chips` (default
-    0 .. D − 1), which raises ValueError with fewer cards visible.  The
-    single lane: `device` (or, after a reformation down to one card, the
-    first surviving card)."""
+    virtual mesh; on a card its every shard is that card's chip unless the
+    chips are `logical` (named by the caller), and an excluded card raises
+    DeviceError — else the cards `chips` (default 0 .. D − 1), which
+    raises ValueError with fewer cards visible.  The single lane: `device`
+    (or, after a reformation down to one card, the first surviving
+    card)."""
     import torch
 
     if mesh:
         if device is not None:
             dev = _indexed(device)
-            if dev.type == "cuda" and \
+            if not logical and dev.type == "cuda" and \
                     dev.index in _health.chip_registry().excluded_chips():
                 raise DeviceError(f"mesh={mesh} on {dev}: {dev} is "
                                   f"excluded (dead or quarantined)")
@@ -1571,7 +1579,9 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                 merge: str = "auto", mesh: "int | None" = None,
                 health: "DeviceHealth | None" = None, device=None,
                 policy: "_routing.RoutingPolicy | None" = None,
-                sentinel_rate: "float | None" = None) -> "list[bool]":
+                sentinel_rate: "float | None" = None,
+                deadline: "float | None" = None,
+                device_ids=None) -> "list[bool]":
     """Verify MANY independent batches with union-merging, chunked
     double-buffered device calls, and an opportunistic host lane.
 
@@ -1609,6 +1619,30 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
 
     `sentinel_rate` (default ED25519_TPU_SENTINEL_RATE) samples cold mesh
     chunks for a sentinel audit (see _sentinel_fires).
+
+    `device_ids` names the call's chips: logical ids, one per shard (one
+    for the single lane), that the ChipRegistry, the latency ledger and
+    the fault seam's payload use.  The devices stay the rule above
+    (`device` when named, so several logical chips can share one card or
+    the CPU; else `cuda:<id>`).  A named chip that is excluded reforms
+    the call at entry onto the widest surviving rung of logical chips.
+
+    Every completed device call lands in the latency ledger
+    (health.LatencyLedger), attributed over the call's chips; a straggler
+    streak accrues suspicion (stats["straggler_suspicion_events"]).
+    Hedged re-dispatch, in hybrid calls only, is the race of a drained
+    pool gated on the ledger: once it holds _HEDGE_ARM_WAVES dispatches,
+    the host races a chunk only after its device call outlives
+    ED25519_TPU_HEDGE_QUANTILE of them (floored at
+    ED25519_TPU_HEDGE_MIN_MS; 0 hedges at once), and each chunk it races
+    then is a hedge twin: it re-verifies the chunk's undecided batches
+    with fresh blinders, the first decision of a batch wins, and a chunk
+    the twin overtakes is discarded unread (stats "hedges_fired",
+    "hedges_won", "hedges_lost").  A cold ledger races at once, as does
+    an armed one once `deadline` (absolute, on the health clock) no
+    longer affords waiting: `now` + the host median reaches it.  A
+    forced-device call (`hybrid=False`) records latency and suspicion but
+    never races: it never decides on the host.
 
     Returns a verdict per verifier (True = every queued signature valid),
     each decided by the same exact host math as `verify` (a batch that
@@ -1660,7 +1694,8 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
             union_verdicts = verify_many(
                 unions, rng=rng, chunk=chunk, hybrid=hybrid, merge="never",
                 mesh=mesh, health=health, device=device, policy=policy,
-                sentinel_rate=sentinel_rate)
+                sentinel_rate=sentinel_rate, deadline=deadline,
+                device_ids=device_ids)
             stats = dict(last_run_stats)
             verdicts = [False] * len(verifiers)
             for g, ok in zip(groups, union_verdicts):
@@ -1698,11 +1733,29 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
     if sentinel_rate is None:
         sentinel_rate = _config.get("ED25519_TPU_SENTINEL_RATE")
     sentinel_rate = float(sentinel_rate)
-    # Entry reformation: with chips excluded (dead or quarantined), a mesh
-    # runs only the rung the live chip set supports, on the survivors.
-    chips = None
+    # Entry reformation: with chips excluded (dead, quarantined or on
+    # probation), a mesh runs only the rung the live chip set supports, on
+    # the survivors; named chips reform the same way, onto logical chips.
+    logical = bool(device_ids)
+    chips = tuple(int(c) for c in device_ids) if logical else None
+    if logical and len(chips) != max(mesh, 1):
+        raise ValueError(f"device_ids names {len(chips)} chips for a "
+                         f"mesh of {mesh}")
     entry_reform = None
-    if device_on and mesh and not _one_card_mesh(mesh, device):
+    if device_on and logical:
+        excluded = _health.chip_registry().excluded_chips()
+        if excluded & set(chips):
+            rung, ids = _routing.reform_for(mesh or 1,
+                                            total=max(chips) + 1)
+            if rung < 1:
+                raise DeviceError(f"device_ids={list(chips)}: every chip "
+                                  f"is excluded ({sorted(excluded)})")
+            new_mesh = _health.normalize_mesh(rung)
+            entry_reform = {"from": mesh, "to": new_mesh,
+                            "device_ids": list(ids) if ids else None,
+                            "reissued": 0}
+            mesh, chips = new_mesh, tuple(ids) if ids else tuple(range(rung))
+    elif device_on and mesh and not _one_card_mesh(mesh, device):
         excluded = _health.chip_registry().excluded_chips()
         if excluded:
             rung, chips = _routing.reform_for(mesh)
@@ -1715,7 +1768,8 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                                 "device_ids": list(chips) if chips else None,
                                 "reissued": 0}
             mesh = new_mesh
-    placement = _rung_placement(mesh, device, chips) if device_on else None
+    placement = (_rung_placement(mesh, device, chips, logical)
+                 if device_on else None)
     lane_dev = placement[0] if placement else None
     if health is None:
         health = _health.health_for(mesh)
@@ -1755,6 +1809,14 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                           _health.ERROR_FATAL: 0,
                           _health.ERROR_AMBIGUOUS: 0},
         "transient_retries": 0,
+        # The gray-failure trail: hedge pairs fired, won (the twin decided
+        # a batch, or the device leg never gave a usable result) and lost
+        # (the device landed first everywhere), and the straggler streaks
+        # the latency ledger attributed.
+        "hedges_fired": 0,
+        "hedges_won": 0,
+        "hedges_lost": 0,
+        "straggler_suspicion_events": 0,
         # Audited mesh chunks, divergences, and the chips they named.
         "sentinel": {"rate": sentinel_rate, "audits": 0, "divergence": 0,
                      "attributed": []},
@@ -1950,6 +2012,79 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         unattributed error marks dead or smears suspicion over."""
         return tuple(dict.fromkeys(_mesh_lib.shard_chips(placement, chips)))
 
+    def record_chunk_latency(call_dt) -> None:
+        """Land one completed device call in the latency ledger over the
+        current placement; a straggler streak accrues suspicion."""
+        flagged = _health.chip_registry().record_latency(
+            placement_chips(), call_dt)
+        if flagged:
+            stats["straggler_suspicion_events"] += len(flagged)
+            _metrics.record_fault("straggler_suspicion", len(flagged))
+
+    # Hedged re-dispatch (hybrid calls only) is the race below, gated on
+    # the ledger: the knobs are read once per call, the threshold from the
+    # ledger on every check.
+    hedge_q_milli = int(round(float(
+        _config.get("ED25519_TPU_HEDGE_QUANTILE")) * 1000))
+    hedge_floor_s = float(_config.get("ED25519_TPU_HEDGE_MIN_MS")) / 1000.0
+    hedged = set()   # cids the host raced as hedge twins
+    hedge_wins = set()  # hedged cids whose twin decided a batch
+
+    def hedge_threshold_s() -> "float | None":
+        """Seconds a device call may run before the host races it; None
+        while the ledger is cold (a zero floor forces hedging regardless)."""
+        led = _health.chip_registry().latency
+        if hedge_floor_s > 0 and led.wave_samples() < _HEDGE_ARM_WAVES:
+            return None
+        return max(led.wave_quantile_us(hedge_q_milli) / 1000000.0,
+                   hedge_floor_s)
+
+    def host_median() -> float:
+        return (sorted(_host_times)[len(_host_times) // 2]
+                if _host_times else 0.0)
+
+    def hedge_resolve(cid, twin_won: bool) -> None:
+        """Close one hedge pair, won or lost.  `twin_won` forces a win (the
+        device leg was dropped or errored)."""
+        if cid not in hedged:
+            return
+        hedged.discard(cid)
+        if cid in hedge_wins or twin_won:
+            hedge_wins.discard(cid)
+            stats["hedges_won"] += 1
+            _metrics.record_fault("hedge_won")
+        else:
+            stats["hedges_lost"] += 1
+            _metrics.record_fault("hedge_lost")
+
+    def race_gate() -> "tuple[list, float | None]":
+        """Which in-flight chunks the host may race now, and when the next
+        one may be raced.  A cold ledger races every chunk at once (no
+        hedge counted).  An armed one races a chunk once its device call
+        outlives the hedge threshold (or half its own budget, if sooner),
+        or every chunk at once when the deadline no longer affords
+        waiting; each chunk it races fires a hedge twin."""
+        thr = hedge_threshold_s()
+        if thr is None:
+            return list(outstanding), None
+        t_now = now()
+        pressed = deadline is not None and t_now + host_median() >= deadline
+        ready, wake = [], None
+        for r2 in outstanding:
+            # A wait must never run into the call's deadline miss.
+            t_start = dev.started_at(r2.cid)
+            t0 = t_start if t_start is not None else r2.t0
+            t_fire = min(t0 + thr, (t0 + call_deadline(r2)[1]) / 2)
+            if pressed or r2.cid in hedged or t_now >= t_fire:
+                if r2.cid not in hedged:
+                    hedged.add(r2.cid)
+                    stats["hedges_fired"] += 1
+                    _metrics.record_fault("hedge_fired")
+                ready.append(r2)
+            else:
+                wake = t_fire if wake is None else min(wake, t_fire)
+        return ready, wake
+
     def submit(size=None):
         size = chunk if size is None else size
         ch = remaining[:size]
@@ -2017,9 +2152,14 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         """Audit one audited chunk (read-only): recompute a sampled
         batch's sampled shard on the host and compare it as a group
         element, then check the fold against the sum of every partial.
-        None when consistent; otherwise the chips the divergence names
-        (every shard recomputed when only the fold is off; empty when no
-        shard explains it), after recording their suspicion."""
+        The sample is drawn among the shards that hold real terms, and
+        every all-padding shard is checked too — its partial must be the
+        identity, which costs no recomputation.  (Drawing an all-padding
+        shard proved nothing: a chip that forged its own partial and the
+        fold alike passed whenever the draw missed it.)  None when
+        consistent; otherwise the chips the divergence names (every shard
+        recomputed when only the fold is off; empty when no shard
+        explains it), after recording their suspicion."""
         digits, pts = rec.staged
         sen = stats["sentinel"]
         d_mesh = partials.shape[0]
@@ -2038,17 +2178,22 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
             return want is None or want != msm.combine_window_sums(
                 partials[shard, j])
 
-        k = _sentinel_draw(rec.cid, "shard", d_mesh)
+        live = [d for d in range(d_mesh)
+                if any(values[d * per:(d + 1) * per])] or [0]
+        k = live[_sentinel_draw(rec.cid, "shard", len(live))]
+        named = [shard_chips[d] for d in range(d_mesh)
+                 if d not in live and diverges(d)]
         if diverges(k):
-            named = [shard_chips[k]]
-        else:
+            named.append(shard_chips[k])
+        if not named:
             total = edwards.Point(0, 1, 1, 0)
             for d in range(d_mesh):
                 total = total.add(msm.combine_window_sums(partials[d, j]))
             if total == msm.combine_window_sums(folded[j]):
                 return None
-            named = list(dict.fromkeys(shard_chips[d] for d in range(d_mesh)
-                                       if d != k and diverges(d)))
+            named = [shard_chips[d] for d in live
+                     if d != k and diverges(d)]
+        named = list(dict.fromkeys(named))
         sen["divergence"] += 1
         _metrics.record_fault("sentinel_divergence")
         chipreg = _health.chip_registry()
@@ -2076,24 +2221,34 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         nonlocal mesh, chips, placement, lane_dev, health, dev, \
             ema_is_prior, probed
         if (not mesh or reforms_left[0] <= 0
-                or _one_card_mesh(mesh, device)):
+                or (_one_card_mesh(mesh, device) and not logical)):
             return False
         excluded = _health.chip_registry().excluded_chips()
         if not excluded:
             return False
+        # Logical chips name their own universe; the cards' ids None means
+        # 0 .. rung − 1.
+        total = max(chips) + 1 if logical else None
+
+        def rung_for(width):
+            rung, ids = _routing.reform_for(width, total=total)
+            if logical and not ids:
+                ids = tuple(range(rung))
+            return rung, ids
+
         cur = (mesh, chips)
-        rung, ids = _routing.reform_for(mesh)
+        rung, ids = rung_for(mesh)
         if (rung, ids) == cur:
             # The live set still supports this shape but the fault hit it
             # anyway: step down one rung.
-            rung, ids = _routing.reform_for(max(1, mesh // 2))
+            rung, ids = rung_for(max(1, mesh // 2))
             if (rung, ids) == cur:
                 return False
         if rung < 1:
             return False
         new_mesh = _health.normalize_mesh(rung)
         try:
-            new_placement = _rung_placement(new_mesh, device, ids)
+            new_placement = _rung_placement(new_mesh, device, ids, logical)
         except (ValueError, DeviceError):
             return False
         reforms_left[0] -= 1
@@ -2175,52 +2330,67 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         fail(f"a device call on {where} failed ({ev.cls}: {ev.reason})"
              + ("; no reformation rung left" if mesh else ""), err)
 
-    def poll(block: bool):
+    def call_deadline(rec) -> "tuple[float, float]":
+        """A chunk's device-call budget and the moment it runs out: the
+        deadline clocks the device CALL, not queue time."""
+        budget = max(3.0 * ema_per_batch * rec.padded_b, 2.0)
+        if ema_is_prior and not msm.shape_completed(
+                rec.padded_b, rec.n_lanes, mesh, cached=rec.variant):
+            # No measurement yet AND no call of this padded shape has
+            # completed: the call pays the device's lazy set-up, and
+            # must not be mistaken for a seized device.
+            budget = max(budget, 60.0)
+        t_start = dev.started_at(rec.cid)
+        return budget, ((t_start + budget) if t_start is not None
+                        else (rec.t0 + budget + 10.0))
+
+    def poll(block: bool, until: "float | None" = None):
         """Apply finished chunk results; True if progress.  A deadline
         miss abandons the lane, cools the device down and fails the call
-        (a mesh with an excluded chip reforms instead)."""
+        (a mesh with an excluded chip reforms instead).  `until` bounds a
+        blocking wait short of the deadline: the race gate's wake-up,
+        never a miss."""
         nonlocal ema_per_batch, ema_is_prior
         progress = False
         while outstanding:
             rec = outstanding[0]
-            budget = max(3.0 * ema_per_batch * rec.padded_b, 2.0)
-            if ema_is_prior and not msm.shape_completed(
-                    rec.padded_b, rec.n_lanes, mesh, cached=rec.variant):
-                # No measurement yet AND no call of this padded shape has
-                # completed: the call pays the device's lazy set-up, and
-                # must not be mistaken for a seized device.
-                budget = max(budget, 60.0)
-            # The deadline clocks the device CALL, not queue time.
+            budget, deadline_at = call_deadline(rec)
             t_start = dev.started_at(rec.cid)
-            deadline = (t_start + budget) if t_start is not None \
-                else (rec.t0 + budget + 10.0)
             if block and t_start is None:
                 # Not visibly started: wait in short slices and re-derive
                 # the deadline the moment the worker enters the call.
                 while True:
+                    wait_end = deadline_at if until is None \
+                        else min(deadline_at, until)
                     res = dev.wait(rec.cid,
-                                   min(0.25, max(0.0, deadline - now())))
+                                   min(0.25, max(0.0, wait_end - now())))
                     if res is not _PENDING:
                         break
                     t_start = dev.started_at(rec.cid)
                     if t_start is not None:
-                        deadline = t_start + budget
-                    if now() >= deadline:
+                        deadline_at = t_start + budget
+                    if until is not None and now() >= until:
+                        break
+                    if now() >= deadline_at:
                         break
             else:
-                timeout = max(0.0, deadline - now()) if block else 0.0
+                wait_end = deadline_at if until is None \
+                    else min(deadline_at, until)
+                timeout = max(0.0, wait_end - now()) if block else 0.0
                 res = dev.wait(rec.cid, timeout)
             if res is _PENDING:
-                t_start = dev.started_at(rec.cid)
-                deadline = (t_start + budget) if t_start is not None \
-                    else (rec.t0 + budget + 10.0)
-                if now() < deadline:
+                budget, deadline_at = call_deadline(rec)
+                if now() < deadline_at:
                     return progress
                 health.note_deadline_miss()
                 _metrics.record_fault("deadline_miss")
                 dev.abandon()
                 undecided = [i for r2 in outstanding for i in r2.idxs
                              if not decided[i]]
+                for r2 in outstanding:
+                    # An abandoned device leg gives no usable result: an
+                    # active twin is the pair's decider.
+                    hedge_resolve(r2.cid, True)
                 outstanding.clear()
                 if try_reform(undecided):
                     # A chip died under the in-flight wave: it re-issues
@@ -2231,10 +2401,18 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                      f"{budget:.1f} s deadline", None)
             outstanding.pop(0)
             out, call_dt, err = res
+            # A hedge pair resolves when its device leg lands: an errored
+            # leg is always the twin's win.
+            if out is None and rec.cid in hedged:
+                _metrics.record_fault("hedge_device_error")
+            hedge_resolve(rec.cid, out is None)
             if out is None:
                 on_device_error(rec.idxs, err)
             else:
                 stats["device_seconds"] += call_dt
+                # Timing only: a hedged leg's duration counts too, though
+                # its result stays unread where the twin decided.
+                record_chunk_latency(call_dt)
                 if rec.variant == 3:
                     # Audited mesh chunk: [fold, per-shard partials].  The
                     # audit runs before any of its verdicts publishes.
@@ -2260,8 +2438,7 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
     def device_competitive() -> bool:
         if not _host_times:
             return True  # no host measurement yet: keep probing
-        t_host = sorted(_host_times)[len(_host_times) // 2]
-        return ema_per_batch < 1.3 * t_host
+        return ema_per_batch < 1.3 * host_median()
 
     try:
         probed = False
@@ -2279,43 +2456,54 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
             poll(block=False)
             if hybrid and remaining and outstanding:
                 host_verify_one(remaining.pop())
+            elif outstanding and not hybrid:
+                poll(block=True)
             elif outstanding:
-                if hybrid:
+                ready, wake = race_gate()
+                if not ready:
+                    # The ledger is armed and no chunk has outlived the
+                    # hedge threshold: wait for the device until one does.
+                    poll(block=True, until=wake)
+                else:
                     # Nothing left in the pool: RACE the in-flight chunks,
                     # re-verifying their batches on the host (last chunk
                     # first), dropping any chunk the host fully overtakes.
                     stole = False
-                    for ci in range(len(outstanding) - 1, -1, -1):
-                        rec = outstanding[ci]
+                    for rec in reversed(ready):
                         undecided = [i for i in rec.idxs if not decided[i]]
                         if not undecided:
                             continue
+                        if rec.cid in hedged:
+                            hedge_wins.add(rec.cid)
                         host_verify_one(undecided[-1])
                         stole = True
                         if len(undecided) == 1:  # chunk fully overtaken
                             # Before dropping an unmeasured young probe,
                             # grace-wait briefly for its timing: the EMA is
-                            # what stops pointless re-probing.
+                            # what stops pointless re-probing.  A hedged
+                            # chunk is late by the ledger's own measure.
                             res = _PENDING
                             grace = health.young_probe_grace
                             t_start = dev.started_at(rec.cid)
                             elapsed = now() - (t_start if t_start is not None
                                                else rec.t0)
-                            if ema_is_prior and elapsed < grace:
+                            if ema_is_prior and elapsed < grace \
+                                    and rec.cid not in hedged:
                                 res = dev.wait(rec.cid, grace - elapsed)
-                            outstanding.pop(ci)
+                            outstanding.remove(rec)
+                            hedge_resolve(rec.cid, res is _PENDING
+                                          or res[0] is None)
                             if res is _PENDING:
                                 dev.discard(rec.cid)
                             elif res[0] is None:
                                 on_device_error(rec.idxs, res[2])
                             else:
+                                record_chunk_latency(res[1])
                                 ema_per_batch = res[1] / max(1, rec.padded_b)
                                 ema_is_prior = False
                                 stats["device_measured"] = True
                         break
                     poll(block=not stole)
-                else:
-                    poll(block=True)
             elif remaining and hybrid:
                 # The device is not competitive: the host lane takes a batch.
                 # A forced-device call whose in-flight chunks all finished in
@@ -2379,6 +2567,82 @@ def warm_device_shapes(verifier, rng=None, chunk: int = 8, device=None,
             msm.dispatch_window_sums_many_tables(
                 ddc, staged.head_tables_tensor(), rr, dev).cpu()
             msm.mark_shape_completed(chunk, n_head + nr, cached=2)
+
+
+def run_probation_probe(verifier, chip: int, rng=None,
+                        device=None) -> "bool | None":
+    """One probation probe of `chip`: stage `verifier` on the host,
+    dispatch its MSM as one single-device call placed on `chip` — on
+    `device` when named (a logical chip there: a one-card machine probes
+    chip `chip` on cuda:0, the tests on "cpu"), else on cuda:<chip> —
+    under DEVICE_CALL_LOCK, through the fault seam with payload (chip,)
+    and timed on the registry clock, and compare the combined window sums
+    with the host MSM of the same staged terms as group elements.
+
+    * equal sums within the latency gate (LatencyLedger.within_gate): a
+      probation PASS, True (after ED25519_TPU_PROBATION_PROBES in a row
+      the chip rejoins);
+    * a divergence, a probe over the gate, or ANY dispatch failure: a
+      FAIL, False — the chip goes back to quarantine; nothing raises;
+    * staging that rejects the batch: None, nothing recorded.
+
+    The probe's verifier is probe traffic, never production work, and the
+    chip under probation decides nothing: the comparison is exact host
+    math.  `device` None means CUDA and raises without one (a caller
+    error, not evidence against the chip)."""
+    import torch
+
+    from .ops import msm
+
+    reg = _health.chip_registry()
+    chip = int(chip)
+    dev = (_indexed(device) if device is not None
+           else msm.resolve_device(torch.device("cuda", chip)))
+    try:
+        staged = verifier._stage(rng)
+    except InvalidSignature:
+        return None
+    expected = staged.host_msm()
+    try:
+        pad = msm.pad_lanes(staged.n_device_terms)
+        d, p = staged.device_operands(lambda n: pad)
+
+        def probe_call():
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    return msm.dispatch_window_sums_many(
+                        d[None], p[None], dev).cpu().numpy()
+            return msm.dispatch_window_sums_many(d[None], p[None],
+                                                 dev).numpy()
+
+        with msm.DEVICE_CALL_LOCK:
+            t_probe = reg.clock.monotonic()
+            out = np.asarray(_faults.run_device_call(
+                _faults.SITE_LANE, probe_call, clock=reg.clock, mesh=0,
+                payload=(chip,)))
+            probe_dt = reg.clock.monotonic() - t_probe
+        got = msm.combine_window_sums(out[0])
+    except Exception:
+        # An erroring chip is not a clean chip: a fail, never propagated.
+        reg.record_probation_fail(chip, reason="probe dispatch failed")
+        _metrics.record_fault("probation_probe_failed")
+        return False
+    if got != expected:
+        reg.record_probation_fail(chip, reason="probe sum divergence")
+        _metrics.record_fault("probation_probe_failed")
+        return False
+    if not reg.latency.within_gate(probe_dt):
+        # Right but slow is still the mesh's gray failure.
+        reg.record_probation_fail(
+            chip, weight=_health.STRAGGLER_SUSPICION,
+            reason="probation probe over latency gate")
+        _metrics.record_fault("probation_probe_latency_failed")
+        return False
+    rejoined = reg.record_probation_pass(chip)
+    _metrics.record_fault("probation_probe_passed")
+    if rejoined:
+        _metrics.record_fault("chip_rejoined")
+    return True
 
 
 def verify_single_many(entries, rng=None, device=None) -> "list[bool]":

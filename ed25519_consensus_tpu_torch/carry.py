@@ -98,23 +98,15 @@ def mesh_chunk_from_reference(head_digits, r_digits, rwire, n_devices: int):
 
 def chip_registry_from_reference(states, registry=None):
     """A reference ChipRegistry snapshot — its `chip_states()`, {chip:
-    {"state", "suspicion", ...}} — applied to the port's registry (the
-    process one when None): "dead" chips are marked dead, "quarantined"
-    and "probation" chips quarantined (the port has no probation: both
-    are out of placement), and every chip carries the snapshot's
-    suspicion score.  Returns the registry."""
+    {"state", "suspicion", "probation_passes"}} — applied to the port's
+    registry (the process one when None) as it stands: dead chips dead,
+    quarantined chips quarantined, probation chips on probation with
+    their clean probes so far, every chip with the snapshot's suspicion
+    score.  Returns the registry."""
     from . import health
 
     reg = health.chip_registry() if registry is None else registry
-    for chip, st in sorted(states.items()):
-        chip = int(chip)
-        score = float(st.get("suspicion", 0.0))
-        if score:
-            reg.record_suspicion(chip, score, "carried from the reference")
-        if st["state"] == "dead":
-            reg.mark_chip_dead(chip, reason="carried from the reference")
-        elif st["state"] in ("quarantined", "probation"):
-            reg.quarantine_chip(chip, "carried from the reference")
+    reg.load_states(states, "carried from the reference")
     return reg
 
 

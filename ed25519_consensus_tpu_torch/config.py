@@ -136,7 +136,16 @@ KNOBS: "dict[str, Knob]" = dict([
        "ambiguous dispatch error 0.25 per placement chip)."),
     _k("ED25519_TPU_SUSPICION_HALF_LIFE", "float", 300.0,
        "Half-life (registry-clock seconds) of per-chip suspicion "
-       "scores."),
+       "scores; decay below half the threshold relaxes quarantine to "
+       "probation eligibility."),
+    _k("ED25519_TPU_PROBATION_PROBES", "int", 3,
+       "Consecutive clean host-verified probe chunks a probation chip "
+       "must pass (batch.run_probation_probe) before it rejoins "
+       "production placement."),
+    _k("ED25519_TPU_QUARANTINE", "opt-out", True,
+       "Set to 0/false/no to make the chip-suspicion ledger "
+       "report-only: scores still accumulate and decay, but no chip "
+       "is ever quarantined (placement never changes)."),
     _k("ED25519_TPU_CLASS_WATERMARK_MEMPOOL", "float", 0.85,
        "Queue-depth fraction of service capacity at which NEW "
        "mempool-class submissions shed (the VerifyService "
@@ -186,6 +195,33 @@ KNOBS: "dict[str, Knob]" = dict([
        "triggers an atomic snapshot compaction (live entries "
        "re-exported to a temp file, then rename) — bounds disk growth "
        "from append-only churn."),
+    _k("ED25519_TPU_STRAGGLER_RATIO", "float", 3.0,
+       "Relative-straggler rule: a chip whose recent p90 dispatch "
+       "latency exceeds this ratio times the mesh-wide median (for "
+       "ED25519_TPU_STRAGGLER_MIN_SAMPLES consecutive dispatches) "
+       "accrues STRAGGLER_SUSPICION; also scales the probation "
+       "latency gate.  The comparison runs in scaled integers inside "
+       "health.LatencyLedger — this knob is collapsed to per-mille "
+       "once at read."),
+    _k("ED25519_TPU_STRAGGLER_MIN_SAMPLES", "int", 8,
+       "Minimum per-chip latency samples before the straggler rule "
+       "evaluates, AND the consecutive over-ratio streak length that "
+       "accrues one STRAGGLER_SUSPICION event — alternating gray-flap "
+       "windows shorter than this never accrue (no quarantine "
+       "oscillation)."),
+    _k("ED25519_TPU_HEDGE_QUANTILE", "float", 0.95,
+       "Hedge threshold: a dispatched chunk whose elapsed time "
+       "crosses this quantile of recent wave durations (latency "
+       "ledger, per-mille nearest-rank) becomes a hedge candidate — "
+       "its undecided batches re-verify with fresh blinders on the "
+       "host; first valid result wins, the loser is discarded "
+       "unread.  The port hedges hybrid calls only: the host races a "
+       "chunk once it crosses the threshold."),
+    _k("ED25519_TPU_HEDGE_MIN_MS", "float", 50.0,
+       "Floor (milliseconds) under the ledger-derived hedge "
+       "threshold, so cold ledgers and fast devices don't hedge every "
+       "wave; 0 force-hedges every outstanding chunk (test/lab "
+       "knob)."),
 ])
 
 

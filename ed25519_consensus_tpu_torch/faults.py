@@ -17,6 +17,8 @@ action; `install`ing one makes the dispatch boundaries consult it:
 Fault classes: `ErrorOn` (the call raises), `TypedErrorOn` (raises one of
 the classifier's typed shapes), `StallFor` (virtual clocks advance, real
 clocks sleep), `FlappingLink` (every other window of calls raises),
+`SlowChip` and `GrayFlap` (one chip's calls run late but correct, always
+or in alternating windows),
 `CorruptSum` (the result comes back with flipped entries),
 `KillLane` (the worker thread dies mid-flight), at the sharded seam
 `CorruptChipSum` (one chip corrupts its partial sum) and `ChipLoss` (chips
@@ -57,13 +59,13 @@ __all__ = [
     "SITE_LANE", "SITE_SHARDED", "SITE_DEVCACHE", "SITE_VERDICTCACHE",
     "SITE_PERSIST", "InjectedFault",
     "TransientDispatchError", "FatalChipError", "LaneDeathSignal", "Fault",
-    "ErrorOn", "TypedErrorOn", "StallFor", "FlappingLink", "CorruptSum",
-    "CorruptChipSum", "KillLane", "ChipLoss",
+    "ErrorOn", "TypedErrorOn", "StallFor", "FlappingLink", "SlowChip",
+    "GrayFlap", "CorruptSum", "CorruptChipSum", "KillLane", "ChipLoss",
     "CorruptResidentEntry", "EvictStorm", "StaleEpochOn", "RotateTenant",
     "CorruptStoredVerdict", "TornWrite", "BitRot", "TruncateJournal",
     "VersionSkew", "StaleEpochPins", "FaultPlan", "randomized_plan",
-    "storm_plan", "devcache_plan", "verdictcache_plan", "persist_plan",
-    "typed_error_plan",
+    "storm_plan", "slow_plan", "sentinel_plan", "devcache_plan",
+    "verdictcache_plan", "persist_plan", "typed_error_plan",
     "install", "uninstall", "injected", "active_plan", "run_device_call",
 ]
 
@@ -215,6 +217,61 @@ class FlappingLink(Fault):
             f"flapping link down (site={ctx.site}, call={ctx.index})")
 
 
+class SlowChip(Fault):
+    """A GRAY failure: chip `chip` runs every dispatch it takes part in
+    `seconds` slower — no error, no corruption, correct results late.  The
+    delay lands only when `chip` is in the call's placement (the lane and
+    sharded seams pass the chip ids as payload; None reads as 0 .. mesh −
+    1), so a chip reformed out of placement stops slowing anything.  A
+    virtual clock advances, a real clock sleeps.  Detecting it is the
+    latency ledger's job."""
+
+    def __init__(self, chip: int, seconds: float, on=None,
+                 site: str = SITE_LANE):
+        # Default: every call — gray failure is a condition, not an event.
+        super().__init__(on=(lambda i: True) if on is None else on,
+                         site=site)
+        self.chip = int(chip)
+        self.seconds = float(seconds)
+
+    def kind(self) -> str:
+        return f"SlowChip[{self.chip}]"
+
+    def _in_placement(self, ctx) -> bool:
+        ids = (tuple(ctx.payload) if ctx.payload
+               else tuple(range(ctx.mesh or 1)))
+        return self.chip in ids
+
+    def before(self, ctx):
+        if not self._in_placement(ctx):
+            return
+        clock = ctx.clock
+        if clock is not None and getattr(clock, "virtual", False):
+            clock.advance(self.seconds)
+        else:
+            time.sleep(self.seconds)
+
+
+class GrayFlap(SlowChip):
+    """Alternating gray failure: slow for `period` calls, normal for the
+    next `period`, and so on, the first window slow (a pure function of
+    the per-site call index).  Windows shorter than
+    ED25519_TPU_STRAGGLER_MIN_SAMPLES must never complete a straggler
+    streak: the no-oscillation fixture."""
+
+    def __init__(self, chip: int, seconds: float, period: int = 4,
+                 site: str = SITE_LANE):
+        if period < 1:
+            raise ValueError("period must be >= 1")
+        super().__init__(
+            chip, seconds,
+            on=lambda i, p=period: (i // p) % 2 == 0, site=site)
+        self.period = int(period)
+
+    def kind(self) -> str:
+        return f"GrayFlap[{self.chip}]"
+
+
 def _host_copy(out):
     """A numpy copy of a result (an array, or a tensor on any device) and
     the function that puts a corrupted copy back in the result's form."""
@@ -271,6 +328,10 @@ class CorruptChipSum(Fault):
         self.chip = int(chip)
         self.flips = int(flips)
         self.flip_accept = bool(flip_accept)
+
+    def kind(self) -> str:
+        return ("CorruptChipSum[accept]" if self.flip_accept
+                else "CorruptChipSum")
 
     def _shard_of(self, ctx) -> "int | None":
         ids = (tuple(ctx.payload) if ctx.payload
@@ -593,10 +654,14 @@ class FaultPlan:
 def randomized_plan(seed: int, error_rate: float = 0.1,
                     stall_rate: float = 0.05, stall_seconds: float = 0.05,
                     corrupt_rate: float = 0.05, flap_period: int = 0,
+                    slow_rate: float = 0.0, slow_seconds: float = 0.25,
+                    slow_chip: int = 0,
                     site: str = SITE_LANE) -> FaultPlan:
     """Per call index, draw independently (from the seed) whether to
     error, stall or corrupt; rates are per-call probabilities.
-    `flap_period` > 0 adds a FlappingLink on top."""
+    `flap_period` > 0 adds a FlappingLink on top; `slow_rate` > 0 adds
+    gray-failure draws: chip `slow_chip` runs the drawn calls
+    `slow_seconds` late but correct."""
 
     def drawn(kind, rate):
         def fires(i, kind=kind, rate=rate):
@@ -611,16 +676,20 @@ def randomized_plan(seed: int, error_rate: float = 0.1,
     ]
     if flap_period:
         faults.append(FlappingLink(period=flap_period, site=site))
+    if slow_rate:
+        faults.append(SlowChip(slow_chip, slow_seconds,
+                               on=drawn("slow", slow_rate), site=site))
     return FaultPlan(faults, seed=seed)
 
 
 def storm_plan(seed: int, kind: str, at: int = 0, length: int = 1,
                seconds: float = 6.0, site: str = SITE_LANE,
-               advance: float = 3600.0) -> FaultPlan:
+               advance: float = 3600.0, chip: int = 0) -> FaultPlan:
     """One contiguous window of faults over the device-call stream:
     ``error`` (every call in [at, at+length) raises), ``stall`` (each
-    stalls `seconds`) or ``crash`` (the lane worker dies at those
-    calls)."""
+    stalls `seconds`), ``crash`` (the lane worker dies at those calls) or
+    ``slow`` (a gray window: chip `chip` runs every call of the window it
+    takes part in `seconds` late, correct)."""
     window = range(at, at + max(1, length))
     if kind == "error":
         faults = [ErrorOn(on=window, site=site)]
@@ -628,8 +697,60 @@ def storm_plan(seed: int, kind: str, at: int = 0, length: int = 1,
         faults = [StallFor(seconds, on=window, site=site)]
     elif kind == "crash":
         faults = [KillLane(on=window, advance=advance)]
+    elif kind == "slow":
+        faults = [SlowChip(chip, seconds, on=window, site=site)]
     else:
         raise ValueError(f"unknown storm kind {kind!r}")
+    return FaultPlan(faults, seed=seed)
+
+
+def slow_plan(seed: int, chip: int, seconds: float,
+              base_seconds: float = 0.0, kind: str = "persistent",
+              period: int = 4,
+              sites: "tuple[str, ...]" = (SITE_LANE,)) -> FaultPlan:
+    """A GRAY-failure schedule: chip `chip` is `seconds` slow per dispatch
+    it takes part in.  Default seam: SITE_LANE only — every scheduler
+    dispatch (single lane, mesh, probation probe) crosses it once, while a
+    mesh dispatch crosses SITE_SHARDED inside it too, so slowing both
+    would charge the delay twice.
+
+    `base_seconds` > 0 also stalls EVERY call at the same seams by that
+    much: on a FakeClock real compute is invisible, so the healthy mesh
+    needs a modelled cost for "10× slower" to mean anything (base 10 ms,
+    seconds 90 ms: one chip at 10×).  `kind`: ``"persistent"`` (SlowChip)
+    or ``"flap"`` (GrayFlap with `period`)."""
+    faults = []
+    for site in sites:
+        if base_seconds > 0:
+            faults.append(StallFor(base_seconds, on=lambda i: True,
+                                   site=site))
+        if kind == "persistent":
+            faults.append(SlowChip(chip, seconds, site=site))
+        elif kind == "flap":
+            faults.append(GrayFlap(chip, seconds, period=period, site=site))
+        else:
+            raise ValueError(f"unknown slow-plan kind {kind!r}")
+    return FaultPlan(faults, seed=seed)
+
+
+def sentinel_plan(seed: int, kind: str, chip: int = 0, on=None,
+                  at: int = 0, length: int = 1, flips: int = 4,
+                  site: str = SITE_SHARDED) -> FaultPlan:
+    """A per-chip corruption schedule for the sentinel audit:
+    ``"corrupt-chip"`` (chip `chip` corrupts its partial sums at the
+    faulted sharded calls) or ``"flip-accept"`` (the result becomes
+    identity window sums: every batch a device ACCEPT, which only the
+    audit catches).  `on` replaces the [at, at+length) window with any
+    membership spec, e.g. `on=lambda i: True` for a persistent
+    corruptor."""
+    window = on if on is not None else range(at, at + max(1, length))
+    if kind == "corrupt-chip":
+        faults = [CorruptChipSum(chip, on=window, flips=flips, site=site)]
+    elif kind == "flip-accept":
+        faults = [CorruptChipSum(chip, on=window, flip_accept=True,
+                                 site=site)]
+    else:
+        raise ValueError(f"unknown sentinel fault kind {kind!r}")
     return FaultPlan(faults, seed=seed)
 
 

@@ -1,7 +1,8 @@
 """Device health for the verify_many scheduler: one `DeviceHealth` per
 dispatch mode with an injectable monotonic `Clock`, the typed error
-classifier, the process `ChipRegistry` of chip liveness and suspicion, and
-the residency-drop listeners the device operand cache hangs on.
+classifier, the process `ChipRegistry` of chip liveness, suspicion,
+probation and latency (its `LatencyLedger`), and the residency-drop
+listeners the device operand cache hangs on.
 
 THREAD SEMANTICS:
 
@@ -22,6 +23,8 @@ only burns the retry budget), and the scheduler marks the chip dead and
 arms the cooldown.
 """
 
+import bisect
+import collections
 import hashlib
 import threading
 import time
@@ -31,8 +34,9 @@ from . import config as _config
 __all__ = [
     "Clock", "FakeClock", "SYSTEM_CLOCK", "DeviceHealth", "Backoff",
     "ChipRegistry", "chip_registry", "normalize_mesh", "health_for",
-    "SENTINEL_SUSPICION", "AMBIGUOUS_SUSPICION", "STATE_HEALTHY",
-    "STATE_SUSPECTED", "STATE_QUARANTINED",
+    "LatencyLedger", "SENTINEL_SUSPICION", "AMBIGUOUS_SUSPICION",
+    "STRAGGLER_SUSPICION", "STATE_HEALTHY", "STATE_SUSPECTED",
+    "STATE_QUARANTINED", "STATE_PROBATION",
     "reset_all", "any_lane_stuck",
     "register_residency_drop_listener", "notify_residency_drop",
     "register_chip_drop_listener", "notify_chip_drop",
@@ -243,15 +247,206 @@ def notify_chip_drop(chip: int, reason: str) -> None:
 # and an ambiguous dispatch error smeared over every chip of the placement.
 SENTINEL_SUSPICION = 1.5
 AMBIGUOUS_SUSPICION = 0.25
+# A completed straggler streak (the chip's p90 over ratio × mesh median
+# for MIN_SAMPLES consecutive dispatches): two cross the default
+# threshold, like two sentinel divergences.
+STRAGGLER_SUSPICION = 1.5
+
+# Latency-ledger bucket edges in INTEGER microseconds: a geometric ladder
+# (~26 % steps) from 100 µs to 790 s, one overflow bucket above.  A
+# duration is bucketed once, at the seconds → µs scaling where it is
+# recorded, and every quantile is a bucket representative, so no float
+# reaches a latency decision.
+_LATENCY_MANTISSAS_US = (10, 13, 16, 20, 25, 32, 40, 50, 63, 79)
+_LATENCY_EDGES_US = tuple(
+    m * 10 ** k for k in range(1, 8) for m in _LATENCY_MANTISSAS_US)
+_LATENCY_OVERFLOW_US = _LATENCY_EDGES_US[-1] * 10
+
+
+class LatencyLedger:
+    """Per-chip dispatch-latency quantiles: the latency half of chip
+    health.
+
+    `record(chips, seconds)` attributes one completed dispatch's duration
+    (measured by the scheduler on its injected clock; the ledger reads no
+    clock) to every chip of the placement, bucketed into the integer-µs
+    histogram.  Quantiles are nearest-rank over bucket representatives,
+    so the same samples give the same integers on any host.
+
+    The straggler rule: once a chip holds ED25519_TPU_STRAGGLER_MIN_SAMPLES
+    samples, a dispatch where its ring p90 AND the dispatch itself exceed
+    ED25519_TPU_STRAGGLER_RATIO × the mesh median extends its streak; a
+    streak of MIN_SAMPLES flags the chip (the registry accrues
+    STRAGGLER_SUSPICION) and restarts.  The per-dispatch condition keeps a
+    gray flap from flagging: its ring p90 stays high through its normal
+    windows, but windows shorter than MIN_SAMPLES keep breaking the
+    streak.  The comparison is `p90_us * 1000 > ratio_milli * median_us`,
+    the ratio knob collapsed to per-mille once at read.
+
+    Attribution is placement-relative: a full-mesh dispatch smears its
+    duration over every chip, so nobody stands out; exactness comes from
+    placement diversity (single-chip sweeps, probes, reformed rungs).  The
+    ring of recent dispatches across placements gives `wave_quantile_us`
+    (the hedge threshold) and `gate_us` (the probation latency gate, ratio
+    × mesh median; 0 = no evidence, the gate abstains).
+
+    Latency gates placement and timing, never a verdict.  Every mutable
+    field is under `_lock`, a leaf lock: nothing is called while it is
+    held."""
+
+    WINDOW = 64        # per-chip ring of bucketed samples
+    WAVE_WINDOW = 128  # ring of recent dispatches across placements
+
+    def __init__(self, namespace: str = "chips"):
+        self.namespace = str(namespace)
+        self._lock = threading.Lock()
+        self._samples = {}  # chip -> deque of bucket indices (WINDOW)
+        self._streak = {}   # chip -> consecutive over-ratio dispatches
+        self._events = {}   # chip -> completed straggler streaks
+        self._waves = collections.deque(maxlen=self.WAVE_WINDOW)
+
+    @staticmethod
+    def _ratio_milli() -> int:
+        return int(round(_config.get("ED25519_TPU_STRAGGLER_RATIO") * 1000))
+
+    @staticmethod
+    def _min_samples() -> int:
+        return max(1, int(_config.get("ED25519_TPU_STRAGGLER_MIN_SAMPLES")))
+
+    @staticmethod
+    def _bucket_of(us: int) -> int:
+        return bisect.bisect_left(_LATENCY_EDGES_US, us)
+
+    @staticmethod
+    def _rep_us(idx: int) -> int:
+        if idx >= len(_LATENCY_EDGES_US):
+            return _LATENCY_OVERFLOW_US
+        return _LATENCY_EDGES_US[idx]
+
+    @staticmethod
+    def _quantile_us(sorted_idxs, q_milli: int) -> int:
+        """Nearest-rank quantile (per-mille) over sorted bucket indices,
+        as the bucket representative in µs."""
+        n = len(sorted_idxs)
+        if n == 0:
+            return 0
+        return LatencyLedger._rep_us(sorted_idxs[(int(q_milli)
+                                                  * (n - 1)) // 1000])
+
+    def record(self, chips, seconds) -> "tuple[int, ...]":
+        """Land one completed dispatch of `seconds` on every chip of
+        `chips`; returns the chips that completed a straggler streak on
+        this record (the caller accrues their suspicion)."""
+        us = max(0, int(seconds * 1000000))
+        idx = self._bucket_of(us)
+        cur_us = self._rep_us(idx)
+        ratio_milli = self._ratio_milli()
+        need = self._min_samples()
+        flagged = []
+        with self._lock:
+            self._waves.append(idx)
+            rings = []
+            for c in chips:
+                c = int(c)
+                ring = self._samples.get(c)
+                if ring is None:
+                    ring = self._samples[c] = collections.deque(
+                        maxlen=self.WINDOW)
+                ring.append(idx)
+                rings.append((c, ring))
+            med_us = self._quantile_us(
+                sorted(i for r in self._samples.values() for i in r), 500)
+            for c, ring in rings:
+                if len(ring) < need:
+                    continue
+                p90_us = self._quantile_us(sorted(ring), 900)
+                if (p90_us * 1000 > ratio_milli * med_us
+                        and cur_us * 1000 > ratio_milli * med_us):
+                    streak = self._streak.get(c, 0) + 1
+                    if streak >= need:
+                        flagged.append(c)
+                        self._events[c] = self._events.get(c, 0) + 1
+                        streak = 0
+                    self._streak[c] = streak
+                else:
+                    self._streak[c] = 0
+        return tuple(flagged)
+
+    def chip_p90_us(self, chip: int) -> int:
+        with self._lock:
+            ring = self._samples.get(int(chip))
+            return self._quantile_us(sorted(ring), 900) if ring else 0
+
+    def mesh_median_us(self) -> int:
+        with self._lock:
+            return self._quantile_us(
+                sorted(i for r in self._samples.values() for i in r), 500)
+
+    def wave_quantile_us(self, q_milli: int) -> int:
+        """Quantile (per-mille) of the recent dispatches across
+        placements — the hedge threshold's input; 0 before any."""
+        with self._lock:
+            return self._quantile_us(sorted(self._waves), q_milli)
+
+    def wave_samples(self) -> int:
+        """How many recent dispatches the wave ring holds (hedging stays
+        disarmed while the ring is cold)."""
+        with self._lock:
+            return len(self._waves)
+
+    def gate_us(self) -> int:
+        """The probation latency gate: ratio × mesh median in integer µs;
+        0 = no latency evidence, the gate abstains."""
+        med_us = self.mesh_median_us()
+        if med_us <= 0:
+            return 0
+        return (self._ratio_milli() * med_us) // 1000
+
+    def within_gate(self, seconds) -> bool:
+        """Does one probe duration pass the latency gate?"""
+        gate = self.gate_us()
+        return gate <= 0 or max(0, int(seconds * 1000000)) <= gate
+
+    def chip_stats(self) -> "dict[int, dict]":
+        """Per chip, all integers: {samples, p50_us, p90_us, streak,
+        straggler_events}."""
+        with self._lock:
+            out = {}
+            for c in sorted(self._samples):
+                s = sorted(self._samples[c])
+                out[c] = {
+                    "samples": len(s),
+                    "p50_us": self._quantile_us(s, 500),
+                    "p90_us": self._quantile_us(s, 900),
+                    "streak": self._streak.get(c, 0),
+                    "straggler_events": self._events.get(c, 0),
+                }
+            return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._samples.clear()
+            self._streak.clear()
+            self._events.clear()
+            self._waves.clear()
+
+    def __repr__(self):
+        with self._lock:
+            return ("LatencyLedger(namespace=%r, chips=%r, waves=%d)"
+                    % (self.namespace, sorted(self._samples),
+                       len(self._waves)))
+
 
 STATE_HEALTHY = "healthy"
 STATE_SUSPECTED = "suspected"
 STATE_QUARANTINED = "quarantined"
+STATE_PROBATION = "probation"
 
 
 class ChipRegistry:
-    """Process-wide liveness and suspicion of the chips: CUDA indices as
-    torch enumerates them, or shard positions on a virtual mesh.  What
+    """Process-wide liveness, suspicion and latency of the chips: CUDA
+    indices as torch enumerates them, shard positions on a CPU mesh, or the
+    logical ids a caller names (`verify_many(device_ids=)`).  What
     placement — the single lane's device, the mesh's reformation ladder —
     reads.
 
@@ -262,24 +457,41 @@ class ChipRegistry:
       so rejoin is a read, not a daemon.
     * DIAGNOSED suspicion: `record_suspicion(chip, weight, reason)` lands
       evidence (SENTINEL_SUSPICION for an attributed sentinel divergence,
-      AMBIGUOUS_SUSPICION per placement chip for an ambiguous error).
+      AMBIGUOUS_SUSPICION per placement chip for an ambiguous error,
+      STRAGGLER_SUSPICION for a straggler streak of `record_latency`).
       Scores decay with the ED25519_TPU_SUSPICION_HALF_LIFE half-life on
       the registry clock; crossing ED25519_TPU_SUSPICION_THRESHOLD
-      QUARANTINES the chip.  A quarantined chip stays out of placement
-      until `heal_chip` or `reset` (the probation probe that would let it
-      earn its way back is not ported yet).
-    * `excluded_chips()` = dead ∪ quarantined: what placement avoids.
+      QUARANTINES the chip (ED25519_TPU_QUARANTINE=0: report only).
+    * Quarantine relaxes to PROBATION on the read side once the score
+      decays below half the threshold.  A probation chip stays out of
+      placement; `record_probation_pass` (batch.run_probation_probe)
+      rejoins it after ED25519_TPU_PROBATION_PROBES consecutive clean
+      probes, `record_probation_fail` re-quarantines it with fresh
+      suspicion.  `heal_chip` (the operator) rejoins any chip at once.
+    * `latency` is the LatencyLedger the scheduler feeds after every
+      device call.
+    * `excluded_chips()` = dead ∪ quarantined ∪ probation: what placement
+      avoids.
 
     Marking a chip dead or quarantining it notifies the chip-drop
-    listeners (devcache drops that chip's device copies).  Liveness and
-    suspicion gate placement, never math."""
+    listeners (devcache drops that chip's device copies).  Liveness,
+    suspicion and latency gate placement, never math.  The ledger's lock
+    and the registry's are never held together."""
 
     def __init__(self, clock: "Clock | None" = None):
         self.clock = clock if clock is not None else SYSTEM_CLOCK
         self._lock = threading.Lock()
         self._dead = {}  # chip index -> heal-at time (inf = permanent)
         self._suspicion = {}  # chip -> [score, stamp] (decayed lazily)
-        self._quarantined = set()
+        # chip -> STATE_QUARANTINED | STATE_PROBATION (absent: healthy or
+        # suspected), and a probation chip's consecutive clean probes.
+        self._state = {}
+        self._probation_passes = {}
+        self.latency = LatencyLedger()
+
+    @staticmethod
+    def _threshold() -> float:
+        return _config.get("ED25519_TPU_SUSPICION_THRESHOLD")
 
     def set_clock(self, clock: "Clock | None") -> None:
         with self._lock:
@@ -298,12 +510,18 @@ class ChipRegistry:
 
     def heal_chip(self, chip: int) -> None:
         """Operator rejoin: the chip is alive and trusted again (its death,
-        quarantine and suspicion are cleared)."""
+        quarantine or probation and suspicion are cleared)."""
         chip = int(chip)
         with self._lock:
             self._dead.pop(chip, None)
-            self._quarantined.discard(chip)
+            self._state.pop(chip, None)
+            self._probation_passes.pop(chip, None)
             self._suspicion.pop(chip, None)
+
+    def _prune_dead_locked(self) -> None:
+        now = self.clock.monotonic()
+        for c in [c for c, t in self._dead.items() if now >= t]:
+            del self._dead[c]
 
     def _decayed_locked(self, chip: int, now: float) -> float:
         rec = self._suspicion.get(chip)
@@ -319,6 +537,17 @@ class ChipRegistry:
             return 0.0
         return score
 
+    def _prune_quarantine_locked(self, now: float) -> None:
+        """Read-side relaxation: a quarantined chip whose suspicion decayed
+        to half the threshold or below becomes a probation candidate
+        (hysteresis: re-quarantine needs fresh evidence)."""
+        half = self._threshold() * 0.5
+        for c, st in list(self._state.items()):
+            if st == STATE_QUARANTINED \
+                    and self._decayed_locked(c, now) <= half:
+                self._state[c] = STATE_PROBATION
+                self._probation_passes[c] = 0
+
     def suspicion(self, chip: int) -> float:
         """The chip's current (decayed) suspicion score."""
         with self._lock:
@@ -327,56 +556,183 @@ class ChipRegistry:
     def record_suspicion(self, chip: int, weight: float,
                          reason: str = "suspicion") -> str:
         """Land one piece of evidence against `chip`: decay its score, add
-        `weight`; crossing the threshold QUARANTINES it (the chip-drop
-        listeners fire as for a chip loss).  Returns the chip's state."""
+        `weight`; crossing the threshold QUARANTINES it (unless
+        ED25519_TPU_QUARANTINE=0), and the chip-drop listeners fire as for
+        a chip loss.  Returns the chip's state."""
         chip = int(chip)
         quarantined_now = False
         with self._lock:
             now = self.clock.monotonic()
             score = self._decayed_locked(chip, now) + float(weight)
             self._suspicion[chip] = [score, now]
-            if (score >= _config.get("ED25519_TPU_SUSPICION_THRESHOLD")
-                    and chip not in self._quarantined):
-                self._quarantined.add(chip)
+            if (score >= self._threshold()
+                    and self._state.get(chip) != STATE_QUARANTINED
+                    and _config.get("ED25519_TPU_QUARANTINE")):
+                self._state[chip] = STATE_QUARANTINED
+                self._probation_passes.pop(chip, None)
                 quarantined_now = True
-            state = (STATE_QUARANTINED if chip in self._quarantined
-                     else STATE_SUSPECTED)
+            state = self._state.get(
+                chip, STATE_SUSPECTED if score > 0 else STATE_HEALTHY)
         if quarantined_now:
             notify_chip_drop(chip, f"chip-quarantine: {reason}")
         return state
 
+    def record_latency(self, chips, seconds) -> "tuple[int, ...]":
+        """Feed one completed dispatch of `seconds` (on the scheduler's
+        clock) over the placement `chips` to the latency ledger, and
+        accrue STRAGGLER_SUSPICION for every chip that completed a
+        straggler streak — the same ladder as sentinel divergence.
+        Returns the flagged chips.  The ledger records first, then each
+        flagged chip goes through `record_suspicion`: the two locks are
+        never held together."""
+        flagged = self.latency.record(chips, seconds)
+        for c in flagged:
+            self.record_suspicion(c, STRAGGLER_SUSPICION,
+                                  "straggler: p90 over ratio x mesh median")
+        return flagged
+
     def quarantine_chip(self, chip: int, reason: str = "quarantine") -> None:
-        """Quarantine `chip` outright, whatever its score (the chip-drop
-        listeners fire if it was not quarantined yet)."""
+        """Quarantine `chip` outright, its suspicion raised to at least the
+        threshold, so it waits out a decay before probation like a chip
+        that crossed it (the chip-drop listeners fire if it was not
+        quarantined yet)."""
         chip = int(chip)
         with self._lock:
-            fresh = chip not in self._quarantined
-            self._quarantined.add(chip)
+            now = self.clock.monotonic()
+            self._suspicion[chip] = [max(self._decayed_locked(chip, now),
+                                         self._threshold()), now]
+            fresh = self._state.get(chip) != STATE_QUARANTINED
+            self._state[chip] = STATE_QUARANTINED
+            self._probation_passes.pop(chip, None)
         if fresh:
             notify_chip_drop(chip, f"chip-quarantine: {reason}")
 
+    def load_states(self, states, reason: str = "loaded") -> None:
+        """Apply a `chip_states()` snapshot — this registry's or the
+        reference package's — chip by chip: its state ("dead" marks the
+        chip dead for good), suspicion score and probation passes, as
+        they were.  The chip-drop listeners fire for every chip that
+        leaves placement."""
+        dropped = []
+        with self._lock:
+            now = self.clock.monotonic()
+            for chip, st in sorted(states.items()):
+                chip = int(chip)
+                score = float(st.get("suspicion", 0.0))
+                if score:
+                    self._suspicion[chip] = [score, now]
+                else:
+                    self._suspicion.pop(chip, None)
+                state = st["state"]
+                if state == "dead":
+                    self._dead[chip] = float("inf")
+                    dropped.append(chip)
+                if state in (STATE_QUARANTINED, STATE_PROBATION):
+                    self._state[chip] = state
+                    dropped.append(chip)
+                else:
+                    self._state.pop(chip, None)
+                if state == STATE_PROBATION:
+                    self._probation_passes[chip] = int(
+                        st.get("probation_passes", 0))
+                else:
+                    self._probation_passes.pop(chip, None)
+        for chip in dropped:
+            notify_chip_drop(chip, f"chip-state {reason}")
+
     def chip_state(self, chip: int) -> str:
-        """healthy / suspected / quarantined (suspicion decays on read)."""
+        """healthy / suspected / quarantined / probation (a read applies
+        the decay and the quarantine → probation relaxation)."""
         chip = int(chip)
         with self._lock:
-            if chip in self._quarantined:
-                return STATE_QUARANTINED
-            return (STATE_SUSPECTED
-                    if self._decayed_locked(chip, self.clock.monotonic())
+            now = self.clock.monotonic()
+            self._prune_quarantine_locked(now)
+            st = self._state.get(chip)
+            if st is not None:
+                return st
+            return (STATE_SUSPECTED if self._decayed_locked(chip, now) > 0
                     else STATE_HEALTHY)
 
     def quarantined_chips(self) -> "frozenset[int]":
         with self._lock:
-            return frozenset(self._quarantined)
+            self._prune_quarantine_locked(self.clock.monotonic())
+            return frozenset(c for c, st in self._state.items()
+                             if st == STATE_QUARANTINED)
+
+    def probation_chips(self) -> "frozenset[int]":
+        """Chips eligible for (or in) probation probing: out of placement
+        until they pass their clean probes."""
+        with self._lock:
+            self._prune_quarantine_locked(self.clock.monotonic())
+            return frozenset(c for c, st in self._state.items()
+                             if st == STATE_PROBATION
+                             and c not in self._dead)
 
     def excluded_chips(self) -> "frozenset[int]":
         """The chips placement must avoid right now: reported dead (heal
-        windows pruned) or quarantined."""
+        windows pruned), quarantined or on probation."""
+        with self._lock:
+            self._prune_dead_locked()
+            self._prune_quarantine_locked(self.clock.monotonic())
+            return frozenset(self._dead) | frozenset(self._state)
+
+    def record_probation_pass(self, chip: int) -> bool:
+        """One clean probation probe; True when the chip completed its
+        probation and REJOINED (state and suspicion cleared)."""
+        chip = int(chip)
+        with self._lock:
+            self._prune_quarantine_locked(self.clock.monotonic())
+            if self._state.get(chip) != STATE_PROBATION:
+                return False
+            n = self._probation_passes.get(chip, 0) + 1
+            if n >= _config.get("ED25519_TPU_PROBATION_PROBES"):
+                del self._state[chip]
+                self._probation_passes.pop(chip, None)
+                self._suspicion.pop(chip, None)
+                return True
+            self._probation_passes[chip] = n
+            return False
+
+    def record_probation_fail(self, chip: int,
+                              weight: float = SENTINEL_SUSPICION,
+                              reason: str = "probation-probe-failed"
+                              ) -> None:
+        """A probation probe diverged, errored or ran over the latency
+        gate: back to QUARANTINED with suspicion at or above the
+        threshold, so the chip waits out a full decay before its next
+        probation window."""
+        chip = int(chip)
         with self._lock:
             now = self.clock.monotonic()
-            for c in [c for c, t in self._dead.items() if now >= t]:
-                del self._dead[c]
-            return frozenset(self._dead) | frozenset(self._quarantined)
+            score = max(self._decayed_locked(chip, now) + float(weight),
+                        self._threshold())
+            self._suspicion[chip] = [score, now]
+            requarantined = self._state.get(chip) != STATE_QUARANTINED
+            self._state[chip] = STATE_QUARANTINED
+            self._probation_passes.pop(chip, None)
+        if requarantined:
+            notify_chip_drop(chip, f"chip-requarantine: {reason}")
+
+    def chip_states(self) -> "dict[int, dict]":
+        """{chip: {state, suspicion, probation_passes}} for every chip with
+        any ledger state ("dead" for a chip reported dead)."""
+        with self._lock:
+            now = self.clock.monotonic()
+            self._prune_dead_locked()
+            self._prune_quarantine_locked(now)
+            chips = set(self._dead) | set(self._state) | set(self._suspicion)
+            return {
+                c: {
+                    "state": ("dead" if c in self._dead
+                              else self._state.get(
+                                  c, STATE_SUSPECTED
+                                  if self._decayed_locked(c, now) > 0
+                                  else STATE_HEALTHY)),
+                    "suspicion": round(self._decayed_locked(c, now), 4),
+                    "probation_passes": self._probation_passes.get(c, 0),
+                }
+                for c in sorted(chips)
+            }
 
     def healthy_count(self, total: int) -> int:
         """How many of the chips [0, total) are placeable right now."""
@@ -391,18 +747,20 @@ class ChipRegistry:
         return tuple(out[:int(want)]) if len(out) >= int(want) else None
 
     def reset(self) -> None:
-        """Clear all chip-death, suspicion and quarantine state and restore
-        the process clock."""
+        """Clear all chip-death, suspicion, quarantine, probation and
+        latency state and restore the process clock."""
         with self._lock:
             self._dead.clear()
             self._suspicion.clear()
-            self._quarantined.clear()
+            self._state.clear()
+            self._probation_passes.clear()
             self.clock = SYSTEM_CLOCK
+        self.latency.reset()
 
     def __repr__(self):
         with self._lock:
             return (f"ChipRegistry(dead={sorted(self._dead)}, "
-                    f"quarantined={sorted(self._quarantined)})")
+                    f"states={dict(sorted(self._state.items()))})")
 
 
 _chip_registry = ChipRegistry()

@@ -53,10 +53,14 @@ def batch_mesh(n_devices: "int | None" = None, devices=None,
 
 def shard_chips(placement, device_ids=None) -> "tuple[int, ...]":
     """The chip id of each shard of `placement`, the ids the ChipRegistry
-    keeps: a card's CUDA index (every shard of a virtual mesh on one card
-    names that card, so a fault there never excludes another card), and on
-    the CPU `device_ids[k]` or the shard position k — the counterpart of
-    the JAX package's virtual host devices."""
+    keeps: `device_ids[k]` when the caller names the chips (on cards the
+    reformed mesh's CUDA indices; on a virtual mesh the logical chips of
+    `verify_many(device_ids=)`), else a card's CUDA index (every shard of
+    a virtual mesh on one card names that card, so a fault there never
+    excludes another card) and on the CPU the shard position k — the
+    counterpart of the JAX package's virtual host devices."""
+    if device_ids:
+        return tuple(int(c) for c in device_ids)
     out = []
     for k, d in enumerate(placement):
         d = torch.device(d)
@@ -64,5 +68,5 @@ def shard_chips(placement, device_ids=None) -> "tuple[int, ...]":
             out.append(torch.cuda.current_device() if d.index is None
                        else d.index)
         else:
-            out.append(int(device_ids[k]) if device_ids else k)
+            out.append(k)
     return tuple(out)

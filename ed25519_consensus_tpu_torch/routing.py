@@ -74,20 +74,21 @@ def healthy_device_count(total: "int | None" = None) -> int:
     return _health.chip_registry().healthy_count(d)
 
 
-def reform_for(width: "int | None" = None
+def reform_for(width: "int | None" = None, total: "int | None" = None
                ) -> "tuple[int, tuple[int, ...] | None]":
     """The rung the live chip set supports for a requested width:
     ``(rung, device_ids)`` with `rung` the largest power of two ≤
     min(width, live healthy count) — 0 means no healthy device, the host
     is the only rung — and `device_ids` the surviving chips it runs on,
-    or None when they are exactly 0..rung−1."""
+    or None when they are exactly 0..rung−1.  `total` widens the chip
+    universe (a caller's logical chips beyond the visible cards)."""
     d = available_devices() if width is None else int(width)
     if d <= 0:
         return 0, None
     # All addressable devices are the substitution universe; an explicit
     # width is the caller's assertion of the device world on hosts where
     # the probe reports fewer (a virtual mesh: chips are shard positions).
-    total = max(available_devices(), d)
+    total = max(available_devices(), d, int(total or 0))
     live = min(healthy_device_count(total), d)
     if live <= 0:
         return 0, None
@@ -144,6 +145,14 @@ class RoutingPolicy:
         d, _ids = reform_for(d_cfg)
         if d < self.min_devices:
             return 0
+        # Report only: the latency ledger's measured dispatch median beside
+        # the modelled fixed cost the decision below still uses.
+        measured_us = _health.chip_registry().latency.mesh_median_us()
+        if measured_us:
+            from .utils import metrics as _metrics
+
+            _metrics.set_gauges(
+                {"routing_measured_wave_overhead_us": measured_us})
         if est_terms_per_batch <= self.crossover_terms(d):
             return 0
         h = health if health is not None else _health.health_for(d)

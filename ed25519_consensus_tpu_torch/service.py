@@ -51,10 +51,14 @@ Two rungs are the port's own:
   breaker failure "crash") and fails the wave's tickets the same way; on
   the host route a crash is still re-decided on the host.
 
-Left out until the port has them: the hedge/straggler roll-up and the
-wave deadline passed to `verify_many` (the scheduler's hedging half), and
-the federation's `replica_id` and `surrender_pending`.  Verdict-store
-persistence (`persist_dir`, persist.py) is in.
+The gray-failure half is in: a device wave passes its tightest request
+deadline to `verify_many(deadline=)` (hedge affordability; the wave drains
+consensus first, so consensus chunks claim the hedge budget first), and
+`_note_device_outcome` rolls the wave's hedges and straggler accruals up
+into `totals` and publishes them beside the latency ledger's gauges.
+Left out until the port has them: the federation's `replica_id` and
+`surrender_pending`.  Verdict-store persistence (`persist_dir`,
+persist.py) is in.
 
 Soundness is inherited: every verdict comes from `verify_many`'s ladder
 (device rejects re-decided on the host) or from the host path — the
@@ -438,6 +442,11 @@ class VerifyService:
             # door from a re-hashed memo, and ladder-decided verdicts
             # written to the memo store after their wave.
             "verdict_cache_hits": 0, "verdict_cache_stores": 0,
+            # The gray-failure defence: hedge pairs fired, won and lost
+            # across device waves, and the straggler streaks the latency
+            # ledger attributed.
+            "hedges_fired": 0, "hedges_won": 0, "hedges_lost": 0,
+            "straggler_suspicion_events": 0,
         }
         # Per-class lifecycle tallies (the fairness surface the traffic
         # lab and the SLO gates read): every submission lands in
@@ -894,13 +903,16 @@ class VerifyService:
                 # Probe waves force device participation (hybrid=False):
                 # a half-open breaker needs evidence, and a host-raced
                 # probe that never measures the device would stay
-                # half-open forever.
+                # half-open forever.  The wave's tightest request deadline
+                # bounds hedging.
+                dls = [r.deadline for r in reqs if r.deadline is not None]
                 verdicts = _batch.verify_many(
                     vs, rng=self._rng, chunk=self.chunk,
                     hybrid=False if probe else self.hybrid,
                     merge=self.merge, mesh=mesh_arg,
                     health=self.health, policy=self.policy,
-                    device=self.device)
+                    device=self.device,
+                    deadline=min(dls) if dls else None)
                 stats = dict(_batch.last_run_stats)
                 self.wave_stats.append(("device", stats))
                 self._note_device_outcome(stats, probe)
@@ -965,11 +977,23 @@ class VerifyService:
         """Feed one device-routed wave's verify_many stats to the
         breaker and the wave-time estimate."""
         dc = stats.get("devcache") or {}
+        hedge_keys = ("hedges_fired", "hedges_won", "hedges_lost",
+                      "straggler_suspicion_events")
         with self._cv:
             if dc.get("hit"):
                 self.totals["devcache_hot_waves"] += 1
             self.totals["devcache_dispatch_hits"] += dc.get(
                 "dispatch_hits", 0)
+            for k in hedge_keys:
+                self.totals[k] += stats.get(k, 0)
+            hedge_snap = {k: self.totals[k] for k in hedge_keys}
+        # Published outside the lock.
+        led = _health.chip_registry().latency
+        _metrics.set_gauges({
+            "latency_mesh_median_us": led.mesh_median_us(),
+            "latency_wave_p95_us": led.wave_quantile_us(950),
+            **hedge_snap,
+        })
         failed = bool(stats.get("device_sick")) \
             or stats.get("device_errors", 0) > 0
         participated = (
@@ -1017,6 +1041,7 @@ class VerifyService:
                 # The diagnosed chip ledger an operator reads next to the
                 # capacity shrink.
                 "quarantined_chips": sorted(reg.quarantined_chips()),
+                "probation_chips": sorted(reg.probation_chips()),
                 "queue_requests": self._queued_requests(),
                 "queue_requests_by_class": {
                     cls: len(q) for cls, q in self._queues.items()},

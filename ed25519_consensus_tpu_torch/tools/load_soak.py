@@ -18,6 +18,9 @@ schedules):
 * ``none``     — pure overload: capacity pressure only.
 * ``stall``    — a stall storm at the lane dispatch (calls sleep past the
   scheduler's 2 s deadline floor: deadline misses, breaker food).
+* ``slowchip`` — a GRAY window: a few mid-round device calls run 0.25 s
+  slow — correct verdicts, late; the latency ledger records them on a
+  live service and nothing sheds or wedges.
 * ``death``    — device death mid-queue (KillLane: the lane worker dies
   with chunks in flight, replacement lanes die in the window).
 * ``error``    — a crash storm (every call in the window raises).
@@ -35,9 +38,8 @@ A device error out of `verify_many` reaches the service as a
 `DeviceError` wave, whose tickets carry it (service.py: the host never
 decides what the device failed to); the soak counts them as
 `device_error` outcomes, and any other exception a device wave's tickets
-carry as `crash`.  The JAX tool's ``slowchip`` storm (a gray-failure
-window) and its consensuslint waiver gate are not ported: the port has
-neither the scheduler's latency ledger nor the analysis layer yet.
+carry as `crash`.  The JAX tool's consensuslint waiver gate is not
+ported: the port has no analysis layer.
 
     python -m ed25519_consensus_tpu_torch.tools.load_soak [--seed 0x10AD]
         [--rounds 4] [--submitters 3] [--requests 8] [--sigs 4]
@@ -61,7 +63,8 @@ from .. import SigningKey, batch, devcache, faults, service, tenancy
 from ..error import DeviceError
 from ..utils import metrics
 
-STORMS = ("none", "stall", "death", "error", "deadline", "mixed", "churn")
+STORMS = ("none", "stall", "death", "error", "deadline", "mixed", "churn",
+          "slowchip")
 
 
 def make_pool(rnd, keys, n_batches, sigs, keyset=None):
@@ -97,6 +100,11 @@ def storm_for(profile, seed, site):
         # the default storm seconds exceed the warmed 8-batch chunk's
         # budget, so the window deterministically blows deadlines
         return faults.storm_plan(seed, "stall", at=1, length=3, site=site)
+    if profile == "slowchip":
+        # A gray window: 0.25 s late is well inside every non-tight
+        # deadline, so the gate stays zero lost and host-identical.
+        return faults.storm_plan(seed, "slow", at=1, length=4,
+                                 seconds=0.25, site=site)
     if profile == "death":
         return faults.storm_plan(seed, "crash", at=1, length=2)
     if profile == "error":
@@ -331,7 +339,8 @@ def soak(args) -> dict:
                   file=sys.stderr)
             violations += 1
         devcache.set_default_cache(None)
-    if args.storm in ("stall", "death", "error", "mixed", "churn") \
+    if args.storm in ("stall", "death", "error", "mixed", "churn",
+                      "slowchip") \
             and totals["injected"] == 0:
         # A device-fault storm that never injected tested nothing.
         print(f"VIOLATION: storm {args.storm!r} injected 0 faults over "

@@ -11,8 +11,13 @@ from contextlib import contextmanager
 # Process-cumulative tallies of every degradation-ladder transition
 # ("device_error", "deadline_miss", "device_reject_confirmed",
 # "device_reject_overturned", "probe_backoff_armed", the devcache
-# events...).  Injected and real device faults land in the same counters.
-# Per-call counts live in batch.last_run_stats.
+# events...) and of the gray-failure defence: "hedge_fired",
+# "hedge_won", "hedge_lost", "hedge_device_error" (the scheduler's hedged
+# re-dispatch), "straggler_suspicion" (straggler streaks the latency
+# ledger attributed), "probation_probe_passed", "probation_probe_failed",
+# "probation_probe_latency_failed" and "chip_rejoined"
+# (batch.run_probation_probe).  Injected and real device faults land in
+# the same counters.  Per-call counts live in batch.last_run_stats.
 
 _fault_lock = threading.Lock()
 _fault_counters: dict = {}
@@ -30,6 +35,10 @@ def fault_counters() -> dict:
 
 
 # -- gauges ----------------------------------------------------------------
+# Levels published as a family: the devcache's, the service's hedge and
+# straggler totals with the latency ledger's "latency_mesh_median_us" and
+# "latency_wave_p95_us" (VerifyService after every device wave), and
+# "routing_measured_wave_overhead_us" (the routing read, report only).
 
 _gauge_lock = threading.Lock()
 _gauges: dict = {}

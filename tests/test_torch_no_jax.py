@@ -10,7 +10,9 @@ stack — serde, the legacy oracle, tenancy, the verdict memo, VerifyService
 and its two tools (tools/replay_lab.py, tools/load_soak.py) — and the
 verdict soaks and durable state (persist.py, a journaled service across a
 restart, tools/soak.py, device_soak.py, chaos_soak.py and restart_lab.py)
-as well; the kernel sources in csrc/, probes.cu among them, include
+and the gray-failure half of the scheduler (the latency ledger, a
+named-chip call, a hedged call, a probation probe, tools/straggler_lab.py
+and tools/sentinel_soak.py) as well; the kernel sources in csrc/, probes.cu among them, include
 nothing outside the port.
 
 Careful with names: `ed25519_consensus_tpu_torch` starts with
@@ -204,6 +206,34 @@ run = restart_lab.run_scenario(restart_lab.parse_args(
     ["--txs", "6", "--sigs", "2"]), "clean")
 assert run["lost"] == 0 and run["verdict_mismatches"] == 0
 assert run["load_report"]["absorbed"] > 0
+
+# The gray-failure half: the latency ledger feeding the ladder, a call on
+# a named logical chip, a force-hedged hybrid call, probation probes, and
+# a phase of each of the two labs.
+from ed25519_consensus_tpu_torch.tools import sentinel_soak, straggler_lab
+
+reg = health.chip_registry()
+reg.set_clock(clock)
+reg.latency.reset()  # an empty ledger: HEDGE_MIN_MS=0 hedges at once
+v1 = batch.Verifier()
+v1.queue_bulk(entries)
+with config.override(ED25519_TPU_HEDGE_MIN_MS=0):
+    assert batch.verify_many([v1.clone()], chunk=2, hybrid=True,
+                             merge="never", device="cpu", device_ids=(3,),
+                             deadline=clock.monotonic() + 5.0,
+                             health=health.DeviceHealth(clock=clock)) \
+        == [True]
+assert batch.last_run_stats["hedges_won"] == 1
+assert reg.record_latency((0,), 0.01) == ()
+reg.record_suspicion(2, 3.0, "test")
+clock.advance(2000.0)
+assert reg.probation_chips() == {2}
+for _ in range(3):
+    assert batch.run_probation_probe(v1.clone(), 2, device="cpu")
+assert not reg.excluded_chips()
+assert straggler_lab.run_hedge_phase(1, device="cpu")["ok"]
+assert sentinel_soak.run_transient_corruptor(1, devices=2, chip=1,
+                                             device="cpu")["ok"]
 batch._DeviceLane.reset_all()
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
@@ -256,9 +286,12 @@ def _port_sources():
     assert {"mesh.py", "sharded_msm.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
     assert {"kernel_lab.py", "microbench.py", "soak.py", "device_soak.py",
-            "chaos_soak.py", "restart_lab.py"} <= {
+            "chaos_soak.py", "restart_lab.py", "straggler_lab.py",
+            "sentinel_soak.py", "load_soak.py"} <= {
         f.name for f in files if f.parent.name == "tools"}
-    assert "persist.py" in {f.name for f in files}
+    assert {"persist.py", "health.py", "faults.py", "batch.py",
+            "service.py", "routing.py", "carry.py", "metrics.py"} <= {
+        f.name for f in files}
     return files
 
 
@@ -318,6 +351,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: bv.verify_async()):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # a probation probe with no device named probes a card
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch.run_probation_probe(bv, 0)
     # the sharded backend and a mesh without a device need the cards too
     with pytest.raises(RuntimeError, match="CUDA"):
         bv.verify(backend="sharded")

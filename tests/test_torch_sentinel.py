@@ -168,8 +168,9 @@ def test_suspicion_accumulates_decays_and_quarantines():
         health.STATE_QUARANTINED
     assert 5 in reg.excluded_chips() and 5 in reg.quarantined_chips()
     assert any(c == 5 and "quarantine" in r for c, r in drops)
-    clk.advance(3000.0)  # decay does not rejoin: no probation probe yet
-    assert reg.chip_state(5) == health.STATE_QUARANTINED
+    clk.advance(3000.0)  # decay relaxes to probation, which stays out
+    assert reg.chip_state(5) == health.STATE_PROBATION
+    assert 5 in reg.excluded_chips() and 5 in reg.probation_chips()
     reg.heal_chip(5)
     assert reg.chip_state(5) == health.STATE_HEALTHY
 
@@ -223,3 +224,111 @@ def test_reference_registry_snapshot_carries_across():
     assert reg.chip_state(1) == health.STATE_SUSPECTED
     assert reg.chip_state(6) == health.STATE_QUARANTINED
     assert J.__name__ == "ed25519_consensus_tpu"
+
+
+def test_reference_snapshot_with_probation_carries_state_for_state():
+    """A reference snapshot holding dead, quarantined, probation (one clean
+    probe in) and suspected chips carries as it stands: the port's
+    chip_states() equals it state for state, its excluded chips equal the
+    reference's, and both ladders go on identically — the probation chip
+    rejoins on the same probe in both."""
+    clock = jhealth.FakeClock()
+    ref = jhealth.ChipRegistry(clock=clock)
+    ref.mark_chip_dead(3)
+    ref.record_suspicion(1, 1.5, "audit")
+    ref.record_suspicion(6, 3.0, "storm")
+    ref.record_suspicion(2, 3.0, "storm")
+    clock.advance(900.0)
+    ref.record_suspicion(6, 3.0, "storm again")
+    assert ref.record_probation_pass(2) is False
+    snap = ref.chip_states()
+    assert {c: st["state"] for c, st in snap.items()} == {
+        1: "suspected", 2: "probation", 3: "dead", 6: "quarantined"}
+    reg = carry.chip_registry_from_reference(
+        snap, health.ChipRegistry(clock=health.FakeClock()))
+    assert reg.chip_states() == snap
+    assert reg.excluded_chips() == ref.excluded_chips() == {2, 3, 6}
+    assert reg.probation_chips() == ref.probation_chips() == {2}
+    assert reg.quarantined_chips() == ref.quarantined_chips() == {6}
+    for _ in range(2):
+        assert reg.record_probation_pass(2) == ref.record_probation_pass(2)
+    assert reg.chip_state(2) == ref.chip_state(2) == health.STATE_HEALTHY
+    assert reg.excluded_chips() == ref.excluded_chips() == {3, 6}
+
+
+def test_quarantine_relaxes_to_probation_then_rejoins():
+    clk = health.FakeClock()
+    reg = health.chip_registry()
+    reg.set_clock(clk)
+    reg.record_suspicion(2, 3.0, "storm")
+    assert reg.chip_state(2) == health.STATE_QUARANTINED
+    clk.advance(900.0)  # 3 half-lives: 3.0 → 0.375, under half the threshold
+    assert reg.chip_state(2) == health.STATE_PROBATION
+    assert 2 in reg.excluded_chips()
+    assert not reg.record_probation_pass(2)
+    assert not reg.record_probation_pass(2)
+    assert reg.record_probation_pass(2)
+    assert reg.chip_state(2) == health.STATE_HEALTHY
+    assert reg.excluded_chips() == frozenset() and reg.suspicion(2) == 0.0
+
+
+def test_probation_fail_requarantines_with_fresh_suspicion():
+    clk = health.FakeClock()
+    reg = health.chip_registry()
+    reg.set_clock(clk)
+    reg.record_suspicion(4, 3.0, "storm")
+    clk.advance(900.0)
+    assert reg.chip_state(4) == health.STATE_PROBATION
+    assert not reg.record_probation_pass(4)
+    reg.record_probation_fail(4)
+    assert reg.chip_state(4) == health.STATE_QUARANTINED
+    assert reg.suspicion(4) >= 3.0
+    clk.advance(1200.0)  # the full streak again after the next window
+    assert reg.chip_state(4) == health.STATE_PROBATION
+    assert not reg.record_probation_pass(4)
+
+
+def test_probation_chip_rejoins_the_mesh_at_full_width():
+    """A corruptor quarantined by the audit decays to probation, passes its
+    probes on the CPU and rejoins: the next call runs the full 2-mesh with
+    no reformation and audits clean."""
+    plan = faults.sentinel_plan(9, "corrupt-chip", chip=1, on=lambda i: True)
+    reg = health.chip_registry()
+    with faults.injected(plan):
+        for _ in range(2):
+            with pytest.raises(T.DeviceError):
+                mesh_call(make_verifiers(2), sentinel_rate=1.0)
+    assert reg.chip_state(1) == health.STATE_QUARANTINED
+    reg.clock.advance(1800.0)
+    assert reg.probation_chips() == {1}
+    for _ in range(3):
+        assert batch.run_probation_probe(
+            make_verifiers(1, sigs_per_batch=6)[0], 1, rng=rng,
+            device="cpu")
+    assert reg.excluded_chips() == frozenset()
+    vs = make_verifiers(2, bad={1})
+    assert mesh_call(vs, sentinel_rate=1.0) == host_verdicts(vs)
+    st = batch.last_run_stats
+    assert st["mesh"] == 2 and st["mesh_reformations"] == []
+    assert st["sentinel"]["divergence"] == 0
+
+
+def test_forged_accept_is_caught_whatever_the_shard_draw():
+    """A small batch puts every real term on shard 0 of a 4-mesh; chip 0
+    forges its partial and the fold alike (identity sums: a device
+    ACCEPT of a tampered batch).  Drawing one of the three all-padding
+    shards proved nothing before; now the draw is among the shards with
+    terms and the padding shards are checked for the identity, so every
+    call raises naming chip 0 and no forged accept is published."""
+    plan = faults.sentinel_plan(10, "flip-accept", chip=0, on=lambda i: True)
+    reg = health.chip_registry()
+    for call in range(4):
+        vs = make_verifiers(2, sigs_per_batch=3, bad={0, 1})
+        with faults.injected(plan):
+            with pytest.raises(T.DeviceError, match=r"chips \[0\]"):
+                mesh_call(vs, mesh=4, sentinel_rate=1.0,
+                          device_ids=(0, 1, 2, 3))
+        st = batch.last_run_stats
+        assert st["sentinel"]["attributed"] == [0]
+        assert st["device_batches"] == 0
+        reg.heal_chip(0)
