@@ -33,6 +33,16 @@ card, drives the port's two paths, and times the kernels.
   4-chip mesh of logical chips with chip 3 corrupting until it is
   quarantined, then on probation, probed and rejoined (K1, K2, K3, K5,
   and K4, K2t on the stream's resident keyset).
+* The federation (`phase_federation`): a `federation.ReplicaSet` of three
+  `VerifyService(device="cuda:0", hybrid=False)` replicas over their
+  namespaced device operand caches; eight CometBFT chains of 128
+  validators each, 64 heights a pass, one tampered commit a chain, four
+  passes — cold, resident (K2t from each chain's home), a crash of chain
+  0's home with its queue re-verified on peers and the replica revived,
+  probed and rejoined with its peers' warm hints, affinity restored (K1,
+  K2, K4, K2t, K3); then tools/traffic_lab.py --fleet 3 --replica-crash
+  and --device, and tools/mesh_chaos.py (8 logical chips: K1–K3 a shard,
+  K5) at their defaults.
 * The lab: the 20-limb K1, K2, K2t, K3 and K4 (`-l20`) timed in turns with
   the default ones (fe25519_u32.cuh) on the main path's operands; the
   self-test of their field arithmetic (probe_fe8) against the exact-
@@ -1394,6 +1404,389 @@ def phase_gray(state: dict) -> None:
     state["gray"] = {"labs": labs, "hedge": hedge, "probation": probation}
 
 
+# The federation phase: FED_CHAINS CometBFT chains, each signed by its own
+# COMET_KEYS validators (bench.py's cometbft128 shape), FED_HEIGHTS heights
+# a pass, through a ReplicaSet of FED_REPLICAS device services on one card.
+# Commits go in runs of FED_RUN heights of one chain (one chunk each); a
+# CPU rehearsal shrinks the depth.
+FED_REPLICAS, FED_CHAINS, FED_HEIGHTS, FED_RUN = 3, 8, 64, 8
+FED_SEED = 0xFED13
+FED_KERNELS = ("expand_compressed", "window_sums", "fold_partials",
+               "build_tables", "window_sums_tables")
+
+
+def fed_chain_keys(c: int, n_keys: int):
+    """Chain c's n_keys validator keys, from FED_SEED."""
+    from ed25519_consensus_tpu_torch import SigningKey, faults
+
+    rnd = random.Random(faults._stable_seed(FED_SEED, "chain", c))
+    return [SigningKey.new(rnd) for _ in range(n_keys)]
+
+
+def fed_bad_height(c: int, heights: int) -> int:
+    return (11 * c + 7) % heights
+
+
+def fed_sign_chain(job):
+    """Chain c's commits, job = (c, heights, n_keys), in a worker process:
+    per height, one (vk, R, s, msg) row a validator; validator 5 of the
+    chain's tampered height carries a message it did not sign."""
+    sys.path.insert(0, str(ROOT))
+    c, heights, n_keys = job
+    keys = fed_chain_keys(c, n_keys)
+    bad_h = fed_bad_height(c, heights)
+    rows = []
+    for h in range(heights):
+        row = []
+        for i, sk in enumerate(keys):
+            msg = b"chain=%d/vote/height=%d/round=0/val=%d" % (c, h, i)
+            sig = sk.sign(msg)
+            if h == bad_h and i == 5:
+                msg = b"chain=%d/vote/tampered" % c
+            row.append((sk.verification_key_bytes().to_bytes(),
+                        sig.R_bytes, sig.s_bytes, msg))
+        rows.append(row)
+    return rows
+
+
+def fed_chains():
+    """The leg's chains: the first window of FED_CHAINS consecutive chain
+    seeds whose affinity homes cover every replica → (chain ids, homes,
+    commits {(chain, height): entries}).  The commits are signed in one
+    worker process a chain (spawned, all stopped on return)."""
+    import concurrent.futures
+    import multiprocessing
+
+    from ed25519_consensus_tpu_torch import (SigningKey, batch, devcache,
+                                             routing)
+
+    homes = {}
+
+    def home(c):
+        if c not in homes:
+            sk = fed_chain_keys(c, COMET_KEYS)
+            v = batch.Verifier()
+            v.queue_bulk([(k.verification_key_bytes(), k.sign(b"h"), b"h")
+                          for k in sk])
+            homes[c] = routing.replica_affinity_order(
+                devcache.keyset_digest(v._canonical_keyset_blob()),
+                f"chain-{c}", range(FED_REPLICAS))[0]
+        return homes[c]
+
+    start = 0
+    while {home(c) for c in range(start, start + FED_CHAINS)} != \
+            set(range(FED_REPLICAS)):
+        start += 1
+    chains = list(range(start, start + FED_CHAINS))
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(len(chains), os.cpu_count() or 1),
+            mp_context=ctx) as pool:
+        signed = list(pool.map(fed_sign_chain, [
+            (c, FED_HEIGHTS, COMET_KEYS) for c in chains]))
+    from ed25519_consensus_tpu_torch.signature import Signature
+    from ed25519_consensus_tpu_torch.verification_key import \
+        VerificationKeyBytes
+
+    commits = {}
+    for c, rows in zip(chains, signed):
+        for h, row in enumerate(rows):
+            commits[(c, h)] = [(VerificationKeyBytes(vk), Signature(R, s),
+                                msg) for vk, R, s, msg in row]
+    return chains, {c: homes[c] for c in chains}, commits
+
+
+def fed_order(chains):
+    """One pass's submission order: runs of FED_RUN heights of one chain,
+    the chains in turn."""
+    return [(c, h) for b in range(0, FED_HEIGHTS, FED_RUN) for c in chains
+            for h in range(b, min(b + FED_RUN, FED_HEIGHTS))]
+
+
+def fed_namespace_bytes(fs) -> dict:
+    """Per replica namespace: resident keysets, host-mirror bytes and
+    device bytes of its devcache."""
+    out = {}
+    for rid, rep in sorted(fs.replicas.items()):
+        st = rep.cache.stats()
+        out[st["namespace"]] = {k: st[k] for k in (
+            "resident_keysets", "resident_bytes", "device_bytes")}
+    return out
+
+
+def fed_pass(label, fs, order, commits, truth, crash=None):
+    """One pass of the chains' commits through the ReplicaSet, pumped on
+    the real clock: each run of FED_RUN heights of every chain is
+    submitted (consensus class, tenant = the chain), then the fleet is
+    pumped until it resolved them.  `crash`, a fault plan, is installed
+    before the pass's second half.  → (the pass record, the
+    pass's launch counts)."""
+    from ed25519_consensus_tpu_torch import batch, faults
+    from ed25519_consensus_tpu_torch.ops import _cuda
+
+    keys = ("submitted", "affinity_hits", "spillovers", "reissued",
+            "host_floor", "ejections", "rejoins", "prewarm_hits",
+            "revivals", "probes", "device_error_waves")
+    before = {k: fs.totals[k] for k in keys}
+    lat, got = [], {}
+    homes_hit = {}
+    block = FED_RUN * len({c for c, _h in order})
+    rec = {"pass": label}
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    for b in range(0, len(order), block):
+        if crash is not None and b == (len(order) // block // 2) * block:
+            rec["namespaces_before_eject"] = fed_namespace_bytes(fs)
+            faults.install(crash)
+        sent = {}
+        for c, h in order[b:b + block]:
+            v = batch.Verifier()
+            v.queue_bulk(commits[(c, h)])
+            sent[(c, h)] = (fs.submit(v, cls="consensus",
+                                      tenant=f"chain-{c}"),
+                            time.perf_counter())
+        while not all(f.done() for f, _t in sent.values()):
+            if fs.process_once() == 0:
+                time.sleep(0.0005)
+        if crash is not None and "namespaces_after_eject" not in rec \
+                and fs.totals["ejections"] > before["ejections"]:
+            rec["namespaces_after_eject"] = fed_namespace_bytes(fs)
+        for k, (f, t) in sent.items():
+            got[k] = f.result(0)
+            lat.append(f._current().resolved_at - t)
+            homes_hit.setdefault(k[0], []).append(f.replica_trail[0])
+    dt = time.perf_counter() - t0
+    if crash is not None:
+        faults.uninstall()
+    counts = _cuda.launch_counts()
+    d = {k: fs.totals[k] - before[k] for k in keys}
+    rec.update({
+        "commits": len(order), "seconds": dt,
+        "sigs_per_s": len(order) * COMET_KEYS / dt,
+        "p50_ms": 1e3 * pct(lat, 0.5), "p99_ms": 1e3 * pct(lat, 0.99),
+        "affinity_hit_rate": d["affinity_hits"] / max(1, d["submitted"]),
+        **{k: d[k] for k in keys if k not in ("submitted",
+                                              "affinity_hits")},
+        "rejected": sorted(k for k, ok in got.items() if not ok),
+        "launches": {k: counts[k] for k in FED_KERNELS},
+        "placements": {c: sorted(set(r)) for c, r in homes_hit.items()},
+    })
+    if len(got) != len(order) or any(not isinstance(x, bool)
+                                     for x in got.values()):
+        raise AssertionError(f"fleet {label}: commits lost or failed")
+    wrong = [k for k in order if got[k] != truth[k]]
+    if wrong:
+        raise AssertionError(f"fleet {label}: verdicts differ from the "
+                             f"host's at {wrong[:8]}")
+    brief = {k: v for k, v in rec.items()
+             if k not in ("rejected", "placements")}
+    log(f"  fleet {label}: {json.dumps(brief)}")
+    return rec, counts
+
+
+def fleet_leg(dev: str, add) -> dict:
+    """Part (a) of phase_federation (its docstring)."""
+    from ed25519_consensus_tpu_torch import (batch, config, faults,
+                                             federation, health, service)
+    from ed25519_consensus_tpu_torch.ops import _cuda
+
+    t = time.perf_counter()
+    chains, homes, commits = fed_chains()
+    t_sign = time.perf_counter() - t
+    truth, rng = {}, random.Random(0xFED)
+    for (c, h), ents in commits.items():
+        v = batch.Verifier()
+        v.queue_bulk(ents)
+        truth[(c, h)] = batch._host_verdict(v, rng)
+    bad = sorted(k for k, ok in truth.items() if not ok)
+    if bad != sorted((c, fed_bad_height(c, FED_HEIGHTS)) for c in chains):
+        raise AssertionError(f"host verdicts reject {bad}, not the "
+                             f"tampered commits")
+    log(f"  fleet chains {chains} ({COMET_KEYS} validators each), homes "
+        f"{homes}; {len(commits)} commits signed and host-verified in "
+        f"{time.perf_counter() - t:.1f} s (signing {t_sign:.1f} s)")
+    if set(homes.values()) != set(range(FED_REPLICAS)):
+        raise AssertionError(f"a replica is no chain's home: {homes}")
+
+    def factory(rid, clock, cache):
+        return service.VerifyService(
+            clock=clock, auto_start=False, replica_id=f"r{rid}",
+            cache=cache, device=dev, hybrid=False, merge="never", mesh=0,
+            chunk=FED_RUN, health=health.DeviceHealth(mesh=0),
+            breaker_seed=rid)
+
+    order = fed_order(chains)
+    passes = []
+    with config.override(ED25519_TPU_VERDICT_CACHE_ENABLED="0"):
+        # The memo is off, so every pass re-verifies the stream on the
+        # card (a memo hit would answer pass 2 with no launch).
+        fs = federation.ReplicaSet(FED_REPLICAS, service_factory=factory,
+                                   device=dev)
+    try:
+        home0 = homes[chains[0]]
+        for label in ("pass 1 (cold)", "pass 2 (resident)",
+                      "pass 3 (crash)", "pass 4 (rejoined)"):
+            crash = None
+            if label.startswith("pass 3"):
+                crash = faults.replica_plan(FED_SEED, "crash",
+                                            replica=home0, at=0)
+            with record_calls("dispatch_window_sums_many_tables") as tab:
+                rec, counts = fed_pass(label, fs, order, commits, truth,
+                                       crash)
+            add(counts)
+            rec["tables_calls"] = tab.calls
+            rec["namespaces"] = fed_namespace_bytes(fs)
+            passes.append(rec)
+            if label.startswith("pass 3"):
+                # Revival: the ejected replica's suspicion decays on a
+                # short half-life, it is rebuilt, probed on the card and
+                # rejoins with its peers' warm hints.
+                _cuda.reset_launch_counts()
+                t = time.perf_counter()
+                with config.override(
+                        ED25519_TPU_REPLICA_SUSPICION_HALF_LIFE="0.001"):
+                    while fs.totals["rejoins"] < 1 and \
+                            time.perf_counter() - t < 30.0:
+                        fs.process_once()
+                        time.sleep(0.002)
+                add(_cuda.launch_counts())
+                rec["revival"] = {
+                    "seconds": time.perf_counter() - t,
+                    **{k: fs.totals[k] for k in (
+                        "revivals", "probes", "probe_failures", "rejoins",
+                        "prewarm_hits", "prewarm_refused")},
+                    "state": fs.registry.state_of(home0)}
+                log(f"  fleet revival of r{home0}: "
+                    f"{json.dumps(rec['revival'])}")
+        for rec in passes:
+            for k in ("namespaces_before_eject", "namespaces_after_eject",
+                      "namespaces"):
+                if k in rec:
+                    log(f"  fleet {rec['pass']} devcache {k}: "
+                        f"{json.dumps(rec[k])}")
+    finally:
+        fs.close()
+    want_bad = sorted((c, fed_bad_height(c, FED_HEIGHTS)) for c in chains)
+    p1, p2, p3, p4 = passes
+    checks = {
+        "8 tampered rejected a pass": all(r["rejected"] == want_bad
+                                          for r in passes),
+        "pass 2 launched K2t": p2["launches"]["window_sums_tables"] > 0
+        or DEV == "cpu",
+        "pass 3 ejected": p3["ejections"] >= 1 and p3["reissued"] >= 1,
+        "pass 3 rejoined": p3["revival"]["rejoins"] >= 1
+        and p3["revival"]["state"] == health.REPLICA_HEALTHY,
+        "the eject freed its namespace only": (
+            p3["namespaces_after_eject"][f"r{home0}"]["device_bytes"] == 0
+            and all(p3["namespaces_after_eject"][ns]["device_bytes"]
+                    >= p3["namespaces_before_eject"][ns]["device_bytes"]
+                    for ns in p3["namespaces_before_eject"]
+                    if ns != f"r{home0}")),
+        "pass 4 affinity restored": p4["affinity_hit_rate"] == 1.0
+        and p4["placements"][chains[0]] == [home0],
+        "no host floor, no device error": all(
+            r["host_floor"] == 0 and r["device_error_waves"] == 0
+            for r in passes),
+    }
+    log(f"  fleet gates: {json.dumps(checks)}")
+    if not all(checks.values()):
+        raise AssertionError(f"fleet leg: gates failed: "
+                             f"{[k for k, ok in checks.items() if not ok]}")
+    calls = [c for r in passes for c in r.pop("tables_calls")]
+    hold_recorded_tables("fleet", calls)
+    return {"chains": chains, "homes": homes, "passes": passes}
+
+
+def phase_federation(state: dict) -> None:
+    """The federation on the card:
+
+    (a) fleet_leg: a ReplicaSet(FED_REPLICAS) whose replicas are
+        VerifyService(device="cuda:0", hybrid=False, mesh=0) over their
+        namespaced devcaches, pumped on the real clock.  FED_CHAINS
+        CometBFT chains, each with its own COMET_KEYS-validator keyset
+        (chosen from FED_SEED so every replica is some chain's affinity
+        home), FED_HEIGHTS heights a pass, one commit a consensus-class
+        submission, one commit of each chain tampered.  Pass 1 starts
+        cold (a keyset builds at its second sighting); in pass 2 every
+        chain dispatches from its home's resident tables (K2t); pass 3
+        crashes chain 0's home halfway (faults.replica_plan "crash"): its
+        queue is surrendered and re-verified on peers on the card; then
+        the replica is revived, probed on the card and rejoins with its
+        peers' warm hints; pass 4 shows affinity restored.  Gates: every
+        verdict the host's, none lost, exactly the tampered commits
+        rejected, the crash ejects and rejoins, K2t launched in pass 2,
+        the ejected namespace's device bytes freed and no peer's, every
+        tables dispatch equal to the plain chain.
+    (b) tools/traffic_lab.py --fleet 3 --replica-crash at the tool's
+        defaults (host-modelled replicas), and the single-service
+        --device run (one batch a chunk, rotation faults) on the card.
+    (c) tools/mesh_chaos.py at its defaults, the storm's 8 chips logical
+        on cuda:0 (K1, K2, K3 a shard and K5).
+    Each tool's gates fail the run.  Launch counts are set to 0 before
+    each part and read after."""
+    from ed25519_consensus_tpu_torch import batch, devcache
+    from ed25519_consensus_tpu_torch.ops import _cuda
+    from ed25519_consensus_tpu_torch.tools import mesh_chaos, traffic_lab
+
+    dev = "cuda:0" if DEV == "cuda" else DEV
+    totals = dict.fromkeys(_cuda.KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] += v
+
+    batch.reset_device_health()
+    t = time.perf_counter()
+    fleet = fleet_leg(dev, add)
+    log(f"  (a) fleet leg: {time.perf_counter() - t:.1f} s")
+    devcache.set_default_cache(None)
+    batch.reset_device_health()
+
+    labs = {}
+    for label, argv in (
+            ("traffic_lab --fleet 3 --replica-crash",
+             ["--fleet", "3", "--replica-crash"]),
+            ("traffic_lab --device", ["--device", "--rotation-faults",
+                                      "--torch-device", dev])):
+        _cuda.reset_launch_counts()
+        t = time.perf_counter()
+        cfg = traffic_lab.parse_args(argv)
+        summary = traffic_lab.run(cfg)
+        counts = _cuda.launch_counts()
+        add(counts)
+        log(f"  (b) {label}: {time.perf_counter() - t:.1f} s; "
+            f"{json.dumps(traffic_lab.headline(cfg, summary))}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not summary["ok"]:
+            raise AssertionError(f"{label}: gates failed: "
+                                 f"{traffic_lab.failed_gates(summary)}")
+        labs[label] = traffic_lab.headline(cfg, summary)
+    batch.reset_device_health()
+
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    cfg = mesh_chaos.parse_args(["--device", dev])
+    chaos = mesh_chaos.chaos(cfg)
+    counts = _cuda.launch_counts()
+    add(counts)
+    log(f"  (c) mesh_chaos: {time.perf_counter() - t:.1f} s; "
+        f"{json.dumps(mesh_chaos.headline(chaos))}; storm "
+        f"{json.dumps([(s['stage'], s['mesh_after'], s['reissued']) for s in chaos.get('reformation_storm', {}).get('stages', [])])}; "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    if not chaos["ok"]:
+        raise AssertionError(f"mesh_chaos: gates failed: "
+                             f"{json.dumps(chaos)[:2000]}")
+    need_launches("mesh_chaos", counts, ("expand_compressed", "window_sums",
+                                         "fold_partials", "fold_shards"))
+    need_launches("the federation phase", totals,
+                  FED_KERNELS + ("fold_shards",))
+    no_lab_forms("the federation phase", totals)
+    batch.reset_device_health()
+    state["federation_launches"] = totals
+    state["federation"] = {"fleet": fleet, "labs": labs,
+                           "mesh_chaos": mesh_chaos.headline(chaos)}
+
+
 def no_lab_forms(label: str, counts: dict) -> None:
     """Fails if a verdict path launched a 20-limb (-l20) kernel — the
     lab's window_sums-l20, window_sums_tables-l20, expand_compressed-l20,
@@ -1861,51 +2254,82 @@ def first_per_shape(calls) -> list:
     return list(first.values())
 
 
+# Lanes a stacked plain check of hold_recorded_tables holds at once.
+HOLD_LANES = 1 << 15
+
+
 def hold_recorded_tables(label: str, calls) -> None:
     """Every tables-resident dispatch a path made held, on the card,
-    against its plain versions run on the same operands, kernel by kernel
-    on the recomputed intermediates: K1 on the R wire, K4, K2t, K3 — and
-    the path's own result against the plain chain's, exactly.  A
-    difference fails the run, naming the chunk, its batches and the
-    kernels that differ."""
+    against its plain versions run on the same operands: the calls that
+    read one resident head at one shape are stacked (HOLD_LANES lanes at
+    a time) and their results compared with the plain chain's (K1 on the
+    R wire, K4, K2t, K3), exactly; a stack that differs is held call by
+    call, kernel by kernel on the recomputed intermediates.  A difference
+    fails the run, naming the chunk, its batches and the kernels that
+    differ."""
     import torch
 
     from ed25519_consensus_tpu_torch.ops import msm
     from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
 
-    t = time.perf_counter()
-    bad = []
-    for c, ((digits, head, rwire, *_), out) in enumerate(calls):
-        d = msm.as_tensor(digits, DEV)
-        rw = msm.as_tensor(rwire, DEV)
-        ht = msm.as_tensor(head, DEV)[None]
-        ext = TD.expand_compressed_points_plain(rw)
+    def plain(digits, head, rwire):
+        ext = TD.expand_compressed_points_plain(rwire)
         tbl = msm.build_tables_plain(ext)
-        part = msm.window_partials_tables_plain(d, ht, tbl)
-        want = msm.fold_partials_plain(part)
-        if torch.equal(out, want):
+        part = msm.window_partials_tables_plain(digits, head, tbl)
+        return ext, tbl, part, msm.fold_partials_plain(part)
+
+    t = time.perf_counter()
+    groups = {}
+    for c, call in enumerate(calls):
+        (digits, head, rwire, *_), _out = call
+        key = (head.data_ptr() if hasattr(head, "data_ptr") else id(head),
+               tuple(digits.shape[1:]), tuple(rwire.shape[1:]))
+        groups.setdefault(key, []).append((c, call))
+    stacks = []
+    for grp in groups.values():
+        digits = grp[0][1][0][0]
+        per = max(1, HOLD_LANES // (digits.shape[0] * digits.shape[-1]))
+        stacks += [grp[i:i + per] for i in range(0, len(grp), per)]
+    bad = []
+    for stack in stacks:
+        d = torch.cat([msm.as_tensor(x[0], DEV) for _c, (x, _o) in stack])
+        rw = torch.cat([msm.as_tensor(x[2], DEV) for _c, (x, _o) in stack])
+        ht = msm.as_tensor(stack[0][1][0][1], DEV)[None]
+        if torch.equal(torch.cat([o for _c, (_x, o) in stack]),
+                       plain(d, ht, rw)[3]):
             continue
-        rows = [b for b in range(out.shape[0])
-                if not torch.equal(out[b], want[b])]
-        kernels = {
-            "K1": torch.equal(TD.expand_compressed_points(rw), ext),
-            "K4": torch.equal(msm.multiples_tables(ext), tbl),
-            "K2t": torch.equal(msm.window_partials_tables(d, ht, tbl), part),
-            "K3": torch.equal(msm.fold_partials(part), want),
-            "the dispatch again": torch.equal(
-                msm.dispatch_window_sums_many_tables(digits, head, rwire,
-                                                     DEV), want)}
-        log(f"  {label} chunk {c}: batches {rows} differ from the plain "
-            f"versions (max |diff| {int((out - want).abs().max())}); on the "
-            f"same operands again, equal to the plain version: {kernels}")
-        bad.append(c)
+        for c, ((digits, head, rwire, *_), out) in stack:
+            d = msm.as_tensor(digits, DEV)
+            rw = msm.as_tensor(rwire, DEV)
+            ht = msm.as_tensor(head, DEV)[None]
+            ext, tbl, part, want = plain(d, ht, rw)
+            if torch.equal(out, want):
+                continue
+            rows = [b for b in range(out.shape[0])
+                    if not torch.equal(out[b], want[b])]
+            kernels = {
+                "K1": torch.equal(TD.expand_compressed_points(rw), ext),
+                "K4": torch.equal(msm.multiples_tables(ext), tbl),
+                "K2t": torch.equal(msm.window_partials_tables(d, ht, tbl),
+                                   part),
+                "K3": torch.equal(msm.fold_partials(part), want),
+                "the dispatch again": torch.equal(
+                    msm.dispatch_window_sums_many_tables(digits, head,
+                                                         rwire, DEV),
+                    want)}
+            log(f"  {label} chunk {c}: batches {rows} differ from the "
+                f"plain versions (max |diff| "
+                f"{int((out - want).abs().max())}); on the same operands "
+                f"again, equal to the plain version: {kernels}")
+            bad.append(c)
     sync()
     log(f"  {label}: {len(calls) - len(bad)}/{len(calls)} tables "
         f"dispatches of the path equal their plain versions (K1, K4, K2t, "
-        f"K3; exact), held in {time.perf_counter() - t:.1f} s")
+        f"K3; exact; {len(stacks)} stacks), held in "
+        f"{time.perf_counter() - t:.1f} s")
     if bad:
         raise AssertionError(f"{label}: device window sums differ from the "
-                             f"plain versions in chunks {bad}")
+                             f"plain versions in chunks {sorted(bad)}")
 
 
 def phase_stream(report: dict, state: dict) -> None:
@@ -3261,7 +3685,9 @@ def sanitize_path() -> int:
     lanes: chunk 4 straddles the head/R boundary) through K1, K4, K2t and
     K3; every sweep form of the kernel lab (K2, K2t, K3, K4 instantiations
     and windows per block), K2s, the probes and the -l20 forms of K1, K3,
-    K4, K5 and K6.  Returns the number of kernels that differ."""
+    K4, K5 and K6; then the mesh_chaos storm and the traffic lab's
+    --device run at small shapes.  Returns the number of kernels that
+    differ, or tools whose gates fail."""
     import numpy as np
     import torch
 
@@ -3392,6 +3818,21 @@ def sanitize_path() -> int:
     xg = torch.from_numpy(microbench.ge8_tile(1, 64)).to(DEV)
     check("probe_ge8", probes.ge8_chain(xg, 4),
           probes.ge8_chain_plain(xg.cpu(), 4).to(DEV))
+    # The federation's tools at small shapes (4-key batches): the mesh
+    # chaos storm (K1, K2, K3 on 8, 4 and 2 logical shards, K5, the single
+    # lane) and the single-service --device lab (K1, K2, K4, K2t, K3).
+    from ed25519_consensus_tpu_torch.tools import mesh_chaos, traffic_lab
+
+    storm = mesh_chaos.run_reformation_storm(mesh_chaos.DEFAULT_SEED,
+                                             devices=8, device=DEV)
+    lab = traffic_lab.run(traffic_lab.parse_args(
+        ["--device", "--torch-device", DEV, "--requests", "40",
+         "--service-rate", "50000", "--no-require-rpc-shed"]))
+    for label, ok in (("mesh_chaos storm", storm["ok"]),
+                      ("traffic_lab --device", lab["ok"])):
+        if not ok:
+            bad.append(label)
+        log(f"  {label}: {'gates hold' if ok else 'GATES FAIL'}")
     log(f"sanitize: {len(bad)} kernels differ from their plain versions"
         + (f": {bad}" if bad else ""))
     return len(bad)
@@ -3526,8 +3967,9 @@ def main() -> int:
     timed(phase_verdict_soaks, state)
     timed(phase_restart, state)
     timed(phase_gray, state)
+    timed(phase_federation, state)
     for path in ("stream", "mesh", "affine", "service", "verdict_soaks",
-                 "restart", "gray"):
+                 "restart", "gray", "federation"):
         no_lab_forms(f"the {path} path", state[f"{path}_launches"])
         add_launches(report, state[f"{path}_launches"])
         log(f"{path} path launches (all passes): "

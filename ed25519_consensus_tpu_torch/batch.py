@@ -1581,7 +1581,7 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                 policy: "_routing.RoutingPolicy | None" = None,
                 sentinel_rate: "float | None" = None,
                 deadline: "float | None" = None,
-                device_ids=None) -> "list[bool]":
+                device_ids=None, cache=None) -> "list[bool]":
     """Verify MANY independent batches with union-merging, chunked
     double-buffered device calls, and an opportunistic host lane.
 
@@ -1668,8 +1668,10 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
       DeviceError naming the chips.
 
     `device`: None means CUDA, "cpu" runs the kernels' plain versions.
-    `health` injects the DeviceHealth and its clock (tests drive deadlines
-    with health.FakeClock).  `ED25519_TPU_DISABLE_DEVICE=1` is how a
+    `cache` is the device operand cache the call's residency lives in
+    (None: `devcache.default_cache()`; a federation replica passes its
+    namespaced one).  `health` injects the DeviceHealth and its clock
+    (tests drive deadlines with health.FakeClock).  `ED25519_TPU_DISABLE_DEVICE=1` is how a
     caller asks for the host lane alone."""
     from .ops import msm
     from .parallel import mesh as _mesh_lib
@@ -1695,7 +1697,7 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                 unions, rng=rng, chunk=chunk, hybrid=hybrid, merge="never",
                 mesh=mesh, health=health, device=device, policy=policy,
                 sentinel_rate=sentinel_rate, deadline=deadline,
-                device_ids=device_ids)
+                device_ids=device_ids, cache=cache)
             stats = dict(last_run_stats)
             verdicts = [False] * len(verifiers)
             for g, ok in zip(groups, union_verdicts):
@@ -1717,7 +1719,8 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
             return verdicts
 
     # Cache temperature of the call's dominant keyset (non-mutating).
-    devcache_cache = _devcache.default_cache()
+    devcache_cache = (cache if cache is not None
+                      else _devcache.default_cache())
     devcache_probe = devcache_cache.probe(None)
     if verifiers and devcache_cache.enabled:
         big = max(verifiers, key=_routing.estimate_device_terms)

@@ -2,8 +2,9 @@
 
 The system has no weights: its state is the staged batch and, for a
 recurring keyset, the resident head operands and multiples tables, the
-tenant partitions of those keysets, and the memoized verdicts of the
-service's front door.  These functions take that state as plain numpy
+tenant partitions of those keysets, the memoized verdicts of the
+service's front door, and a federation's fleet state (its replica ladder
+and the warm hints a rejoining replica imports).  These functions take that state as plain numpy
 arrays, bytes and ints — never as objects of the JAX package, which the
 port does not import — and build the port's own, so that the same
 blinders give byte-identical device operands, the same resident bytes and
@@ -160,3 +161,30 @@ def verdict_cache_from_reference(entries, current_pins=None, cache=None):
         else:
             refused += 1
     return absorbed, refused, stale
+
+
+def replica_registry_from_reference(states, registry=None, clock=None):
+    """A reference ReplicaRegistry snapshot — its `replica_states()`,
+    {rid: {"state", "suspicion", "probe_passes"}} — applied to the port's
+    `registry` (a fresh `health.ReplicaRegistry` on `clock` when None):
+    draining, ejected and probation replicas keep their state, every
+    replica its suspicion score and probe passes, stamped now.  Returns
+    the registry."""
+    from . import health
+
+    reg = health.ReplicaRegistry(clock=clock) if registry is None \
+        else registry
+    reg.load_states(states, "carried from the reference")
+    return reg
+
+
+def warm_hints_from_reference(hints, cache=None):
+    """A reference devcache's `export_warm_hints()` (32-byte digests)
+    imported into the port's device operand cache (the process default
+    when None): each hinted keyset builds at its first sighting there.
+    Returns (accepted, refused)."""
+    from . import devcache
+
+    if cache is None:
+        cache = devcache.default_cache()
+    return cache.import_warm_hints([bytes(h) for h in hints])

@@ -222,6 +222,29 @@ KNOBS: "dict[str, Knob]" = dict([
        "threshold, so cold ledgers and fast devices don't hedge every "
        "wave; 0 force-hedges every outstanding chunk (test/lab "
        "knob)."),
+    _k("ED25519_TPU_REPLICA_SUSPICION_THRESHOLD", "float", 3.0,
+       "Per-replica decayed suspicion score at which the federation "
+       "ReplicaRegistry starts DRAINING a replica (fatal replica "
+       "errors eject directly; transient/ambiguous evidence "
+       "accumulates here)."),
+    _k("ED25519_TPU_REPLICA_SUSPICION_HALF_LIFE", "float", 300.0,
+       "Half-life (registry-clock seconds) of per-replica suspicion "
+       "scores; decay below half the threshold relaxes an ejected "
+       "replica to probation eligibility."),
+    _k("ED25519_TPU_REPLICA_PROBES", "int", 2,
+       "Consecutive clean host-verified probe batches an ejected "
+       "replica must pass (federation.ReplicaSet probe cycle) before "
+       "it rejoins the affinity ring."),
+    _k("ED25519_TPU_REPLICA_SPILLOVER", "opt-out", True,
+       "Set to 0/false/no to disable affinity-preserving spillover: "
+       "a degraded/overloaded replica then sheds submissions instead "
+       "of handing them to the next replica in rendezvous order "
+       "(consensus-class still tries every live replica either way)."),
+    _k("ED25519_TPU_REPLICA_DEGRADED_FRAC", "float", 0.5,
+       "Effective-capacity fraction at or below which a replica is "
+       "treated as DEGRADED by the federation router: lower-class "
+       "traffic spills to healthy peers before that replica sheds "
+       "users (a replica at the 2-chip rung sheds load, not users)."),
 ])
 
 

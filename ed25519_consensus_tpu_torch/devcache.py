@@ -35,6 +35,14 @@ after batch.  This cache keeps them on the card:
   other tenants' bytes crowd out is refused (`quota_rejected`) before it
   touches any entry.  `quota_suggestions` reports (never arms) per-tenant
   quotas from the observed lookups.
+* **Namespaces** (the federation, federation.py): each replica of a
+  `ReplicaSet` owns a cache labelled with its namespace, which its service
+  hands to `verify_many(cache=)`, so per-replica residency is built,
+  dropped and published (gauges `devcache_<ns>_*`) per replica.  A
+  rejoining replica imports its peers' `export_warm_hints()` — resident
+  digests, no bytes, no trust — into its second-sight ledger
+  (`import_warm_hints`), so the fleet's hot keysets build at their first
+  sighting there.  Lane death and chip loss reach every live cache.
 
 Every lookup passes through `faults.run_device_call(SITE_DEVCACHE, ...)`,
 so corrupt/evict/stale plans land deterministically at this boundary.
@@ -42,6 +50,7 @@ so corrupt/evict/stale plans land deterministically at this boundary.
 
 import hashlib
 import threading
+import weakref
 
 import numpy as np
 
@@ -103,6 +112,11 @@ class ResidentKeyset:
         return hashlib.sha256(
             self.head_tensor.tobytes()).digest() == self.head_hash
 
+    def device_bytes(self) -> int:
+        """Bytes of the device copies this entry holds."""
+        return sum(int(t.numel()) * int(t.element_size())
+                   for t in self._device_refs.values())
+
     def device_ref(self, device, chips=()):
         """The entry's tensor on `device`, copied from the host mirror on
         first use and reused, so a steady-state hit moves no head bytes —
@@ -145,7 +159,11 @@ class DeviceOperandCache:
 
     def __init__(self, budget_bytes: "int | None" = None,
                  enabled: "bool | None" = None,
-                 tenant_quota_bytes: "int | None" = None):
+                 tenant_quota_bytes: "int | None" = None,
+                 namespace: str = ""):
+        # "" is the process-wide cache with the plain gauge names; a
+        # replica's cache publishes devcache_<namespace>_* instead.
+        self.namespace = str(namespace)
         if enabled is None:
             enabled = _config.get("ED25519_TPU_DEVCACHE")
         if budget_bytes is None:
@@ -176,6 +194,8 @@ class DeviceOperandCache:
             "chip_drops": 0,
         }
         self._tenant_counters: "dict[str, dict]" = {}
+        with _live_lock:
+            _live_caches.add(self)
 
     # -- epoch / residency lifecycle --------------------------------------
 
@@ -422,6 +442,37 @@ class DeviceOperandCache:
             self._seen.add(digest)
             return False
 
+    def export_warm_hints(self) -> "list[bytes]":
+        """The digests this cache holds resident, sorted: the warm hints a
+        rejoining peer imports.  They carry no operand bytes and no
+        trust."""
+        with self._lock:
+            return sorted({d for (d, _kind) in self._entries})
+
+    def import_warm_hints(self, hints) -> "tuple[int, int]":
+        """Seed the second-sight ledger from a peer's warm hints, so a
+        hinted keyset builds at its FIRST sighting here; the build policy,
+        local staging and the per-hit re-hash are unchanged, so a hint
+        costs at most one wasted build, never a verdict.  Returns
+        (accepted, refused): anything but a 32-byte digest, and hints past
+        the ledger bound, are refused; a disabled cache refuses all."""
+        accepted = refused = 0
+        if not self.enabled:
+            return 0, sum(1 for _ in hints)
+        with self._lock:
+            for h in hints:
+                if not isinstance(h, (bytes, bytearray)) or len(h) != 32:
+                    refused += 1
+                    continue
+                h = bytes(h)
+                if h not in self._seen:
+                    if len(self._seen) >= self._seen_max:
+                        refused += 1
+                        continue
+                    self._seen.add(h)
+                accepted += 1
+        return accepted, refused
+
     def build(self, digest: bytes, n_keys: int, head_tensor,
               kind: str = KIND_HEAD) -> "ResidentKeyset | None":
         """Install an entry built from HOST-staged bytes, evicting
@@ -542,6 +593,7 @@ class DeviceOperandCache:
         with self._lock:
             return {
                 "enabled": self.enabled,
+                "namespace": self.namespace,
                 "quota_suggestions": suggestions,
                 "budget_bytes": self.budget_bytes,
                 "tenant_quota_bytes": self.tenant_quota_bytes,
@@ -551,6 +603,8 @@ class DeviceOperandCache:
                 "resident_entries": len(self._entries),
                 "resident_tables": sum(
                     1 for _d, k in self._entries if k == KIND_TABLES),
+                "device_bytes": sum(
+                    e.device_bytes() for e in self._entries.values()),
                 "epoch": self._epoch,
                 "tenants": sorted(
                     {e.tenant for e in self._entries.values()}),
@@ -570,7 +624,9 @@ class DeviceOperandCache:
                 "resident_keysets": len({d for d, _k in self._entries}),
                 "epoch": self._epoch,
             }
-        _metrics.set_gauges({"devcache_" + k: v for k, v in snap.items()})
+        prefix = ("devcache_" if not self.namespace
+                  else f"devcache_{self.namespace}_")
+        _metrics.set_gauges({prefix + k: v for k, v in snap.items()})
 
     def __repr__(self):
         st = self.stats()
@@ -610,6 +666,10 @@ def suggest_tenant_quotas(tenant_stats: "dict[str, dict]",
 
 _default = [None]
 _default_lock = threading.Lock()
+# Every cache constructed and still referenced (the process default and
+# each replica's namespace): lane death and chip loss reach them all.
+_live_caches: "weakref.WeakSet[DeviceOperandCache]" = weakref.WeakSet()
+_live_lock = threading.Lock()
 
 
 def default_cache() -> DeviceOperandCache:
@@ -628,17 +688,18 @@ def set_default_cache(cache: "DeviceOperandCache | None") -> None:
         _default[0] = cache
 
 
+def _caches() -> "list[DeviceOperandCache]":
+    with _live_lock:
+        return list(_live_caches)
+
+
 def _on_residency_drop(reason: str) -> None:
-    with _default_lock:
-        cache = _default[0]
-    if cache is not None:
+    for cache in _caches():
         cache.drop_all(reason)
 
 
 def _on_chip_drop(chip: int, reason: str) -> None:
-    with _default_lock:
-        cache = _default[0]
-    if cache is not None:
+    for cache in _caches():
         cache.drop_chip(chip, reason)
 
 

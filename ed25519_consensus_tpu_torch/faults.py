@@ -12,7 +12,10 @@ action; `install`ing one makes the dispatch boundaries consult it:
 * SITE_VERDICTCACHE — the verdict cache's lookup (verdictcache.py); "call
   index" counts memo lookups and the payload is the cache itself;
 * SITE_PERSIST — the verdict journal's append (persist.py); "call index"
-  counts journal record appends and the payload is the journal itself.
+  counts journal record appends and the payload is the journal itself;
+* SITE_REPLICA — the federation's replica pump (federation.py); "call
+  index" counts ReplicaSet pumps across all replicas and the payload is
+  the `Replica` being pumped.
 
 Fault classes: `ErrorOn` (the call raises), `TypedErrorOn` (raises one of
 the classifier's typed shapes), `StallFor` (virtual clocks advance, real
@@ -21,8 +24,10 @@ clocks sleep), `FlappingLink` (every other window of calls raises),
 or in alternating windows),
 `CorruptSum` (the result comes back with flipped entries),
 `KillLane` (the worker thread dies mid-flight), at the sharded seam
-`CorruptChipSum` (one chip corrupts its partial sum) and `ChipLoss` (chips
-die mid-wave, marked dead in the ChipRegistry), and at the cache seam
+`CorruptChipSum` (one chip corrupts its partial sum), `ChipLoss` (chips
+die mid-wave, marked dead in the ChipRegistry) and `LinkFlap` (a chip's
+link is down in every other window, marked dead then healed), at the
+replica seam `ReplicaCrash`, `ReplicaWedge` and `SplitCapacity`, and at the cache seam
 `CorruptResidentEntry`, `EvictStorm`, `StaleEpochOn` and `RotateTenant`,
 at the memo seam `CorruptStoredVerdict` (`EvictStorm` and
 `StaleEpochOn` take either cache seam), and at the journal seam the
@@ -57,7 +62,9 @@ import numpy as np
 
 __all__ = [
     "SITE_LANE", "SITE_SHARDED", "SITE_DEVCACHE", "SITE_VERDICTCACHE",
-    "SITE_PERSIST", "InjectedFault",
+    "SITE_PERSIST", "SITE_REPLICA", "InjectedFault",
+    "ReplicaCrashError", "ReplicaWedgeError", "LinkFlap", "ReplicaCrash",
+    "ReplicaWedge", "SplitCapacity", "mesh_plan", "replica_plan",
     "TransientDispatchError", "FatalChipError", "LaneDeathSignal", "Fault",
     "ErrorOn", "TypedErrorOn", "StallFor", "FlappingLink", "SlowChip",
     "GrayFlap", "CorruptSum", "CorruptChipSum", "KillLane", "ChipLoss",
@@ -74,6 +81,7 @@ SITE_SHARDED = "sharded"
 SITE_DEVCACHE = "devcache"
 SITE_VERDICTCACHE = "verdictcache"
 SITE_PERSIST = "persist"
+SITE_REPLICA = "replica"
 
 
 class InjectedFault(RuntimeError):
@@ -99,6 +107,30 @@ class FatalChipError(InjectedFault):
         self.chips = tuple(int(c) for c in chips)
         self.heal_after = heal_after
         self.chips_marked = bool(chips_marked)
+
+
+class ReplicaCrashError(InjectedFault):
+    """A whole replica service died: FATAL at replica granularity — the
+    federation ejects it, re-issues its surrendered queue on peers and
+    later revives it into the probation probes."""
+
+    device_error_class = "fatal"
+
+    def __init__(self, msg: str, replica: int = 0):
+        super().__init__(msg)
+        self.replica = int(replica)
+
+
+class ReplicaWedgeError(InjectedFault):
+    """A replica's pump made no progress (a wedged runtime, a breaker
+    stuck open): TRANSIENT — one wedge is a strike, so repeated wedges
+    walk suspicion → drain → eject."""
+
+    device_error_class = "transient"
+
+    def __init__(self, msg: str, replica: int = 0):
+        super().__init__(msg)
+        self.replica = int(replica)
 
 
 class LaneDeathSignal(Exception):
@@ -401,6 +433,105 @@ class ChipLoss(Fault):
             f"injected chip loss: chips {list(self.chips)} died mid-wave "
             f"(site={ctx.site}, call={ctx.index})",
             chips=self.chips, heal_after=self.heal_after, chips_marked=True)
+
+
+class LinkFlap(Fault):
+    """Chip `chip`'s link flaps with period `period` over the faulted
+    site's calls: in every other period-sized window the chip is marked
+    dead (with a `heal_after` window on the registry clock) and the call
+    raises a FatalChipError naming it; in the others the chip is healed,
+    so routing reforms back up.  Unlike `FlappingLink`, which only errors
+    calls, the flap is visible to the reformation ladder."""
+
+    def __init__(self, chip: int, period: int = 2,
+                 site: str = SITE_SHARDED, heal_after: float = 30.0):
+        if period < 1:
+            raise ValueError("period must be >= 1")
+        super().__init__(on=lambda i: True, site=site)
+        self.chip = int(chip)
+        self.period = int(period)
+        self.heal_after = float(heal_after)
+
+    def before(self, ctx):
+        from . import health as _health
+
+        down = (ctx.index // self.period) % 2 == 1
+        reg = _health.chip_registry()
+        if down:
+            reg.mark_chip_dead(
+                self.chip, heal_after=self.heal_after,
+                reason=f"injected link flap (site={ctx.site}, "
+                       f"call={ctx.index})")
+            raise FatalChipError(
+                f"flapping link down: chip {self.chip} "
+                f"(site={ctx.site}, call={ctx.index})",
+                chips=(self.chip,), heal_after=self.heal_after,
+                chips_marked=True)
+        reg.heal_chip(self.chip)
+
+
+class ReplicaCrash(Fault):
+    """Kill replica `replica` of a federation at its first pump inside the
+    window (SITE_REPLICA; the payload is the Replica pumped): raises
+    ReplicaCrashError, FATAL, so the ReplicaSet ejects it, re-issues its
+    queue on peers and later revives it.  One event: the fault latches
+    after firing, so the revived replica's probes are not re-crashed."""
+
+    def __init__(self, replica: int, on=0):
+        super().__init__(on=on, site=SITE_REPLICA)
+        self.replica = int(replica)
+        self._fired = [False]
+
+    def before(self, ctx):
+        if self._fired[0]:
+            return
+        if ctx.payload is None or \
+                getattr(ctx.payload, "rid", None) != self.replica:
+            return
+        self._fired[0] = True
+        raise ReplicaCrashError(
+            f"injected replica crash: replica {self.replica} died "
+            f"mid-wave (call={ctx.index})", replica=self.replica)
+
+
+class ReplicaWedge(Fault):
+    """Replica `replica`'s pumps inside the window wedge: a virtual clock
+    advances `seconds` and the pump raises ReplicaWedgeError (TRANSIENT),
+    so the replica is ejected only on accumulated evidence."""
+
+    def __init__(self, replica: int, on=0, seconds: float = 5.0):
+        super().__init__(on=on, site=SITE_REPLICA)
+        self.replica = int(replica)
+        self.seconds = float(seconds)
+
+    def before(self, ctx):
+        if ctx.payload is None or \
+                getattr(ctx.payload, "rid", None) != self.replica:
+            return
+        clock = ctx.clock
+        if clock is not None and getattr(clock, "virtual", False):
+            clock.advance(self.seconds)
+        raise ReplicaWedgeError(
+            f"injected replica wedge: replica {self.replica} made no "
+            f"progress (call={ctx.index})", replica=self.replica)
+
+
+class SplitCapacity(Fault):
+    """Replica `replica` loses `frac` of its capacity at the faulted pump:
+    the Replica's `degraded_frac` is set, which the federation router
+    reads as its effective-capacity fraction.  No raise: the replica keeps
+    serving, degraded, and lower classes spill to healthy peers."""
+
+    def __init__(self, replica: int, on=0, frac: float = 0.5):
+        super().__init__(on=on, site=SITE_REPLICA)
+        self.replica = int(replica)
+        self.frac = float(frac)
+
+    def before(self, ctx):
+        if ctx.payload is None or \
+                getattr(ctx.payload, "rid", None) != self.replica:
+            return
+        ctx.payload.degraded_frac = self.frac
 
 
 class CorruptResidentEntry(Fault):
@@ -730,6 +861,52 @@ def slow_plan(seed: int, chip: int, seconds: float,
             faults.append(GrayFlap(chip, seconds, period=period, site=site))
         else:
             raise ValueError(f"unknown slow-plan kind {kind!r}")
+    return FaultPlan(faults, seed=seed)
+
+
+def mesh_plan(seed: int, kind: str, chips=(0,), at: int = 0,
+              stagger: int = 0, heal_after: "float | None" = None,
+              period: int = 2, site: str = SITE_SHARDED) -> FaultPlan:
+    """A chip-loss schedule over the sharded dispatch stream:
+    ``"chip-loss"`` — every chip of `chips` dies at call `at + k·stagger`
+    (stagger 0: one mid-wave event killing them together), transiently
+    with `heal_after`; ``"link-flap"`` — `chips[0]`'s link flaps with
+    `period`."""
+    chips = [int(c) for c in chips] or [0]
+    if kind == "chip-loss":
+        if stagger <= 0:
+            faults = [ChipLoss(chips, on=at, heal_after=heal_after,
+                               site=site)]
+        else:
+            faults = [ChipLoss(c, on=at + k * stagger,
+                               heal_after=heal_after, site=site)
+                      for k, c in enumerate(chips)]
+    elif kind == "link-flap":
+        faults = [LinkFlap(chips[0], period=period, site=site)]
+    else:
+        raise ValueError(f"unknown mesh fault kind {kind!r}")
+    return FaultPlan(faults, seed=seed)
+
+
+def replica_plan(seed: int, kind: str, replica: int = 0, at: int = 0,
+                 length: int = 1, seconds: float = 5.0,
+                 frac: float = 0.5) -> FaultPlan:
+    """A whole-replica fault schedule over the federation's pump stream
+    (SITE_REPLICA): ``"crash"`` — replica `replica` dies at its first pump
+    with index ≥ `at`; ``"wedge"`` — its pumps in [at, at+length) wedge
+    for `seconds` each; ``"split-capacity"`` — it loses `frac` of its
+    capacity from pump `at` on."""
+    if kind == "crash":
+        faults = [ReplicaCrash(replica, on=lambda i, a=at: i >= a)]
+    elif kind == "wedge":
+        faults = [ReplicaWedge(replica,
+                               on=range(at, at + max(1, length)),
+                               seconds=seconds)]
+    elif kind == "split-capacity":
+        faults = [SplitCapacity(replica, on=lambda i, a=at: i >= a,
+                                frac=frac)]
+    else:
+        raise ValueError(f"unknown replica fault kind {kind!r}")
     return FaultPlan(faults, seed=seed)
 
 

@@ -1,7 +1,8 @@
 """Device health for the verify_many scheduler: one `DeviceHealth` per
 dispatch mode with an injectable monotonic `Clock`, the typed error
 classifier, the process `ChipRegistry` of chip liveness, suspicion,
-probation and latency (its `LatencyLedger`), and the residency-drop
+probation and latency (its `LatencyLedger`), the federation's
+`ReplicaRegistry` of whole-replica suspicion, and the residency-drop
 listeners the device operand cache hangs on.
 
 THREAD SEMANTICS:
@@ -41,7 +42,10 @@ __all__ = [
     "register_residency_drop_listener", "notify_residency_drop",
     "register_chip_drop_listener", "notify_chip_drop",
     "ERROR_TRANSIENT", "ERROR_FATAL", "ERROR_AMBIGUOUS", "ErrorVerdict",
-    "classify_device_error",
+    "classify_device_error", "ReplicaRegistry", "REPLICA_HEALTHY",
+    "REPLICA_SUSPECT", "REPLICA_DRAINING", "REPLICA_EJECTED",
+    "REPLICA_PROBATION", "REPLICA_FATAL_SUSPICION",
+    "REPLICA_TRANSIENT_SUSPICION", "REPLICA_AMBIGUOUS_SUSPICION",
 ]
 
 
@@ -653,6 +657,19 @@ class ChipRegistry:
             return (STATE_SUSPECTED if self._decayed_locked(chip, now) > 0
                     else STATE_HEALTHY)
 
+    def heal_all(self) -> None:
+        """Every dead chip rejoins now (the operator; suspicion and
+        quarantine are untouched)."""
+        with self._lock:
+            self._dead.clear()
+
+    def dead_chips(self) -> "frozenset[int]":
+        """The currently dead chips (reported liveness only; reading
+        prunes healed windows)."""
+        with self._lock:
+            self._prune_dead_locked()
+            return frozenset(self._dead)
+
     def quarantined_chips(self) -> "frozenset[int]":
         with self._lock:
             self._prune_quarantine_locked(self.clock.monotonic())
@@ -769,6 +786,261 @@ _chip_registry = ChipRegistry()
 def chip_registry() -> ChipRegistry:
     """The process ChipRegistry."""
     return _chip_registry
+
+
+
+# -- the replica registry (federation.py) ------------------------------------
+#
+# One level above the chip ladder, ReplicaRegistry tracks WHOLE replicas —
+# each a VerifyService of a ReplicaSet — through a ladder one rung richer
+# than the chip one, since a replica holds admitted work a chip does not:
+#
+#   suspect → drain → eject → probe → rejoin
+#
+# * SUSPECT    — decayed suspicion > 0 (transient or ambiguous evidence,
+#   classify_device_error at replica granularity): still placed.
+# * DRAINING   — suspicion crossed the threshold: no new work; queued work
+#   finishes, then the federation ejects the replica.
+# * EJECTED    — no traffic (a fatal error lands here directly); the
+#   federation re-issues the replica's surrendered queue on peers.
+# * PROBATION  — read-side relaxation once suspicion decays below half the
+#   threshold (the ChipRegistry hysteresis): REPLICA_PROBES consecutive
+#   clean host-verified probes rejoin it, a failure re-ejects it with
+#   suspicion pinned at the threshold.
+#
+# Not process-global: a ReplicaRegistry belongs to its ReplicaSet.
+
+REPLICA_HEALTHY = "healthy"
+REPLICA_SUSPECT = "suspect"
+REPLICA_DRAINING = "draining"
+REPLICA_EJECTED = "ejected"
+REPLICA_PROBATION = "probation"
+
+# Evidence weights: a fatal classification is conclusive, a transient
+# error one strike of a pattern, ambiguity weak smeared evidence.
+REPLICA_FATAL_SUSPICION = 10.0
+REPLICA_TRANSIENT_SUSPICION = 1.0
+REPLICA_AMBIGUOUS_SUSPICION = 0.5
+
+
+class ReplicaRegistry:
+    """Suspicion ledger and escalation ladder for whole replicas (the
+    comment above).  Every field under the lock, no call-outs while
+    holding it, all timestamps from the injected clock, decay applied
+    lazily at each read.  States gate the federation router's PLACEMENT
+    only — no verdict path reads them."""
+
+    def __init__(self, clock: "Clock | None" = None):
+        self.clock = clock if clock is not None else SYSTEM_CLOCK
+        self._lock = threading.Lock()
+        # rid -> [score, stamp]; rid -> DRAINING | EJECTED | PROBATION
+        # (absent = healthy or merely suspect); rid -> clean probes.
+        self._suspicion = {}
+        self._state = {}
+        self._probe_passes = {}
+
+    @staticmethod
+    def _threshold() -> float:
+        return _config.get("ED25519_TPU_REPLICA_SUSPICION_THRESHOLD")
+
+    @staticmethod
+    def _half_life() -> float:
+        return _config.get("ED25519_TPU_REPLICA_SUSPICION_HALF_LIFE")
+
+    @staticmethod
+    def _probes_needed() -> int:
+        return _config.get("ED25519_TPU_REPLICA_PROBES")
+
+    def set_clock(self, clock: "Clock | None") -> None:
+        with self._lock:
+            self.clock = clock if clock is not None else SYSTEM_CLOCK
+
+    def _decayed_locked(self, rid: int, now: float) -> float:
+        rec = self._suspicion.get(rid)
+        if rec is None:
+            return 0.0
+        score, stamp = rec
+        hl = self._half_life()
+        if hl > 0 and now > stamp:
+            score *= 0.5 ** ((now - stamp) / hl)
+        rec[0], rec[1] = score, now
+        if score < 1e-6:
+            del self._suspicion[rid]
+            return 0.0
+        return score
+
+    def _relax_locked(self, now: float) -> None:
+        """Read-side eject → probation once suspicion decayed to half the
+        threshold (re-ejection needs fresh evidence, not clock jitter)."""
+        half = self._threshold() * 0.5
+        for r, st in list(self._state.items()):
+            if st == REPLICA_EJECTED \
+                    and self._decayed_locked(r, now) <= half:
+                self._state[r] = REPLICA_PROBATION
+                self._probe_passes[r] = 0
+
+    def suspicion(self, rid: int) -> float:
+        with self._lock:
+            return self._decayed_locked(int(rid), self.clock.monotonic())
+
+    def record_suspicion(self, rid: int, weight: float,
+                         reason: str = "suspicion") -> str:
+        """Land one piece of evidence against replica `rid`; crossing the
+        threshold moves a placed replica to DRAINING (never straight to
+        ejected: its queue holds admitted work).  Returns the state."""
+        rid = int(rid)
+        with self._lock:
+            now = self.clock.monotonic()
+            score = self._decayed_locked(rid, now) + float(weight)
+            self._suspicion[rid] = [score, now]
+            st = self._state.get(rid)
+            if score >= self._threshold() and st is None:
+                self._state[rid] = REPLICA_DRAINING
+                st = REPLICA_DRAINING
+            return st if st is not None else (
+                REPLICA_SUSPECT if score > 0 else REPLICA_HEALTHY)
+
+    def mark_draining(self, rid: int,
+                      reason: str = "operator-drain") -> None:
+        """Start draining a replica now, without waiting for the
+        threshold."""
+        with self._lock:
+            if self._state.get(int(rid)) is None:
+                self._state[int(rid)] = REPLICA_DRAINING
+
+    def mark_ejected(self, rid: int,
+                     reason: str = "replica-ejected") -> None:
+        """Eject a replica now (drain complete, or a fatal error):
+        suspicion pins at the threshold, so probation waits out a full
+        decay."""
+        rid = int(rid)
+        with self._lock:
+            now = self.clock.monotonic()
+            score = max(self._decayed_locked(rid, now), self._threshold())
+            self._suspicion[rid] = [score, now]
+            self._state[rid] = REPLICA_EJECTED
+            self._probe_passes.pop(rid, None)
+
+    def state_of(self, rid: int) -> str:
+        with self._lock:
+            now = self.clock.monotonic()
+            self._relax_locked(now)
+            st = self._state.get(int(rid))
+            if st is not None:
+                return st
+            return (REPLICA_SUSPECT
+                    if self._decayed_locked(int(rid), now) > 0
+                    else REPLICA_HEALTHY)
+
+    def accepting(self, rid: int) -> bool:
+        """May the affinity router hand replica `rid` new work?  Healthy
+        and suspect replicas accept; the others do not."""
+        return self.state_of(rid) in (REPLICA_HEALTHY, REPLICA_SUSPECT)
+
+    def placeable(self, replica_ids) -> "tuple[int, ...]":
+        """The replicas of `replica_ids` accepting new work, in order."""
+        return tuple(r for r in replica_ids if self.accepting(r))
+
+    def _in_state(self, state: str) -> "frozenset[int]":
+        with self._lock:
+            self._relax_locked(self.clock.monotonic())
+            return frozenset(r for r, st in self._state.items()
+                             if st == state)
+
+    def draining_replicas(self) -> "frozenset[int]":
+        return self._in_state(REPLICA_DRAINING)
+
+    def ejected_replicas(self) -> "frozenset[int]":
+        return self._in_state(REPLICA_EJECTED)
+
+    def probation_replicas(self) -> "frozenset[int]":
+        return self._in_state(REPLICA_PROBATION)
+
+    def record_probe_pass(self, rid: int) -> bool:
+        """One clean host-verified probe; True when the replica completed
+        probation and REJOINED (state and suspicion cleared)."""
+        rid = int(rid)
+        with self._lock:
+            self._relax_locked(self.clock.monotonic())
+            if self._state.get(rid) != REPLICA_PROBATION:
+                return False
+            n = self._probe_passes.get(rid, 0) + 1
+            if n >= self._probes_needed():
+                del self._state[rid]
+                self._probe_passes.pop(rid, None)
+                self._suspicion.pop(rid, None)
+                return True
+            self._probe_passes[rid] = n
+            return False
+
+    def record_probe_fail(self, rid: int,
+                          reason: str = "probe-failed") -> None:
+        """A probe diverged from its known truth (or errored): back to
+        EJECTED with suspicion pinned — an oscillating replica cannot
+        walk back in."""
+        rid = int(rid)
+        with self._lock:
+            now = self.clock.monotonic()
+            score = max(self._decayed_locked(rid, now)
+                        + REPLICA_FATAL_SUSPICION, self._threshold())
+            self._suspicion[rid] = [score, now]
+            self._state[rid] = REPLICA_EJECTED
+            self._probe_passes.pop(rid, None)
+
+    def replica_states(self) -> "dict[int, dict]":
+        """{rid: {state, suspicion, probe_passes}} for every replica with
+        ledger state."""
+        with self._lock:
+            now = self.clock.monotonic()
+            self._relax_locked(now)
+            rids = set(self._state) | set(self._suspicion)
+            return {
+                r: {
+                    "state": self._state.get(
+                        r, REPLICA_SUSPECT
+                        if self._decayed_locked(r, now) > 0
+                        else REPLICA_HEALTHY),
+                    "suspicion": round(self._decayed_locked(r, now), 4),
+                    "probe_passes": self._probe_passes.get(r, 0),
+                }
+                for r in sorted(rids)
+            }
+
+    def load_states(self, states, reason: str = "loaded") -> None:
+        """Apply a `replica_states()` snapshot — this registry's or the
+        reference package's — replica by replica: state, suspicion score
+        and probe passes as they were, stamped now."""
+        with self._lock:
+            now = self.clock.monotonic()
+            for rid, st in sorted(states.items()):
+                rid = int(rid)
+                score = float(st.get("suspicion", 0.0))
+                if score:
+                    self._suspicion[rid] = [score, now]
+                else:
+                    self._suspicion.pop(rid, None)
+                state = st["state"]
+                if state in (REPLICA_DRAINING, REPLICA_EJECTED,
+                             REPLICA_PROBATION):
+                    self._state[rid] = state
+                else:
+                    self._state.pop(rid, None)
+                if state == REPLICA_PROBATION:
+                    self._probe_passes[rid] = int(st.get("probe_passes", 0))
+                else:
+                    self._probe_passes.pop(rid, None)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._suspicion.clear()
+            self._state.clear()
+            self._probe_passes.clear()
+            self.clock = SYSTEM_CLOCK
+
+    def __repr__(self):
+        with self._lock:
+            return (f"ReplicaRegistry("
+                    f"states={dict(sorted(self._state.items()))})")
 
 
 class DeviceHealth:

@@ -22,9 +22,11 @@ crossover: no such effect has been measured on the card.
 
 Also here: the placement reads — how many CUDA devices exist, how many the
 process ChipRegistry still allows, and the reformation rung a failing mesh
-steps down to.
+steps down to — and, one level above, the federation's replica affinity
+(rendezvous hashing over keyset digest and tenant).
 """
 
+import hashlib
 import threading
 
 from . import config as _config
@@ -32,7 +34,8 @@ from . import health as _health
 
 __all__ = ["RoutingPolicy", "default_policy", "set_default_policy",
            "available_devices", "healthy_device_count", "reform_for",
-           "estimate_device_terms", "resolve_mesh"]
+           "estimate_device_terms", "resolve_mesh", "replica_score",
+           "replica_affinity_order", "replica_for"]
 
 # Measured by chip_smoke.py's routing phase on an NVIDIA H100 80GB HBM3 at a
 # 700 W power limit (PERF.md §6): `b` is the single lane's device
@@ -101,6 +104,41 @@ def reform_for(width: "int | None" = None, total: "int | None" = None
     if ids == tuple(range(rung)):
         ids = None
     return rung, ids
+
+
+def replica_score(keyset_digest: "bytes | None", tenant: str,
+                  rid: int) -> "tuple[bytes, int]":
+    """The rendezvous score of replica `rid` for (keyset digest, tenant):
+    SHA-256 over the digest and ("replica-affinity", tenant, rid), with the
+    replica id breaking ties.  A None digest hashes as the empty one."""
+    digest = keyset_digest if keyset_digest is not None else b""
+    h = hashlib.sha256(
+        digest + repr(("replica-affinity", tenant, int(rid))).encode()
+    ).digest()
+    return (h, int(rid))
+
+
+def replica_affinity_order(keyset_digest: "bytes | None", tenant: str,
+                           replica_ids) -> "tuple[int, ...]":
+    """The federation's consistent-hash keyset/tenant → replica affinity:
+    `replica_ids` sorted by descending `replica_score` (rendezvous
+    hashing).  A pure function of its inputs with the minimal-disruption
+    property: removing a replica moves only the keys it won (each to its
+    second choice), adding one moves only the keys the newcomer now wins.
+    The order is also the spillover order.  Placement, never math: the
+    verdict comes from whichever replica's verify_many ladder decides."""
+    return tuple(sorted((int(r) for r in replica_ids),
+                        key=lambda r: replica_score(keyset_digest, tenant, r),
+                        reverse=True))
+
+
+def replica_for(keyset_digest: "bytes | None", tenant: str,
+                replica_count: int) -> int:
+    """The affinity winner among replicas [0, replica_count)."""
+    if replica_count <= 0:
+        raise ValueError("replica_count must be positive")
+    return replica_affinity_order(
+        keyset_digest, tenant, range(int(replica_count)))[0]
 
 
 def estimate_device_terms(verifier) -> int:

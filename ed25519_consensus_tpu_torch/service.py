@@ -56,9 +56,12 @@ deadline to `verify_many(deadline=)` (hedge affordability; the wave drains
 consensus first, so consensus chunks claim the hedge budget first), and
 `_note_device_outcome` rolls the wave's hedges and straggler accruals up
 into `totals` and publishes them beside the latency ledger's gauges.
-Left out until the port has them: the federation's `replica_id` and
-`surrender_pending`.  Verdict-store persistence (`persist_dir`,
-persist.py) is in.
+The federation hooks are in: `replica_id`, the injected per-replica
+`cache` (which the device route hands to `verify_many(cache=)`, so a
+replica's residency lives in its own namespace), `surrender_pending`, the
+front door's `_content_digest` and `last_device_error`, which a
+ReplicaSet reads as replica-level evidence.  Verdict-store persistence
+(`persist_dir`, persist.py) is in.
 
 Soundness is inherited: every verdict comes from `verify_many`'s ladder
 (device rejects re-decided on the host) or from the host path — the
@@ -324,9 +327,11 @@ class VerifyService:
       budget is below the current estimate routes host-side.
     * auto_start — start the dispatcher thread; pass False for
       deterministic single-threaded tests driving `process_once()`.
-    * cache — an injected DeviceOperandCache for tenant assignment
-      (None = the process default): placement state, never a verdict
-      input.
+    * replica_id / cache — federation hooks: the replica identity this
+      service serves under (stats) and an injected DeviceOperandCache
+      (None = the process default) that takes the tenant assignments
+      and, on the device route, the residency of `verify_many(cache=)`.
+      Placement state, never a verdict input.
     * verdict_cache — an injected verdictcache.VerdictCache (None = the
       process default, resolved live).  Consulted at SUBMIT, before
       coalescing: a re-hashed hit resolves the ticket immediately — no
@@ -362,6 +367,7 @@ class VerifyService:
                  breaker_seed: int = 0,
                  device_time_prior: float = 2.0,
                  rng=None, auto_start: bool = True,
+                 replica_id: "str | None" = None,
                  cache=None, verdict_cache=None, device=None,
                  persist_dir: "str | None" = None):
         # Per-class admission policy (tenancy.py): mempool keeps the
@@ -403,8 +409,12 @@ class VerifyService:
         # process default) and the cross-wave verdict cache (None = the
         # process default, resolved live so tests and knob flips take
         # effect).
+        self.replica_id = replica_id
         self.cache = cache
         self.verdict_cache = verdict_cache
+        # The DeviceError of the latest device wave that raised one (its
+        # tickets carry it): a ReplicaSet classifies it as evidence.
+        self.last_device_error = None
         # Verdict-store persistence (persist.py): attached LAZILY at the
         # first memo-path submit, so recovery loads before the first
         # lookup could hit.
@@ -524,7 +534,8 @@ class VerifyService:
     def submit(self, entries, deadline: "float | None" = None,
                timeout: "float | None" = None,
                cls: "str | None" = None,
-               tenant: "str | None" = None) -> VerifyTicket:
+               tenant: "str | None" = None,
+               _content_digest: "bytes | None" = None) -> VerifyTicket:
         """Submit one batch: a `batch.Verifier` (ownership transfers to
         the service — do not mutate or verify it afterwards) or an
         iterable of `(vk_bytes, sig, msg)` entries.  `deadline` is an
@@ -542,7 +553,11 @@ class VerifyService:
         queue cannot admit the batch (beyond capacity, or the class is
         shedding above its watermark) and `ServiceClosed` after
         `close()`.  Admission is decided HERE, synchronously — an
-        admitted request is never later dropped for load."""
+        admitted request is never later dropped for load.
+
+        `_content_digest` (private) lets a front door that already hashed
+        the batch (the federation's dedup ledger) hand the digest down; it
+        must equal `entries.content_digest()`."""
         if cls is None:
             cls = _tenancy.CLASS_MEMPOOL
         _tenancy.class_rank(cls)  # unknown class names fail loudly
@@ -577,7 +592,8 @@ class VerifyService:
                 from . import persist as _persist
 
                 _persist.attach(vc, directory=self._persist_dir)
-            memo_digest = v.content_digest()
+            memo_digest = (_content_digest if _content_digest is not None
+                           else v.content_digest())
             if memo_digest is not None:
                 hit = vc.lookup(memo_digest, tenant=tenant_name)
                 if hit is not None:
@@ -911,7 +927,7 @@ class VerifyService:
                     hybrid=False if probe else self.hybrid,
                     merge=self.merge, mesh=mesh_arg,
                     health=self.health, policy=self.policy,
-                    device=self.device,
+                    device=self.device, cache=self.cache,
                     deadline=min(dls) if dls else None)
                 stats = dict(_batch.last_run_stats)
                 self.wave_stats.append(("device", stats))
@@ -939,6 +955,7 @@ class VerifyService:
                 if isinstance(exc, DeviceError):
                     with self._cv:
                         self.totals["device_error_waves"] += 1
+                        self.last_device_error = exc
                     _metrics.record_fault("service_device_error_wave")
                     self.breaker.record_failure("error")
                 else:
@@ -1030,12 +1047,31 @@ class VerifyService:
 
     # -- lifecycle ---------------------------------------------------------
 
+    def surrender_pending(self) -> "list[_Request]":
+        """Remove and return every still-QUEUED request, tickets untouched
+        and nothing failed, so a ReplicaSet ejecting this replica can
+        re-issue them on a peer; the caller then owes each ticket its
+        resolution (re-issue re-verifies with fresh blinders, never
+        transfers a verdict).  Requests already in a wave are not here.
+        The service keeps admitting unless also closed."""
+        out = []
+        with self._cv:
+            for q in self._queues.values():
+                out.extend(q)
+                q.clear()
+            self._queue_sigs = 0
+            for cls in self.class_policies:
+                self._set_shedding(cls, False)
+            self._update_gauges()
+        return out
+
     def stats(self) -> dict:
         """Snapshot: queue depth, admission state, breaker state, the
         lifetime totals, and the per-class fairness rows."""
         with self._cv:
             reg = _health.chip_registry()
             return {
+                "replica_id": self.replica_id,
                 "queue_sigs": self._queue_sigs,
                 "effective_capacity_sigs": self.effective_capacity_sigs(),
                 # The diagnosed chip ledger an operator reads next to the

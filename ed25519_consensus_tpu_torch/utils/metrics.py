@@ -1,8 +1,10 @@
 """Lightweight observability for the batch pipeline: process-cumulative
 fault/recovery counters fed by the verify_many degradation ladder, a gauge
 registry for levels (the device operand cache publishes its hit/miss/
-residency levels here), and per-verify `BatchMetrics`."""
+residency levels here), nearest-rank `percentiles` for the labs' latency
+rows, and per-verify `BatchMetrics`."""
 
+import math
 import threading
 import time
 from contextlib import contextmanager
@@ -16,7 +18,10 @@ from contextlib import contextmanager
 # re-dispatch), "straggler_suspicion" (straggler streaks the latency
 # ledger attributed), "probation_probe_passed", "probation_probe_failed",
 # "probation_probe_latency_failed" and "chip_rejoined"
-# (batch.run_probation_probe).  Injected and real device faults land in
+# (batch.run_probation_probe), and the replica ladder's "replica_*" and
+# "federation_*" events (federation.py: ejections, drains, revivals,
+# rejoins, prewarm, spillovers, re-issues, the host floor, dedup fan-out
+# and device-error waves).  Injected and real device faults land in
 # the same counters.  Per-call counts live in batch.last_run_stats.
 
 _fault_lock = threading.Lock()
@@ -54,6 +59,20 @@ def gauges() -> dict:
     """Snapshot of the process-wide gauge registry."""
     with _gauge_lock:
         return dict(_gauges)
+
+
+def percentiles(values, fractions=(0.5, 0.99, 0.999)) -> dict:
+    """Nearest-rank percentiles (the ceil(f·n)-th order statistic) over a
+    finite sample: every value reported was observed, and two runs over
+    one sample agree bit for bit.  {fraction: value}, None for an empty
+    sample."""
+    if not values:
+        return {f: None for f in fractions}
+    s = sorted(values)
+    return {
+        f: s[min(len(s) - 1, max(0, math.ceil(f * len(s)) - 1))]
+        for f in fractions
+    }
 
 
 class BatchMetrics:

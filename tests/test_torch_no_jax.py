@@ -12,7 +12,9 @@ verdict soaks and durable state (persist.py, a journaled service across a
 restart, tools/soak.py, device_soak.py, chaos_soak.py and restart_lab.py)
 and the gray-failure half of the scheduler (the latency ledger, a
 named-chip call, a hedged call, a probation probe, tools/straggler_lab.py
-and tools/sentinel_soak.py) as well; the kernel sources in csrc/, probes.cu among them, include
+and tools/sentinel_soak.py) and the federation (a ReplicaSet through a
+replica crash, tools/traffic_lab.py --fleet --replica-crash and
+tools/mesh_chaos.py's SLO rungs) as well; the kernel sources in csrc/, probes.cu among them, include
 nothing outside the port.
 
 Careful with names: `ed25519_consensus_tpu_torch` starts with
@@ -234,6 +236,38 @@ assert not reg.excluded_chips()
 assert straggler_lab.run_hedge_phase(1, device="cpu")["ok"]
 assert sentinel_soak.run_transient_corruptor(1, devices=2, chip=1,
                                              device="cpu")["ok"]
+
+# The federation: a replica crash re-issued on a peer, the fleet lab with
+# a crash, and the mesh-chaos SLO rungs.
+from ed25519_consensus_tpu_torch import federation
+from ed25519_consensus_tpu_torch.tools import mesh_chaos, traffic_lab
+
+
+def host_replica(rid, clk, cache):
+    return service.VerifyService(
+        capacity_sigs=4096, clock=clk, auto_start=False,
+        replica_id=f"r{rid}", cache=cache, mesh=0, device="cpu",
+        health=service._HostOnlyHealth(clk))
+
+
+fclock = health.FakeClock()
+fs = federation.ReplicaSet(3, service_factory=host_replica, clock=fclock)
+vf = batch.Verifier()
+vf.queue_bulk(entries)
+fed = fs.submit(vf, cls="consensus", tenant="chain-a")
+with faults.injected(faults.replica_plan(1, "crash", replica=fed.replica_id)):
+    fs.process_once()
+    fs.process_once()
+assert fed.result(5) is True and len(fed.replica_trail) == 2
+fs.close()
+fleet = traffic_lab.run(traffic_lab.parse_args(
+    ["--fleet", "3", "--replica-crash", "--chains", "12", "--requests",
+     "150", "--service-rate", "20000"]))
+assert fleet["lost"] == 0 and fleet["gates"]["replica_ejected"]
+slo = mesh_chaos.chaos(mesh_chaos.parse_args(
+    ["--skip-storm", "--requests", "60", "--service-rate", "50000",
+     "--device", "cpu"]))
+assert slo["degraded_slo"]["rungs"][0]["gates"]["zero_lost"]
 batch._DeviceLane.reset_all()
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
@@ -287,10 +321,12 @@ def _port_sources():
         f.name for f in files if f.parent.name == "parallel"}
     assert {"kernel_lab.py", "microbench.py", "soak.py", "device_soak.py",
             "chaos_soak.py", "restart_lab.py", "straggler_lab.py",
-            "sentinel_soak.py", "load_soak.py"} <= {
+            "sentinel_soak.py", "load_soak.py", "traffic_lab.py",
+            "mesh_chaos.py"} <= {
         f.name for f in files if f.parent.name == "tools"}
     assert {"persist.py", "health.py", "faults.py", "batch.py",
-            "service.py", "routing.py", "carry.py", "metrics.py"} <= {
+            "service.py", "routing.py", "carry.py", "metrics.py",
+            "federation.py"} <= {
         f.name for f in files}
     return files
 
@@ -362,6 +398,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from ed25519_consensus_tpu_torch.parallel import sharded_msm
     with pytest.raises(ValueError, match="CUDA devices"):
         sharded_msm.sharded_window_sums_many(digits[None], wire[None], 2)
+    # a federation's default replicas serve from the card
+    from ed25519_consensus_tpu_torch import federation
+    with pytest.raises(RuntimeError, match="CUDA"):
+        federation.ReplicaSet(1)
+    assert federation.ReplicaSet(1, device="cpu").replicas[0].service \
+        .device == "cpu"
     # asked for the CPU, the same batch verifies
     bv.verify(backend="device", device="cpu")
     assert msm.dispatch_window_sums(digits, wire, device="cpu").shape == \

@@ -14,6 +14,7 @@ from ed25519_consensus_tpu import health as jhealth
 from ed25519_consensus_tpu import routing as jrouting
 import ed25519_consensus_tpu_torch as T
 from ed25519_consensus_tpu_torch import batch, config, health, routing
+from ed25519_consensus_tpu_torch.ops import msm
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -26,12 +27,25 @@ def _one_torch_thread():
 
 
 @pytest.fixture(autouse=True)
-def reset_state():
+def reset_state(monkeypatch):
+    """Routing reads process state — the default policy, the lanes, the
+    chip registry, the memoized device count, the disable knob and the
+    shapes whose first device call completed (which shortens a call's
+    deadline) — which a test run earlier in the same process may leave
+    behind: every test starts from it fresh, and ends by resetting it."""
+
+    def reset():
+        routing.set_default_policy(None)
+        batch._DeviceLane.reset_all()
+        batch.reset_device_health()
+        jhealth.reset_all()
+
+    monkeypatch.delenv("ED25519_TPU_DISABLE_DEVICE", raising=False)
+    monkeypatch.setattr(routing, "_device_count", [None])
+    monkeypatch.setattr(msm, "_shapes_completed", set())
+    reset()
     yield
-    routing.set_default_policy(None)
-    batch._DeviceLane.reset_all()
-    batch.reset_device_health()
-    jhealth.reset_all()
+    reset()
 
 
 def _verifiers(n, seed=1):
@@ -87,12 +101,15 @@ def test_one_card_auto_routing_is_the_single_lane(monkeypatch):
 def test_mesh_without_a_device_needs_the_cards(monkeypatch):
     """mesh=D with no device puts shard k on cuda:k: with fewer cards
     visible than D (none here) it raises, as the JAX package's mesh
-    does; with the CPU named, the D shards run there."""
+    does; with the CPU named, the D shards run there (on a FakeClock: no
+    wall-clock deadline of a loaded host decides the call)."""
     vs = _verifiers(2)
     with pytest.raises(ValueError, match="requested 2 CUDA devices, have 0"):
         batch.verify_many(vs, mesh=2)
-    assert batch.verify_many(vs, mesh=2, device="cpu", merge="never",
-                             hybrid=False) == [True, True]
+    assert batch.verify_many(
+        vs, mesh=2, device="cpu", merge="never", hybrid=False,
+        health=health.DeviceHealth(mesh=2, clock=health.FakeClock())) \
+        == [True, True]
     assert batch.last_run_stats["mesh"] == 2
 
 

@@ -824,9 +824,20 @@ def test_knob_matches_the_reference(name, monkeypatch):
     assert config.get(name) == jconfig.get(name)
 
 
+REPLICA_KNOBS = ("ED25519_TPU_REPLICA_SUSPICION_THRESHOLD",
+                 "ED25519_TPU_REPLICA_SUSPICION_HALF_LIFE",
+                 "ED25519_TPU_REPLICA_PROBES", "ED25519_TPU_REPLICA_SPILLOVER",
+                 "ED25519_TPU_REPLICA_DEGRADED_FRAC")
+
+
 def test_registry_holds_31_knobs_and_no_lab_seeds():
-    assert len(config.KNOBS) == 31
+    """The 31 knobs of the scheduler slices, and the federation's five
+    replica knobs beside them."""
+    assert set(REPLICA_KNOBS) <= set(config.KNOBS)
+    assert len(config.KNOBS) == 31 + len(REPLICA_KNOBS)
     for name in ("ED25519_TPU_STRAGGLER_LAB_SEED",
                  "ED25519_TPU_SENTINEL_SOAK_SEED",
+                 "ED25519_TPU_TRAFFIC_LAB_SEED",
+                 "ED25519_TPU_FLEET_LAB_SEED", "ED25519_TPU_MESH_CHAOS_SEED",
                  "ED25519_TPU_HEDGE_BUDGET"):
         assert name not in config.KNOBS and name in jconfig.KNOBS
