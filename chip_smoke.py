@@ -43,6 +43,15 @@ card, drives the port's two paths, and times the kernels.
   K2, K4, K2t, K3); then tools/traffic_lab.py --fleet 3 --replica-crash
   and --device, and tools/mesh_chaos.py (8 logical chips: K1–K3 a shard,
   K5) at their defaults.
+* The analysis layer (`phase_analysis`): the integer-only SASS audit of
+  every built kernel library against `analysis/sass_manifest.json`, the
+  device race audit (`consensuslint --race-audit --device cuda:0`: the
+  cometbft128 stream through a `hybrid=False` service with four submitter
+  threads, a three-replica fleet through a crash and rejoin, a hybrid
+  `verify_many`, under the lock-order and write-race monitors; the same
+  harness bare in a second process for the audit's overhead, and the
+  workload once more in this process for the launch counts) and the
+  `consensuslint --stats` line.
 * The lab: the 20-limb K1, K2, K2t, K3 and K4 (`-l20`) timed in turns with
   the default ones (fe25519_u32.cuh) on the main path's operands; the
   self-test of their field arithmetic (probe_fe8) against the exact-
@@ -1785,6 +1794,142 @@ def phase_federation(state: dict) -> None:
     state["federation_launches"] = totals
     state["federation"] = {"fleet": fleet, "labs": labs,
                            "mesh_chaos": mesh_chaos.headline(chaos)}
+
+
+ANALYSIS_KERNELS = ("expand_compressed", "window_sums", "fold_partials",
+                    "build_tables", "window_sums_tables")
+
+
+def phase_analysis(state: dict) -> None:
+    """The port's consensus-safety analysis on the card:
+
+    (a) the SASS audit (analysis/sass_audit.py) of every library
+        `_cuda.build_all()` built: no floating-point opcode outside the
+        compiler's 32-bit integer-division sequence and its constant-move
+        idiom, and each function's opcodes equal to
+        analysis/sass_manifest.json when this toolkit's nvcc built it; one
+        line per function;
+    (b) `consensuslint --race-audit --device cuda:0` in a subprocess over
+        the cometbft128 stream of phase_stream (the host's verdicts come
+        with it): every verdict the host's, no flagged field, no lock
+        cycle; then the same harness run bare in a second process
+        (ED25519_TPU_RACE_AUDIT unset: no monitor), whose workload seconds
+        are the baseline of the monitors' cost; then the same workload
+        here, with the launch counts set to 0 before it and read after;
+    (c) the `consensuslint --stats` line, its race_audit_fields read from
+        (b)'s report."""
+    import contextlib
+    import io
+    import tempfile
+
+    from ed25519_consensus_tpu_torch import batch, config, devcache
+    from ed25519_consensus_tpu_torch.analysis import harness, sass_audit
+    from ed25519_consensus_tpu_torch.ops import _cuda
+    from ed25519_consensus_tpu_torch.tools import consensuslint
+
+    dev = "cuda:0" if DEV == "cuda" else DEV
+    t = time.perf_counter()
+    audit = sass_audit.audit_libraries()
+    for fn, k in sorted(audit["kernels"].items()):
+        log(f"  (a) sass {fn} ({k['source']}): {k['instructions']} "
+            f"instructions, {len(k['opcodes'])} opcodes, {k['divisions']} "
+            f"u32 division sequence(s), {k['constant_moves']} constant "
+            f"move(s)")
+    problems = [f"{fn}: {p}" for fn, k in audit["kernels"].items()
+                for p in k["problems"]]
+    if problems:
+        raise AssertionError(f"SASS audit: {problems[:8]}")
+    committed = sass_audit.load_manifest()
+    if committed is None:
+        raise AssertionError("no committed analysis/sass_manifest.json")
+    drift = sass_audit.diff_manifests(committed,
+                                      sass_audit.manifest_of(audit))
+    if drift:
+        raise AssertionError(f"SASS manifest drift: {drift[:8]}")
+    same = committed["nvcc"] == audit["nvcc"]
+    log(f"  (a) SASS audit: {len(audit['kernels'])} functions clean, nvcc "
+        f"{audit['nvcc']}, manifest "
+        f"{'matched' if same else 'built by ' + committed['nvcc'] + ': invariants only'}"
+        f"; {time.perf_counter() - t:.1f} s")
+
+    heights, bad_h = state["comet_heights"]
+    host = [h != bad_h for h in range(len(heights))]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-analysis-") as d:
+        fixture = os.path.join(d, "stream.json")
+        out = os.path.join(d, "race.json")
+        harness.dump_stream(fixture, heights, bad_h, host)
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m",
+             "ed25519_consensus_tpu_torch.tools.consensuslint",
+             "--race-audit", "--device", dev, "--fixture", fixture,
+             "--out", out], cwd=str(ROOT), capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t
+        if r.returncode != 0:
+            raise AssertionError(f"race audit exited {r.returncode}:\n"
+                                 f"{r.stdout[-4000:]}{r.stderr[-4000:]}")
+        summary = json.loads(r.stdout.strip().splitlines()[-1])
+        if summary["failed"] or summary["flagged"] or summary["cycles"]:
+            raise AssertionError(f"race audit: {summary['failed']}")
+        log(f"  (b) race audit (monitored, {wall:.1f} s with the process): "
+            f"{summary['fields_tracked']} fields tracked, 0 flagged, "
+            f"{summary['lock_edges']} lock edges, 0 cycles; workload "
+            f"{summary['workload']['seconds']:.2f} s; legs "
+            f"{json.dumps(summary['workload']['legs'])}")
+        for i, layer in enumerate(summary["lock_layers"]):
+            log(f"  (b) lock layer {i}: {', '.join(layer)}")
+        t = time.perf_counter()
+        with config.override(ED25519_TPU_RACE_AUDIT=None):
+            r = subprocess.run(
+                [sys.executable, harness.__file__, "--device", dev,
+                 "--fixture", fixture], cwd=str(ROOT), capture_output=True,
+                text=True, timeout=600)
+        wall = time.perf_counter() - t
+        if r.returncode != 0:
+            raise AssertionError(f"bare harness exited {r.returncode}:\n"
+                                 f"{r.stdout[-4000:]}{r.stderr[-4000:]}")
+        bare = json.loads(r.stdout.strip().splitlines()[-1])
+        if bare["monitored"] or bare["failed"]:
+            raise AssertionError(f"bare harness: {bare}")
+        mon_s = summary["workload"]["seconds"]
+        bare_s = bare["workload"]["seconds"]
+        log(f"  (b) the same harness bare ({wall:.1f} s with the process): "
+            f"workload {bare_s!r} s against {mon_s!r} s monitored, ratio "
+            f"{mon_s / bare_s!r}; legs {json.dumps(bare['workload']['legs'])}")
+        batch.reset_device_health()
+        devcache.set_default_cache(None)  # cold, as in the subprocess
+        _cuda.reset_launch_counts()
+        plain = harness.device_workload(heights, dev, truth=host,
+                                        log=lambda m: None)
+        counts = _cuda.launch_counts()
+        if plain["wrong"]:
+            raise AssertionError(f"in-process workload: {plain['wrong']}")
+        log(f"  (b) the same workload in this process: {plain['seconds']:.2f}"
+            f" s; launches { {k: v for k, v in counts.items() if v} }")
+        need_launches("the analysis workload", counts, ANALYSIS_KERNELS)
+        no_lab_forms("the analysis workload", counts)
+        buf = io.StringIO()
+        with config.override(ED25519_TPU_RACE_AUDIT_OUT=out), \
+                contextlib.redirect_stdout(buf):
+            rc = consensuslint.main(["--stats"])
+        st = json.loads(buf.getvalue())
+        if rc != 0 or st["findings_active"] or \
+                st["race_audit_fields"] != summary["fields_tracked"]:
+            raise AssertionError(f"consensuslint --stats: rc {rc}, {st}")
+        log(f"  (c) consensuslint --stats: {json.dumps(st, sort_keys=True)}")
+    devcache.set_default_cache(None)
+    batch.reset_device_health()
+    state["analysis_launches"] = counts
+    state["analysis"] = {
+        "sass": {fn: {"instructions": k["instructions"],
+                      "opcodes": len(k["opcodes"]),
+                      "divisions": k["divisions"]}
+                 for fn, k in audit["kernels"].items()},
+        "nvcc": audit["nvcc"], "race": {
+            k: summary[k] for k in ("fields_tracked", "lock_edges")},
+        "monitored_s": mon_s, "bare_s": bare_s,
+        "in_process_s": plain["seconds"]}
 
 
 def no_lab_forms(label: str, counts: dict) -> None:
@@ -3968,8 +4113,9 @@ def main() -> int:
     timed(phase_restart, state)
     timed(phase_gray, state)
     timed(phase_federation, state)
+    timed(phase_analysis, state)
     for path in ("stream", "mesh", "affine", "service", "verdict_soaks",
-                 "restart", "gray", "federation"):
+                 "restart", "gray", "federation", "analysis"):
         no_lab_forms(f"the {path} path", state[f"{path}_launches"])
         add_launches(report, state[f"{path}_launches"])
         log(f"{path} path launches (all passes): "

@@ -18,6 +18,15 @@ Type conventions:
 * ``path``    — raw string; unset returns the default, an explicitly
   empty value is returned as is (and reads as "off" where a path is
   optional).
+
+The registry holds 38 of the JAX registry's 54 knobs.  Left out on
+purpose: ``ED25519_TPU_MSM_KERNEL`` (it picks a TPU kernel, Pallas or the
+XLA scan; the port picks the CUDA kernel or its plain twin by a call's
+``device=``), the TPU-measured routing and hot-scale constants, the JAX
+compile-cache directory, the quota auto-sizer (the port's cache always
+publishes its suggestions) and the labs' seed knobs (each port lab's
+``--seed`` default equals the JAX knob's default).  README's knob table
+renders :func:`knob_table`.
 """
 
 import contextlib
@@ -25,7 +34,8 @@ import os
 
 from .error import ConfigError
 
-__all__ = ["ConfigError", "Knob", "KNOBS", "get", "override"]
+__all__ = ["ConfigError", "Knob", "KNOBS", "get", "get_raw", "override",
+           "validate_all", "knob_table"]
 
 _OPT_IN_TRUE = ("1", "true", "yes")
 _OPT_OUT_FALSE = ("0", "false", "no")
@@ -245,6 +255,23 @@ KNOBS: "dict[str, Knob]" = dict([
        "treated as DEGRADED by the federation router: lower-class "
        "traffic spills to healthy peers before that replica sheds "
        "users (a replica at the 2-chip rung sheds load, not users)."),
+    _k("ED25519_TPU_RACE_AUDIT", "opt-in", False,
+       "Race-audit switch, read by analysis/harness.py before it imports "
+       "the package (not by the verdict path): set, the harness "
+       "instruments the port's locks and the fields of "
+       "analysis/guards.toml and runs the lock-order audit and the "
+       "Eraser-style write-race sanitizer (analysis/race_audit.py) over "
+       "its workload, and a field two or more threads wrote with no "
+       "common held lock, or a lock cycle, fails the run; unset, the "
+       "same workload runs bare, the baseline of the monitors' cost.  "
+       "`consensuslint --race-audit` sets it for its child.  Race "
+       "evidence gates the audit, never verdicts."),
+    _k("ED25519_TPU_RACE_AUDIT_OUT", "path", None,
+       "Where a monitored harness run (RACE_AUDIT set) writes its report "
+       "(tracked fields, per-field locksets, flagged races, the lock "
+       "graph) as JSON, unless `--out` names another path; "
+       "`consensuslint --stats` reads it back for the race_audit_fields "
+       "gauge."),
 ])
 
 
@@ -254,17 +281,29 @@ def get(name: str):
     return KNOBS[name].read()
 
 
+def get_raw(name: str) -> "str | None":
+    """The raw (unparsed) environment value of a registered knob, or None
+    when unset: for callers that need the unset/empty/value distinction.
+    KeyError for an unregistered name."""
+    KNOBS[name]  # unregistered names must not silently read the env
+    return os.environ.get(name)
+
+
 @contextlib.contextmanager
 def override(**knobs):
     """Scoped environment overrides for registered knobs, restored on
-    exit (even on error)."""
+    exit (even on error); a value of None unsets the knob for the
+    scope."""
     for name in knobs:
         KNOBS[name]  # unregistered names must not silently write the env
     old = {}
     try:
         for name, value in knobs.items():
             old[name] = os.environ.get(name)
-            os.environ[name] = str(value)
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = str(value)
         yield
     finally:
         for name, prev in old.items():
@@ -272,3 +311,31 @@ def override(**knobs):
                 os.environ.pop(name, None)
             else:
                 os.environ[name] = prev
+
+
+def validate_all() -> "dict[str, ConfigError]":
+    """Parse every registered knob against the current environment;
+    {knob name: ConfigError} for each malformed one (empty: the
+    environment is clean).  An entry point can call it at start-up to fail
+    fast instead of mid-traffic."""
+    errors = {}
+    for name, knob in KNOBS.items():
+        try:
+            knob.read()
+        except ConfigError as e:
+            errors[name] = e
+    return errors
+
+
+def knob_table() -> "list[tuple[str, str, str, str]]":
+    """(name, type, default, doc) rows for every registered knob: the
+    data behind README's knob table of the port."""
+    rows = []
+    for name, knob in KNOBS.items():
+        if knob.type == "choice":
+            ty = "choice of " + "/".join(knob.choices)
+        else:
+            ty = knob.type
+        default = "unset" if knob.default is None else str(knob.default)
+        rows.append((name, ty, default, knob.doc))
+    return rows

@@ -158,10 +158,13 @@ extern "C" int expand_affine_launch(const void* pts, void* out, int B, int N,
 extern "C" __global__ void __launch_bounds__(128)
     expand_affine_l20_kernel(const int16_t* __restrict__ pts,
                              int16_t* __restrict__ out, int B, int N) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (long long)B * N) return;
-  const int b = (int)(lane / N);
-  const int n = (int)(lane % N);
+  // 32-bit lane arithmetic (the launch refuses 2^31 lanes or more): a
+  // 64-bit division would compile to a float reciprocal estimate, which
+  // the integer-only SASS audit refuses (analysis/sass_audit.py).
+  const unsigned lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= (unsigned)B * (unsigned)N) return;
+  const int b = (int)(lane / (unsigned)N);
+  const int n = (int)(lane - (unsigned)b * (unsigned)N);
   const int16_t* p = pts + (size_t)b * 2 * FE_NLIMBS * N + n;
   fe x, y;
 #pragma unroll
@@ -184,6 +187,7 @@ extern "C" int expand_affine_l20_launch(const void* pts, void* out, int B,
                                         int N, void* stream) {
   const int threads = 128;
   const long long lanes = (long long)B * N;
+  if (lanes >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((lanes + threads - 1) / threads);
   expand_affine_l20_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int16_t*)pts, (int16_t*)out, B, N);

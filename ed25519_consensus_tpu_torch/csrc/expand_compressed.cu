@@ -112,10 +112,13 @@ __device__ __forceinline__ void store_canonical(int16_t* o, const fe8& a,
 extern "C" __global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
     expand_compressed_kernel(const uint8_t* __restrict__ wire,
                              int16_t* __restrict__ out, int B, int N) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (long long)B * N) return;
-  const int b = (int)(lane / N);
-  const int n = (int)(lane % N);
+  // 32-bit lane arithmetic (the launch refuses 2^31 lanes or more): a
+  // 64-bit division would compile to a float reciprocal estimate, which
+  // the integer-only SASS audit refuses (analysis/sass_audit.py).
+  const unsigned lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= (unsigned)B * (unsigned)N) return;
+  const int b = (int)(lane / (unsigned)N);
+  const int n = (int)(lane - (unsigned)b * (unsigned)N);
   const uint8_t* w = wire + (size_t)b * 33 * N + n;
 
   fe8 y;
@@ -198,10 +201,13 @@ __device__ fe fe_pow22523(const fe& z) {
 extern "C" __global__ void expand_compressed_l20_kernel(
     const uint8_t* __restrict__ wire, int16_t* __restrict__ out, int B,
     int N) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (long long)B * N) return;
-  const int b = (int)(lane / N);
-  const int n = (int)(lane % N);
+  // 32-bit lane arithmetic (the launch refuses 2^31 lanes or more): a
+  // 64-bit division would compile to a float reciprocal estimate, which
+  // the integer-only SASS audit refuses (analysis/sass_audit.py).
+  const unsigned lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= (unsigned)B * (unsigned)N) return;
+  const int b = (int)(lane / (unsigned)N);
+  const int n = (int)(lane - (unsigned)b * (unsigned)N);
   const uint8_t* w = wire + (size_t)b * 33 * N + n;
 
   uint32_t by[32];
@@ -245,6 +251,7 @@ extern "C" __global__ void expand_compressed_l20_kernel(
 extern "C" int expand_compressed_launch(const void* wire, void* out, int B,
                                         int N, void* stream) {
   const long long lanes = (long long)B * N;
+  if (lanes >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((lanes + K1_THREADS - 1) / K1_THREADS);
   expand_compressed_kernel<<<blocks, K1_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)wire, (int16_t*)out, B, N);
@@ -255,6 +262,7 @@ extern "C" int expand_compressed_l20_launch(const void* wire, void* out,
                                             int B, int N, void* stream) {
   const int threads = 128;
   const long long lanes = (long long)B * N;
+  if (lanes >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((lanes + threads - 1) / threads);
   expand_compressed_l20_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)wire, (int16_t*)out, B, N);

@@ -84,6 +84,7 @@ CUDA device exists and the caller did not ask for the CPU.
 
 import ctypes
 import threading
+import types
 
 import numpy as np
 import torch
@@ -297,7 +298,8 @@ def _check_points(points):
 # _cuda.BLOCK_FORMS allows, and any other raises ValueError on the card
 # and on the CPU alike — nothing falls back to another form.
 
-_PART_DTYPES = {"int32": torch.int32, "int16": torch.int16}
+_PART_DTYPES = types.MappingProxyType(
+    {"int32": torch.int32, "int16": torch.int16})
 
 
 def k2_shared_bytes(window_bits: int, tbl_dtype: str, fold_dtype: str,

@@ -143,7 +143,7 @@ def fe8_operands(n_random: int = 64, seed: int = 0xFE8) -> np.ndarray:
     for i, (a, b) in enumerate(pairs):
         lim = limbs[i % len(limbs)] if i % 3 else [
             rng.randint(-8191, 8191) for _ in range(20)]
-        pts = [rng.choice(FE8_EDGES) if rng.random() < 0.2
+        pts = [rng.choice(FE8_EDGES) if rng.randrange(5) == 0
                else rng.getrandbits(256) for _ in range(8)]
         words = M.to_words(a) + M.to_words(b) + list(lim)
         for v in pts:

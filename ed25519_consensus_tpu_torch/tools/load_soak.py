@@ -38,13 +38,18 @@ A device error out of `verify_many` reaches the service as a
 `DeviceError` wave, whose tickets carry it (service.py: the host never
 decides what the device failed to); the soak counts them as
 `device_error` outcomes, and any other exception a device wave's tickets
-carry as `crash`.  The JAX tool's consensuslint waiver gate is not
-ported: the port has no analysis layer.
+carry as `crash`.
+
+Before the first round, `main` runs the consensuslint gate
+(`lint_gate`): it publishes the analysis gauges and exits 2 when the
+port's tree has an active finding, a stale or malformed waiver file, or
+more waivers than `--max-waivers` (default `MAX_WAIVERS`, the committed
+count, which tests/test_torch_consensuslint.py pins).
 
     python -m ed25519_consensus_tpu_torch.tools.load_soak [--seed 0x10AD]
         [--rounds 4] [--submitters 3] [--requests 8] [--sigs 4]
         [--capacity-sigs 48] [--mesh 0] [--storm mixed] [--device cpu]
-        [--json]
+        [--json] [--max-waivers 6]
 
 Runs on the card by default; `--device cpu` runs the kernels' plain
 versions on the CPU.  Exits nonzero on any violation, printing the replay
@@ -52,16 +57,20 @@ seed: plans and deadline schedules are pure functions of (seed, round),
 so a failure reproduces with --seed N --rounds 1."""
 
 import argparse
+import contextlib
 import json
 import os
 import random
 import sys
 import threading
-import time
 
-from .. import SigningKey, batch, devcache, faults, service, tenancy
+from .. import (SigningKey, batch, config, devcache, faults, health,
+               service, tenancy)
 from ..error import DeviceError
 from ..utils import metrics
+
+# The consensuslint waiver ratchet: the committed waiver count.
+MAX_WAIVERS = 6
 
 STORMS = ("none", "stall", "death", "error", "deadline", "mixed", "churn",
           "slowchip")
@@ -276,12 +285,42 @@ def parse_args(argv=None):
                     help="torch device of the service (default: CUDA; "
                          "cpu runs the kernels' plain versions)")
     ap.add_argument("--json", action="store_true")
+    ap.add_argument("--max-waivers", type=int, default=MAX_WAIVERS,
+                    help="consensuslint waiver ratchet: refuse to soak a "
+                         "tree whose committed waiver count exceeds this")
     return ap.parse_args(argv)
 
 
 def soak(args) -> dict:
     """Every round of the soak → the summary ({"ok", "violations", ...});
-    prints one line (or JSON record) per round."""
+    prints one line (or JSON record) per round.  Knob overrides the storm
+    needs are scoped to the soak."""
+    with contextlib.ExitStack() as stack:
+        return _soak(args, stack)
+
+
+def lint_gate(max_waivers: int) -> "str | None":
+    """The consensus-safety ratchet run before a soak: publish the
+    consensuslint gauges (waivers, active findings, per-rule counts, the
+    manifests' hashes) and refuse a tree whose analysis is dirty, whose
+    waiver file or scope lists are stale, or whose waiver count grew past
+    `max_waivers`.  The reason as a line, or None when the tree is
+    clean."""
+    from ..analysis import linter
+
+    fix = "run `python -m ed25519_consensus_tpu_torch.tools.consensuslint`"
+    try:
+        st = linter.publish_gauges()
+    except (linter.WaiverError, linter.ScopeError) as e:
+        return f"consensuslint error — {e}; {fix}"
+    if st["findings_active"] or st["waiver_count"] > max_waivers:
+        return (f"consensuslint gate — {st['findings_active']} active "
+                f"finding(s), {st['waiver_count']} waiver(s) (max "
+                f"{max_waivers}); {fix}")
+    return None
+
+
+def _soak(args, stack) -> dict:
     rnd = random.Random(args.seed)
     keys = [SigningKey.new(rnd) for _ in range(16)]
     site = faults.SITE_SHARDED if args.mesh and args.mesh > 1 \
@@ -292,7 +331,9 @@ def soak(args) -> dict:
         # the per-round keyset rotation then cycles residency.  The raised
         # EMA prior keeps a slow real-clock dispatch from arming a
         # cooldown that would starve the lookup stream the gate reads.
-        os.environ.setdefault("ED25519_TPU_EMA_PRIOR", "10")
+        prior = config.get_raw("ED25519_TPU_EMA_PRIOR")
+        stack.enter_context(config.override(
+            ED25519_TPU_EMA_PRIOR="10" if prior is None else prior))
         from ..ops import limbs
         entry_bytes = 4 * limbs.NLIMBS * 2 * (args.sigs + 1) * 2
         cache = devcache.DeviceOperandCache(
@@ -304,7 +345,7 @@ def soak(args) -> dict:
         batch.warm_device_shapes(warm_vs[0], chunk=8, device=args.device)
 
     violations = 0
-    t_begin = time.time()
+    t_begin = health.SYSTEM_CLOCK.monotonic()
     totals = {"rounds": 0, "batches": 0, "verdicts": 0, "overloaded": 0,
               "deadline": 0, "closed": 0, "device_error": 0, "crash": 0,
               "injected": 0, "device_error_waves": 0,
@@ -329,7 +370,7 @@ def soak(args) -> dict:
                   f"err_tickets={rec['device_error']:2d} "
                   f"breaker={rec['breaker']:9s} "
                   f"{'OK' if ok else 'VIOLATION'}", flush=True)
-    dt = time.time() - t_begin
+    dt = health.SYSTEM_CLOCK.monotonic() - t_begin
     if args.storm == "churn":
         st = cache.stats()
         if st["hits"] == 0 or \
@@ -359,7 +400,12 @@ def soak(args) -> dict:
 
 
 def main(argv=None):
-    summary = soak(parse_args(argv))
+    args = parse_args(argv)
+    refused = lint_gate(args.max_waivers)
+    if refused is not None:
+        print(f"VIOLATION: {refused}", file=sys.stderr)
+        sys.exit(2)
+    summary = soak(args)
     print("LOAD_SOAK", json.dumps(summary))
     sys.stdout.flush()  # os._exit skips buffer flushing
     # Never risk interpreter teardown with a parked lane worker (stall

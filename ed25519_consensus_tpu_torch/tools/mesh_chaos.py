@@ -20,7 +20,9 @@ race it.
 **Phase B — degraded SLO (open loop, through the traffic lab).**  The
 traffic-lab scenario at 80% of capacity AT EACH DEGRADED RUNG: chips are
 marked dead, the virtual service rate scales by the surviving fraction (the
-k/N model), and the service runs with mesh=None so its degraded-capacity
+k/N model; a calibrated rate's schedules are drawn as the traffic lab draws
+them, independent of the measured rate), and the service runs with
+mesh=None so its degraded-capacity
 watermark shrink engages where two or more cards are visible.  Gates per
 rung: zero lost, host-identical verdicts, consensus shed rate zero and
 consensus p99 under its deadline at that rung's capacity.  Heal-all must
@@ -180,8 +182,10 @@ def run_degraded_slo(cfg) -> dict:
     degraded rung (full / half / one chip), chips marked dead, then
     heal-all and a routing rejoin check."""
     devices = cfg.devices
-    rate = cfg.service_rate or traffic_lab.calibrate_service_rate(
-        cfg.seed)
+    # A calibrated rate draws every rung's schedule at the lab's fixed
+    # draw rate (traffic_lab.service_rate): the rungs' outcomes are a
+    # pure function of the seed, whatever the host measures.
+    rate, draw_rate = traffic_lab.service_rate(cfg)
     rungs = [("full", 0), ("half", devices // 2),
              ("one-chip", devices - 1)]
     out = {"rungs": [], "ok": True, "service_rate_sigs_per_s": rate}
@@ -197,7 +201,7 @@ def run_degraded_slo(cfg) -> dict:
                 requests=cfg.requests, load=cfg.load,
                 # The k/N model: the degraded mesh drains at the surviving
                 # fraction of the rate, and the offered load tracks it.
-                service_rate=rate * frac,
+                service_rate=rate * frac, draw_rate=draw_rate,
                 capacity_frac=0.05, wave_max_batches=16,
                 wave_overhead=0.02, device=False,
                 rotate_every_frac=0.0, rotation_faults=False,

@@ -23,11 +23,10 @@ import hashlib
 import json
 import random
 import sys
-import time
 
 from .. import (
     InvalidSignature, MalformedPublicKey, Signature, SigningKey,
-    VerificationKey, batch, config,
+    VerificationKey, batch, config, health,
 )
 from ..ops import edwards
 from ..ops.scalar import L
@@ -100,7 +99,7 @@ def _run(rounds, seed, log):
     torsion_encs = torsion_encodings()
     stream_digest = hashlib.sha256()
     verdict_digest = hashlib.sha256()
-    t_start = time.time()
+    t_start = health.SYSTEM_CLOCK.monotonic()
     total_batches = total_sigs = 0
     for rnd in range(rounds):
         n_batches = rng.randrange(1, 24)
@@ -148,7 +147,7 @@ def _run(rounds, seed, log):
                 f"(cumulative {total_sigs} sigs)")
     return {"ok": True, "rounds": rounds, "seed": seed,
             "batches": total_batches, "sigs": total_sigs,
-            "seconds": round(time.time() - t_start, 3),
+            "seconds": round(health.SYSTEM_CLOCK.monotonic() - t_start, 3),
             "stream_sha256": stream_digest.hexdigest(),
             "verdicts_sha256": verdict_digest.hexdigest()}
 

@@ -11,14 +11,19 @@ reports the SLO surface as a `service_slo` block:
 * shed rate per class (admission `Overloaded` + `DeadlineExceeded`),
 * breaker transition count,
 * per-tenant device-operand-cache hit rates (``--device`` runs), and
-* a replay digest: the whole run is a pure function of the seed, and
-  equal to the JAX tool's at the same seed and pinned rate.
+* a replay digest: with a pinned rate the whole run is a pure function of
+  the seed, and equal to the JAX tool's at the same seed and rate.
 
 Time model: arrivals, deadlines, admission decisions and wave completions
 all live on a `health.FakeClock`.  Real verification runs for every wave
 and verdicts are checked against the construction oracle, but a wave's
 VIRTUAL cost is `overhead + live_sigs / service_rate`, with `service_rate`
-calibrated on the host or pinned with --service-rate.  Offered load is
+calibrated on the host or pinned with --service-rate.  A pinned rate draws
+the arrival processes at itself, as the JAX tool does.  A calibrated rate
+changes from run to run with the host's speed, so its schedule is drawn at
+`CALIBRATED_DRAW_RATE` and scaled to it: which requests shed and every
+verdict are then a pure function of the seed, and only the times (and the
+digest, which holds them) follow the host.  Offered load is
 ``--load`` (default 0.8) of that capacity.  Queue capacity is a fraction
 of the run's volume and deadlines are in capacity-drain units (T_cap =
 capacity_sigs / service_rate seconds).
@@ -72,6 +77,11 @@ FLEET_SEED = 0xF1EE7
 _stable_seed = tenancy._stable_seed
 
 
+# The rate a calibrated run's arrival schedule is drawn at (signatures per
+# second of virtual time) before it is scaled to the measured rate.
+CALIBRATED_DRAW_RATE = 1.0
+
+
 def calibrate_service_rate(seed: int, sigs: int = 4,
                            batches: int = 32) -> float:
     """Measured pure-host verification capacity (signatures/second) of
@@ -93,6 +103,17 @@ def calibrate_service_rate(seed: int, sigs: int = 4,
         batch._host_verdict(v, rng)
     dt = max(time.perf_counter() - t0, 1e-6)
     return (batches * sigs) / dt
+
+
+def service_rate(cfg) -> "tuple[float, float | None]":
+    """(rate, draw_rate) of a run: the virtual service rate, and the rate
+    its arrival schedule is drawn at (None: at `rate` itself).  A pinned
+    `cfg.service_rate` draws at `cfg.draw_rate` when a caller carried one
+    over from a calibration, else at itself; a calibrated rate draws at
+    `CALIBRATED_DRAW_RATE`."""
+    if cfg.service_rate:
+        return cfg.service_rate, getattr(cfg, "draw_rate", None)
+    return calibrate_service_rate(cfg.seed), CALIBRATED_DRAW_RATE
 
 
 @functools.lru_cache(maxsize=256)
@@ -138,10 +159,18 @@ class LabRequest:
         self.replica = None
 
 
-def build_schedule(matrix, seed, requests_target, load, rate):
+def build_schedule(matrix, seed, requests_target, load, rate,
+                   draw_rate=None):
     """The full arrival schedule: [(t, stream_idx, seq)] sorted by
     (t, stream_idx, seq) — a pure function of (matrix, seed,
-    requests_target, load, rate-derived horizon)."""
+    requests_target, load, rate-derived horizon).  With `draw_rate` the
+    processes are drawn at that rate and every time is scaled by
+    draw_rate / rate: the same events, in the same order, at `rate`."""
+    if draw_rate is not None and draw_rate != rate:
+        events, horizon = build_schedule(matrix, seed, requests_target,
+                                         load, draw_rate)
+        k = draw_rate / rate
+        return [(t * k, si, j) for t, si, j in events], horizon * k
     mean_sigs = sum(s.fraction * s.sigs for s in matrix) / sum(
         s.fraction for s in matrix)
     horizon = requests_target * mean_sigs / (load * rate)
@@ -194,9 +223,9 @@ def run_lab(cfg) -> dict:
     """One full open-loop run; returns the service_slo summary dict
     (cfg is the argparse namespace — tests build it directly)."""
     matrix = tenancy.default_matrix()
-    rate = cfg.service_rate or calibrate_service_rate(cfg.seed)
+    rate, draw_rate = service_rate(cfg)
     schedule, horizon = build_schedule(matrix, cfg.seed, cfg.requests,
-                                       cfg.load, rate)
+                                       cfg.load, rate, draw_rate)
     mean_sigs = sum(s.fraction * s.sigs for s in matrix) / sum(
         s.fraction for s in matrix)
     capacity_sigs = max(48, int(cfg.capacity_frac * cfg.requests
@@ -488,10 +517,10 @@ def run_fleet(cfg) -> dict:
     chains = max(1, cfg.chains)
     matrix = tenancy.fleet_matrix(chains)
     n_rep = int(cfg.fleet)
-    rate = cfg.service_rate or calibrate_service_rate(cfg.seed)
+    rate, draw_rate = service_rate(cfg)
     fleet_rate = rate * n_rep
     schedule, horizon = build_schedule(matrix, cfg.seed, cfg.requests,
-                                       cfg.load, fleet_rate)
+                                       cfg.load, fleet_rate, draw_rate)
     mean_sigs = sum(s.fraction * s.sigs for s in matrix) / sum(
         s.fraction for s in matrix)
     capacity_sigs = max(48, int(cfg.capacity_frac * cfg.requests
@@ -822,13 +851,14 @@ def run_load_sweep(cfg, loads: "list[float]") -> dict:
     deadline and rpc-shed gates are envelope-point claims and are not
     applied across the sweep (the curve IS the deliverable: where p99
     crosses the deadline is what the artifact shows)."""
-    rate = cfg.service_rate or calibrate_service_rate(cfg.seed)
+    rate, draw_rate = service_rate(cfg)
     curve = []
     ok = True
     for load in loads:
         pt_cfg = argparse.Namespace(**vars(cfg))
         pt_cfg.load = load
         pt_cfg.service_rate = rate  # one calibration for the whole sweep
+        pt_cfg.draw_rate = draw_rate
         pt_cfg.require_rpc_shed = False
         summary = run_lab(pt_cfg)
         invariants = {
@@ -873,7 +903,7 @@ def run_gray_failure(cfg) -> dict:
     Invariant gates (zero lost, host-identical verdicts, consensus
     never shed) must hold in BOTH variants — hedging buys latency,
     never correctness."""
-    rate = cfg.service_rate or calibrate_service_rate(cfg.seed)
+    rate, draw_rate = service_rate(cfg)
     ratio = config.get("ED25519_TPU_STRAGGLER_RATIO")
     variants = {}
     invariants_ok = True
@@ -886,6 +916,7 @@ def run_gray_failure(cfg) -> dict:
     for hedging in (False, True):
         v_cfg = argparse.Namespace(**vars(cfg))
         v_cfg.service_rate = rate  # one calibration for the pair
+        v_cfg.draw_rate = draw_rate
         v_cfg.load = load
         v_cfg.require_rpc_shed = False
         v_cfg.gray_model = {

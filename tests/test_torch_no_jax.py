@@ -14,8 +14,10 @@ and the gray-failure half of the scheduler (the latency ledger, a
 named-chip call, a hedged call, a probation probe, tools/straggler_lab.py
 and tools/sentinel_soak.py) and the federation (a ReplicaSet through a
 replica crash, tools/traffic_lab.py --fleet --replica-crash and
-tools/mesh_chaos.py's SLO rungs) as well; the kernel sources in csrc/, probes.cu among them, include
-nothing outside the port.
+tools/mesh_chaos.py's SLO rungs) and the analysis layer (the lint over the
+port, the integer-only audit of a twin, the CPU race scenario in a process
+of its own) as well; the kernel sources in csrc/, probes.cu among them,
+include nothing outside the port.
 
 Careful with names: `ed25519_consensus_tpu_torch` starts with
 `ed25519_consensus_tpu`, so a blocked name is matched exactly or as a
@@ -62,7 +64,8 @@ def test_name_matcher_is_exact():
     assert not _blocked("jaxlib_like") and not _blocked("numpy")
 
 
-_SCRIPT = r"""
+_SCRIPT_PRELUDE = r"""
+import json
 import sys
 
 BLOCKED = ("jax", "ed25519_consensus_tpu")
@@ -75,6 +78,9 @@ class Block:
 
 
 sys.meta_path.insert(0, Block())
+"""
+
+_SCRIPT = _SCRIPT_PRELUDE + f"_SCRIPT_PRELUDE = {_SCRIPT_PRELUDE!r}\n" + r"""
 
 import random
 
@@ -268,6 +274,41 @@ slo = mesh_chaos.chaos(mesh_chaos.parse_args(
     ["--skip-storm", "--requests", "60", "--service-rate", "50000",
      "--device", "cpu"]))
 assert slo["degraded_slo"]["rungs"][0]["gates"]["zero_lost"]
+
+# The analysis layer: the lint over the port's tree under its waivers, the
+# integer-only audit of one twin, and the CPU race scenario in a process of
+# its own (the monitors load before the package), with the same imports
+# blocked there.
+import subprocess
+
+from ed25519_consensus_tpu_torch.analysis import harness, ir_audit, linter
+
+active, _ = linter.apply_waivers(linter.lint_package(),
+                                 linter.load_waivers())
+assert active == [], active
+fn, _shards = ir_audit.trace_variants()["chain-compressed-u32"]
+summary, _ = ir_audit.trace(fn)
+assert ir_audit.audit_summary("chain", summary) == []
+assert summary["schedule"] == ["K1", "K2", "K3"]
+prelude = _SCRIPT_PRELUDE + (
+    "import os\n"
+    "os.environ['ED25519_TPU_RACE_AUDIT'] = '1'\n"
+    "import runpy\n"
+    f"sys.argv = [{harness.__file__!r}, '--scenario']\n"
+    "try:\n"
+    f"    runpy.run_path({harness.__file__!r}, run_name='__main__')\n"
+    "except SystemExit as e:\n"
+    "    assert not e.code, e.code\n"
+    "leaked = [m for m in sys.modules if any(m == b or m.startswith(b + '.')"
+    " for b in BLOCKED)]\n"
+    "assert not leaked, leaked\n")
+r = subprocess.run([sys.executable, "-c", prelude], capture_output=True,
+                   text=True, timeout=120)
+assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+race = json.loads(r.stdout.strip().splitlines()[-1])
+assert race["monitored"] and race["failed"] == []
+assert race["fields_tracked"] > 0
+
 batch._DeviceLane.reset_all()
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
@@ -328,6 +369,11 @@ def _port_sources():
             "service.py", "routing.py", "carry.py", "metrics.py",
             "federation.py"} <= {
         f.name for f in files}
+    assert {"linter.py", "guards.py", "ir_audit.py", "sass_audit.py",
+            "lockorder.py", "race_audit.py", "harness.py"} <= {
+        f.name for f in files if f.parent.name == "analysis"}
+    assert "consensuslint.py" in {
+        f.name for f in files if f.parent.name == "tools"}
     return files
 
 

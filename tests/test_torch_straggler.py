@@ -830,11 +830,16 @@ REPLICA_KNOBS = ("ED25519_TPU_REPLICA_SUSPICION_THRESHOLD",
                  "ED25519_TPU_REPLICA_DEGRADED_FRAC")
 
 
+RACE_AUDIT_KNOBS = ("ED25519_TPU_RACE_AUDIT", "ED25519_TPU_RACE_AUDIT_OUT")
+
+
 def test_registry_holds_31_knobs_and_no_lab_seeds():
-    """The 31 knobs of the scheduler slices, and the federation's five
-    replica knobs beside them."""
+    """The 31 knobs of the scheduler slices, the federation's five replica
+    knobs and the analysis harness's two race-audit knobs beside them."""
     assert set(REPLICA_KNOBS) <= set(config.KNOBS)
-    assert len(config.KNOBS) == 31 + len(REPLICA_KNOBS)
+    assert set(RACE_AUDIT_KNOBS) <= set(config.KNOBS)
+    assert len(config.KNOBS) == 31 + len(REPLICA_KNOBS) + \
+        len(RACE_AUDIT_KNOBS) == 38
     for name in ("ED25519_TPU_STRAGGLER_LAB_SEED",
                  "ED25519_TPU_SENTINEL_SOAK_SEED",
                  "ED25519_TPU_TRAFFIC_LAB_SEED",

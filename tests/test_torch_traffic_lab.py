@@ -308,3 +308,54 @@ def test_mesh_chaos_degraded_slo_holds_at_every_rung():
     line = mesh_chaos.headline(s)
     assert line["metric"] == "mesh_chaos" and line["storm_ok"] is None
     assert mesh_chaos.DEFAULT_SEED == 0xC41905
+
+
+def test_calibrated_schedule_is_drawn_independent_of_the_measured_rate():
+    """A calibrated rate draws at CALIBRATED_DRAW_RATE and scales: the same
+    events in the same order at any measured rate, times scaled by it; a
+    pinned rate keeps the JAX tool's draw."""
+    matrix = tenancy.default_matrix()
+    draw = lab.CALIBRATED_DRAW_RATE
+    s1, h1 = lab.build_schedule(matrix, 7, 200, 0.8, 15_000.0, draw)
+    s2, h2 = lab.build_schedule(matrix, 7, 200, 0.8, 35_000.0, draw)
+    assert [e[1:] for e in s1] == [e[1:] for e in s2]
+    assert h1 * 15_000.0 == pytest.approx(h2 * 35_000.0, rel=1e-12)
+    for (t1, _, _), (t2, _, _) in zip(s1, s2):
+        assert t1 * 15_000.0 == pytest.approx(t2 * 35_000.0, rel=1e-12)
+    assert lab.build_schedule(matrix, 7, 200, 0.8, 50_000.0, None) == \
+        lab.build_schedule(matrix, 7, 200, 0.8, 50_000.0)
+    assert lab.service_rate(make_cfg()) == (50_000.0, None)
+
+
+def _outcome(summary):
+    return ({c: (row["requests"], row["shed_rate"])
+             for c, row in summary["by_class"].items()}, summary["gates"],
+            summary.get("affinity_hit_rate"))
+
+
+@pytest.mark.parametrize("mode", ["lab", "fleet", "mesh_chaos"])
+def test_calibrated_run_outcome_does_not_follow_the_host_speed(
+        monkeypatch, mode):
+    """Two calibrations that differ (a faster and a slower host) give the
+    same sheds, verdicts and gates: the outcome is a pure function of the
+    seed, only the times follow the measured rate."""
+    outcomes = []
+    for measured in (15_000.0, 35_000.0):
+        monkeypatch.setattr(lab, "calibrate_service_rate",
+                            lambda seed, m=measured: m)
+        if mode == "lab":
+            s = lab.run_lab(make_cfg(service_rate=0.0))
+            outcomes.append((_outcome(s), {
+                c: (row["verdicts"], row["overloaded"], row["shed_deadline"])
+                for c, row in s["by_class"].items()}))
+        elif mode == "fleet":
+            s = lab.run_fleet(make_fleet_cfg(service_rate=0.0,
+                                             replica_crash=True))
+            outcomes.append(_outcome(s))
+        else:
+            s = mesh_chaos.run_degraded_slo(mesh_chaos.parse_args(
+                ["--device", "cpu", "--skip-storm", "--requests", "120"]))
+            assert s["service_rate_sigs_per_s"] == measured
+            outcomes.append([(r["gates"], r["shed_rate_by_class"])
+                             for r in s["rungs"]])
+    assert outcomes[0] == outcomes[1]
