@@ -1,0 +1,11 @@
+"""The host combine (`msm.combine_window_sums` and the cofactor check): the
+sum of `last_run_stats["combine_seconds"]` over the window's calls, per
+signature."""
+
+
+def read(ctx):
+    calls = ctx.record.get("calls")
+    if not calls:
+        return None
+    return 1e6 * sum(c["stats"].get("combine_seconds", 0.0)
+                     for c in calls) / sum(c["sigs"] for c in calls)
