@@ -27,7 +27,6 @@ import hashlib
 import queue
 import secrets
 import threading
-import time
 
 import numpy as np
 
@@ -44,7 +43,6 @@ from .ops.field import P
 from .ops.scalar import L
 from .signature import Signature
 from .utils import metrics as _metrics
-from .utils.metrics import BatchMetrics
 from .verification_key import VerificationKeyBytes
 
 
@@ -316,13 +314,15 @@ class StagedBatch:
       for [A..., R...] and their (m+n,) device flip/neg hint bytes — the
       33 B/term compressed device wire.
     * keyset_blob: the 32-byte key encodings in group-id order, the
-      content address of the device operand cache."""
+      content address of the device operand cache.
+    * shift128_hits: how many of the keys' [2^128]A triples staging found
+      in `_shift128_cache` (one lookup per key)."""
 
     __slots__ = ("coeffs", "coeff_shifts", "z_blob", "raw_points",
-                 "enc32", "hints", "keyset_blob")
+                 "enc32", "hints", "keyset_blob", "shift128_hits")
 
     def __init__(self, coeffs, coeff_shifts, z_blob, raw_points,
-                 enc32, hints, keyset_blob=None):
+                 enc32, hints, keyset_blob=None, shift128_hits=0):
         self.coeffs = coeffs
         self.coeff_shifts = coeff_shifts
         self.z_blob = z_blob
@@ -330,6 +330,7 @@ class StagedBatch:
         self.enc32 = enc32
         self.hints = hints
         self.keyset_blob = keyset_blob
+        self.shift128_hits = shift128_hits
 
     @property
     def n_sigs(self) -> int:
@@ -653,6 +654,7 @@ class Verifier:
         self._r_buf += item.sig.R_bytes
         self._k_buf += item.k.to_bytes(32, "little")
 
+    @_metrics.spanned("queue_bulk")
     def queue_bulk(self, entries) -> None:
         """Queue many `(vk_bytes, sig, msg)` entries with ONE native call
         for all the challenge hashes; the same result as `queue` in a
@@ -730,7 +732,8 @@ class Verifier:
                                      for _ in sigs))
         n = len(gid)
         m = len(keys)
-        keyset_blob = b"".join(k.to_bytes() for k in keys)
+        key_bytes = [k.to_bytes() for k in keys]
+        keyset_blob = b"".join(key_bytes)
         blob = keyset_blob + r_blob
         raw, ok, hints = _decompress(blob, m + n)
         if not ok.all():
@@ -754,8 +757,10 @@ class Verifier:
                 A_accs[gid[i]] += z * k
         else:
             B_acc, A_accs = res
-        A_shifts = [_shift128_for_key(k.to_bytes(), row)
-                    for k, row in zip(keys, raw[:m])]
+        hits = sum(1 for kb in key_bytes if kb in _shift128_cache)
+        with _metrics.span("stage.shift128"):
+            A_shifts = [_shift128_for_key(kb, row)
+                        for kb, row in zip(key_bytes, raw[:m])]
         return StagedBatch(
             coeffs=[(-B_acc) % L] + [a % L for a in A_accs],
             coeff_shifts=[_basepoint_shift_triple()] + A_shifts,
@@ -764,12 +769,13 @@ class Verifier:
             enc32=enc32,
             hints=hints,
             keyset_blob=keyset_blob,
+            shift128_hits=hits,
         )
 
     # -- verification ------------------------------------------------------
 
     def verify(self, rng=None, backend: str = "device", device=None,
-               timings=None, metrics=None) -> None:
+               timings=None) -> None:
         """Verify all queued signatures; raises InvalidSignature unless ALL
         are valid (reference src/batch.rs:149-217).
 
@@ -787,23 +793,17 @@ class Verifier:
         `timings`, if a dict, receives wall seconds per stage:
         "stage_host", then "device" and "combine" for the device backend,
         "sharded" (the mesh call and the combine) for the sharded one,
-        "msm_host" (or "host_fused") for the host backend.  `metrics`, if
-        a `utils.metrics.BatchMetrics`, is filled likewise."""
-        if metrics is None:
-            metrics = BatchMetrics()
+        "msm_host" (or "host_fused") for the host backend."""
         if backend not in ("host", "device", "sharded"):
             raise ValueError(f"unknown backend {backend!r}")
+        stage_seconds = {}
         try:
-            self._verify(rng, backend, device, metrics)
+            self._verify(rng, backend, device, stage_seconds)
         finally:
             if timings is not None:
-                timings.update(metrics.stage_seconds)
+                timings.update(stage_seconds)
 
-    def _verify(self, rng, backend, device, metrics) -> None:
-        t0 = time.perf_counter()
-        metrics.backend = backend
-        metrics.batch_size = self.batch_size
-        metrics.distinct_keys = self.distinct_key_count
+    def _verify(self, rng, backend, device, stage_seconds) -> None:
         if backend == "device":
             from .ops import msm
 
@@ -827,7 +827,7 @@ class Verifier:
         if backend == "host" and n and self._buffers_live() \
                 and native.load() is not None:
             z_blob = _draw_blinders(rng, n)
-            with metrics.stage("host_fused"):
+            with _metrics.timed(stage_seconds, "host_fused"):
                 keys_t = tuple(self._key_index)
                 ops = _keyset_operands_for(keys_t)
                 if ops is None:  # a key failed decompression
@@ -838,33 +838,30 @@ class Verifier:
                     z_blob, n, self._gid, len(keys_t), bytes(_B_RAW_ROW),
                     shift_rows=split[0] if split else None,
                     prebuilt=split[1] if split else None)
-            metrics.total_seconds = time.perf_counter() - t0
             if res is not True:  # None = staging reject, False = equation
                 raise InvalidSignature()
             return
-        with metrics.stage("stage_host"):
+        with _metrics.timed(stage_seconds, "stage_host"):
             staged = self._stage(rng)
             if backend == "device":
                 digits, wire = staged.device_operands(msm.pad_lanes)
-        metrics.msm_terms = staged.n_terms
         if backend == "host":
-            with metrics.stage("msm_host"):
+            with _metrics.timed(stage_seconds, "msm_host"):
                 ok = staged.host_msm().mul_by_cofactor().is_identity()
         elif backend == "sharded":
-            with metrics.stage("sharded"):
+            with _metrics.timed(stage_seconds, "sharded"):
                 ok = sharded_msm.sharded_staged_msm(
                     staged, n_shards, devices=devices).mul_by_cofactor() \
                     .is_identity()
         else:
-            with metrics.stage("device"):
+            with _metrics.timed(stage_seconds, "device"):
                 ws = msm.PendingMSM(
                     msm.dispatch_window_sums(digits, wire, dev)
                 ).window_sums()
-            with metrics.stage("combine"):
+            with _metrics.timed(stage_seconds, "combine"):
                 # Final cofactored identity check: host-exact, always.
                 ok = msm.combine_window_sums(ws).mul_by_cofactor() \
                     .is_identity()
-        metrics.total_seconds = time.perf_counter() - t0
         if not ok:
             raise InvalidSignature()
 
@@ -1053,11 +1050,13 @@ class _DeviceLane:
         single lane only) upgrades the cached dispatch to the
         tables-resident one.  `audit` (cold mesh chunks) runs the
         sentinel-audit form, whose result carries each shard's partial
-        sums after the fold."""
+        sums after the fold.  The worker's `device_call` span belongs to
+        the caller's call (its innermost span, when spans are on)."""
         with self._cv:
             cid = self._next_id
             self._next_id += 1
-        self._q.put((cid, digits, pts, cached, tables, audit))
+        self._q.put((cid, digits, pts, cached, tables, audit,
+                     _metrics.current_span()))
         return cid
 
     def discard(self, cid: int) -> None:
@@ -1198,7 +1197,7 @@ class _DeviceLane:
             item = self._q.get()
             if item is None:
                 return
-            cid, digits, pts, cached, tables, audit = item
+            cid, digits, pts, cached, tables, audit, origin = item
             with self._cv:
                 # After a dispatch that raised, no other chunk starts
                 # until the caller has read that error or dropped its
@@ -1215,7 +1214,8 @@ class _DeviceLane:
                     continue
             t_call = None
             try:
-                with _msm.DEVICE_CALL_LOCK:
+                with _msm.DEVICE_CALL_LOCK, _metrics.span(
+                        "device_call", origin=origin):
                     t_call = clock.monotonic()
                     with self._cv:
                         self._started[cid] = t_call
@@ -1575,6 +1575,7 @@ def _rung_placement(mesh: int, device, chips, logical: bool = False
     return (_lane_device(device),)
 
 
+@_metrics.spanned("verify_many", call=True)
 def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                 merge: str = "auto", mesh: "int | None" = None,
                 health: "DeviceHealth | None" = None, device=None,
@@ -1686,10 +1687,11 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         and sum(v.batch_size for v in verifiers)
         <= _MERGE_MAX_BATCH * len(verifiers))
     if do_merge:
-        groups = _merge_groups(verifiers)
-        if len(groups) < len(verifiers):
-            unions = [merge_verifiers([verifiers[i] for i in g])
-                      for g in groups]
+        with _metrics.span("merge"):
+            groups = _merge_groups(verifiers)
+            unions = None if len(groups) == len(verifiers) else [
+                merge_verifiers([verifiers[i] for i in g]) for g in groups]
+        if unions is not None:
             t0 = _wall()
             # `mesh` passes through unresolved: auto routing reads the
             # merged sizes, the ones actually dispatched.
@@ -1705,7 +1707,8 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                     for i in g:
                         verdicts[i] = True
                 else:
-                    _resolve_union(verifiers, g, verdicts, rng)
+                    with _metrics.span("bisect"):
+                        _resolve_union(verifiers, g, verdicts, rng)
             # Lane counters of the inner call are in UNION units.
             stats.update(
                 batches=len(verifiers),
@@ -1718,21 +1721,22 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
             last_run_stats.update(stats)
             return verdicts
 
-    # Cache temperature of the call's dominant keyset (non-mutating).
-    devcache_cache = (cache if cache is not None
-                      else _devcache.default_cache())
-    devcache_probe = devcache_cache.probe(None)
-    if verifiers and devcache_cache.enabled:
-        big = max(verifiers, key=_routing.estimate_device_terms)
-        devcache_probe = devcache_cache.probe(
-            _devcache.keyset_digest(big._canonical_keyset_blob()))
-    device_on = not _config.get("ED25519_TPU_DISABLE_DEVICE")
-    mesh = _routing.resolve_mesh(
-        mesh, est_terms_per_batch=max(
-            (_routing.estimate_device_terms(v) for v in verifiers),
-            default=0),
-        n_devices=None if device is None else 1, health=health,
-        policy=policy)
+    with _metrics.span("route"):
+        # Cache temperature of the call's dominant keyset (non-mutating).
+        devcache_cache = (cache if cache is not None
+                          else _devcache.default_cache())
+        devcache_probe = devcache_cache.probe(None)
+        if verifiers and devcache_cache.enabled:
+            big = max(verifiers, key=_routing.estimate_device_terms)
+            devcache_probe = devcache_cache.probe(
+                _devcache.keyset_digest(big._canonical_keyset_blob()))
+        device_on = not _config.get("ED25519_TPU_DISABLE_DEVICE")
+        mesh = _routing.resolve_mesh(
+            mesh, est_terms_per_batch=max(
+                (_routing.estimate_device_terms(v) for v in verifiers),
+                default=0),
+            n_devices=None if device is None else 1, health=health,
+            policy=policy)
     if sentinel_rate is None:
         sentinel_rate = _config.get("ED25519_TPU_SENTINEL_RATE")
     sentinel_rate = float(sentinel_rate)
@@ -1831,6 +1835,10 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         "combine_seconds": 0.0,
         "host_seconds": 0.0,
         "seconds": 0.0,
+        # Staging's [2^128]A lookups (one per key of every staged batch)
+        # and those `_shift128_cache` served.
+        "shift128_lookups": 0,
+        "shift128_hits": 0,
     }
 
     def _publish():
@@ -1870,7 +1878,8 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         decided[i] = 1
         t0 = now()
         w0 = _wall()
-        verdicts[i] = _host_verdict(verifiers[i], rng)
+        with _metrics.span("recheck"):
+            verdicts[i] = _host_verdict(verifiers[i], rng)
         stats["host_seconds"] += _wall() - w0
         stats["host_batches"] += 1
         if len(_host_times) < 64:
@@ -1935,6 +1944,8 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
             if s is not None:
                 staged.append(s)
                 idxs.append(i)
+                stats["shift128_lookups"] += len(s.coeffs) - 1
+                stats["shift128_hits"] += s.shift128_hits
         if not staged:
             return None
         entry, tables_entry = resident_entry_for(staged)
@@ -1946,10 +1957,12 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
             else:
                 nr = max(msm.pad_lanes(s.n_cached_terms)
                          for s in staged) - n_head
-            ops = [s.device_operands_cached(lambda n, nr=nr: n_head + nr)
-                   for s in staged]
-            digits, pts = pad_batch_axis(np.stack([d for d, _ in ops]),
-                                         np.stack([p for _, p in ops]))
+            with _metrics.span("stage.operands"):
+                ops = [s.device_operands_cached(
+                    lambda n, nr=nr: n_head + nr) for s in staged]
+                digits, pts = pad_batch_axis(
+                    np.stack([d for d, _ in ops]),
+                    np.stack([p for _, p in ops]))
             if mesh:
                 # The mesh layout: head digits on shard 0's head lanes
                 # only (zeros elsewhere: identity contributions), R
@@ -1963,9 +1976,10 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
             return idxs, digits, pts, entry, tables_entry
         pad = max(shard_pad(s.n_device_terms, mesh) if mesh
                   else msm.pad_lanes(s.n_device_terms) for s in staged)
-        ops = [s.device_operands(lambda n: pad) for s in staged]
-        digits, pts = pad_batch_axis(np.stack([d for d, _ in ops]),
-                                     np.stack([p for _, p in ops]))
+        with _metrics.span("stage.operands"):
+            ops = [s.device_operands(lambda n: pad) for s in staged]
+            digits, pts = pad_batch_axis(np.stack([d for d, _ in ops]),
+                                         np.stack([p for _, p in ops]))
         return idxs, digits, pts, None, None
 
     # Work-stealing pipeline.  The device lane is ONE worker thread that
@@ -1981,8 +1995,9 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         while remaining:
             host_verify_one(remaining.pop())
         return _finish(verdicts)
-    dev = _DeviceLane.get(lane_dev, health=health, mesh=mesh,
-                          placement=placement, chips=chips)
+    with _metrics.span("route"):
+        dev = _DeviceLane.get(lane_dev, health=health, mesh=mesh,
+                              placement=placement, chips=chips)
 
     # Seconds-per-batch prior before the first measurement; a malformed
     # ED25519_TPU_EMA_PRIOR raises ConfigError here.
@@ -2093,7 +2108,8 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         ch = remaining[:size]
         del remaining[:size]
         w0 = _wall()
-        pending = stage_chunk(ch)
+        with _metrics.span("stage"):
+            pending = stage_chunk(ch)
         stats["stage_seconds"] += _wall() - w0
         if pending is None:
             return
@@ -2118,6 +2134,7 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
             cid, idxs, now(), padded_b, n_lanes, variant,
             (digits, pts) if audit else None))
 
+    @_metrics.spanned("combine")
     def decide_on_device(idxs, out):
         w0 = _wall()
         for j, i in enumerate(idxs):
@@ -2362,25 +2379,28 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
             if block and t_start is None:
                 # Not visibly started: wait in short slices and re-derive
                 # the deadline the moment the worker enters the call.
-                while True:
-                    wait_end = deadline_at if until is None \
-                        else min(deadline_at, until)
-                    res = dev.wait(rec.cid,
-                                   min(0.25, max(0.0, wait_end - now())))
-                    if res is not _PENDING:
-                        break
-                    t_start = dev.started_at(rec.cid)
-                    if t_start is not None:
-                        deadline_at = t_start + budget
-                    if until is not None and now() >= until:
-                        break
-                    if now() >= deadline_at:
-                        break
-            else:
+                with _metrics.span("lane_wait"):
+                    while True:
+                        wait_end = deadline_at if until is None \
+                            else min(deadline_at, until)
+                        res = dev.wait(rec.cid, min(
+                            0.25, max(0.0, wait_end - now())))
+                        if res is not _PENDING:
+                            break
+                        t_start = dev.started_at(rec.cid)
+                        if t_start is not None:
+                            deadline_at = t_start + budget
+                        if until is not None and now() >= until:
+                            break
+                        if now() >= deadline_at:
+                            break
+            elif block:
                 wait_end = deadline_at if until is None \
                     else min(deadline_at, until)
-                timeout = max(0.0, wait_end - now()) if block else 0.0
-                res = dev.wait(rec.cid, timeout)
+                with _metrics.span("lane_wait"):
+                    res = dev.wait(rec.cid, max(0.0, wait_end - now()))
+            else:
+                res = dev.wait(rec.cid, 0.0)
             if res is _PENDING:
                 budget, deadline_at = call_deadline(rec)
                 if now() < deadline_at:

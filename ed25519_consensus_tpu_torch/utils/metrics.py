@@ -2,8 +2,13 @@
 fault/recovery counters fed by the verify_many degradation ladder, a gauge
 registry for levels (the device operand cache publishes its hit/miss/
 residency levels here), nearest-rank `percentiles` for the labs' latency
-rows, and per-verify `BatchMetrics`."""
+rows, `timed` stage seconds for `Verifier.verify(timings=...)`, and an
+in-memory span recorder over the verify path, off unless a caller turns it
+on (`enable_spans`, `disable_spans`, `drain_spans`)."""
 
+import collections
+import functools
+import itertools
 import math
 import threading
 import time
@@ -75,54 +80,150 @@ def percentiles(values, fractions=(0.5, 0.99, 0.999)) -> dict:
     }
 
 
-class BatchMetrics:
-    """Per-verify() metrics: batch size, coalescing ratio, per-stage wall
-    times."""
+@contextmanager
+def timed(seconds: dict, name: str):
+    """Add the wall seconds of the block to `seconds[name]`."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
 
-    def __init__(self):
-        self.batch_size = 0
-        self.distinct_keys = 0
-        self.msm_terms = 0
-        self.backend = None
-        self.stage_seconds = {}
-        self.total_seconds = 0.0
 
-    @property
-    def coalescing_ratio(self) -> float:
-        """m/n — 1.0 means no coalescing benefit, →0 means maximal."""
-        if not self.batch_size:
-            return 1.0
-        return self.distinct_keys / self.batch_size
+# -- spans -----------------------------------------------------------------
+# While on, every `with span(name):` appends one record
+#
+#     (name, start, end, span_id, parent_id, call_id, thread)
+#
+# to a bounded in-memory buffer when the block ends.  Times are
+# time.perf_counter() seconds, the clock a caller can tie a device
+# timeline to.  The parent is the innermost span open on the same thread
+# (a per-thread stack), or, for work handed to another thread, the root
+# of the `origin` span's call.  A span opened with `call=True` outside
+# any call starts one: it takes the next call id and becomes the root
+# that every span beneath it, and every span given it as origin, carries.
+# `thread` is threading.get_ident().  When off, `span` returns one shared
+# no-op and nothing else runs.  Nothing is written anywhere: the caller
+# drains the buffer.
 
-    @property
-    def sigs_per_sec(self) -> float:
-        if not self.total_seconds:
-            return 0.0
-        return self.batch_size / self.total_seconds
+SPAN_BUFFER_MAX = 1 << 16
 
-    @contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
+_spans_on = False
+_span_buffer = collections.deque(maxlen=SPAN_BUFFER_MAX)
+_span_ids = itertools.count(1)
+_call_ids = itertools.count(1)
+_span_local = threading.local()
+
+
+def _span_stack() -> list:
+    stack = getattr(_span_local, "stack", None)
+    if stack is None:
+        stack = _span_local.stack = []
+    return stack
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "span_id", "parent_id", "call_id", "root_id",
+                 "start", "_call", "_origin")
+
+    def __init__(self, name: str, call: bool, origin):
+        self.name = name
+        self._call = call
+        self._origin = origin
+
+    def __enter__(self):
+        stack = _span_stack()
+        origin = self._origin
+        if origin is not None:
+            parent_id, call_id, root_id = (origin.root_id, origin.call_id,
+                                           origin.root_id)
+        elif stack:
+            top = stack[-1]
+            parent_id, call_id, root_id = (top.span_id, top.call_id,
+                                           top.root_id)
+        else:
+            parent_id = call_id = root_id = None
+        self.span_id = next(_span_ids)
+        if self._call and call_id is None:
+            call_id, root_id = next(_call_ids), self.span_id
+        self.parent_id, self.call_id, self.root_id = (parent_id, call_id,
+                                                      root_id)
+        stack.append(self)
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter()
+        _span_stack().pop()  # `with` blocks nest: this span is the top
+        _span_buffer.append((self.name, self.start, end, self.span_id,
+                             self.parent_id, self.call_id,
+                             threading.get_ident()))
+        return False
+
+
+def span(name: str, call: bool = False, origin=None):
+    """A context manager recording one span named `name` (see above);
+    the shared no-op while the recorder is off.  `origin` is a span of
+    another thread (`current_span()` there) whose call this one serves."""
+    if not _spans_on:
+        return _NO_SPAN
+    return _Span(name, call, origin)
+
+
+def spanned(name: str, call: bool = False):
+    """Decorate a function so that each call of it runs inside
+    `span(name, call)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if not _spans_on:
+                return fn(*args, **kwargs)
+            with _Span(name, call, None):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def current_span():
+    """The innermost span open on this thread, to hand to work another
+    thread does for it; None while the recorder is off or none is open."""
+    if not _spans_on:
+        return None
+    stack = _span_stack()
+    return stack[-1] if stack else None
+
+
+def enable_spans() -> None:
+    """Start recording (the buffer keeps the newest SPAN_BUFFER_MAX
+    spans)."""
+    global _spans_on
+    _spans_on = True
+
+
+def disable_spans() -> None:
+    """Stop recording; what the buffer holds stays to be drained."""
+    global _spans_on
+    _spans_on = False
+
+
+def drain_spans() -> list:
+    """Remove and return every recorded span, oldest first."""
+    out = []
+    while True:
         try:
-            yield
-        finally:
-            self.stage_seconds[name] = (
-                self.stage_seconds.get(name, 0.0) + time.perf_counter() - t0
-            )
-
-    def as_dict(self) -> dict:
-        return {
-            "batch_size": self.batch_size,
-            "distinct_keys": self.distinct_keys,
-            "msm_terms": self.msm_terms,
-            "backend": self.backend,
-            "coalescing_ratio": round(self.coalescing_ratio, 4),
-            "sigs_per_sec": round(self.sigs_per_sec, 1),
-            "stage_seconds": {
-                k: round(v, 6) for k, v in self.stage_seconds.items()
-            },
-            "total_seconds": round(self.total_seconds, 6),
-        }
-
-    def __repr__(self):
-        return f"BatchMetrics({self.as_dict()})"
+            out.append(_span_buffer.popleft())
+        except IndexError:
+            return out
