@@ -62,6 +62,7 @@ card, drives the port's two paths, and times the kernels.
     python3 chip_smoke.py --stress-tables REPS SECONDS
     python3 chip_smoke.py --sanitize
     python3 chip_smoke.py --cold-start [CHECKOUT ...]
+    python3 chip_smoke.py --shift128
 
 The second form only runs the cometbft128 per-commit stream again and again
 (`stress_tables_path`) and exits nonzero if the device ever rejected a batch
@@ -69,6 +70,8 @@ the host accepts.  The third runs every kernel once at small shapes against
 its plain version, for compute-sanitizer (`sanitize_path`).  The fourth
 times a verdict path's first call with an empty kernel cache in each
 checkout named (default: this one), in the order given (`cold_start_path`).
+The fifth runs only `phase_shift128`: K7 on a zcash.sync-shaped cold
+dispatch against its plain version, timed, and the cold path through it.
 
 Exits nonzero, and prints no result, without a CUDA device, outside a
 checkout of the repository, when the native runtime does not build or fails
@@ -2303,6 +2306,117 @@ def device_ms(fn, reps: int = 5) -> float:
     return us / 1e3 / reps if us else float("nan")
 
 
+def k7_work(w, flagged: int) -> Work:
+    """Work K7 (csrc/shift128_lanes.cu) must do on the wire w (B, 33, N)
+    with `flagged` lanes carrying the shift flag: 128 doublings a flagged
+    lane, priced at their 4 fe8_sq and 4 fe8_mul (a doubling's 3 adds, 3
+    subtracts and negation and the lane's 3 + 4 conversions are left out,
+    so the bound is a floor); the hint byte of every lane read, 60 limbs
+    read and 80 written (2 B each) a flagged lane."""
+    from ed25519_consensus_tpu_torch.ops.torch_decompress import (
+        SHIFT128_DOUBLINGS as n)
+
+    B, _, N = w.shape
+    return Work(B * N + flagged * (60 + 80) * 2,
+                flagged * n * 4 * (OPS8_FE_SQ + OPS8_FE_MUL),
+                flagged * n * 4 * (MADS8_FE_SQ + MADS8_FE_MUL),
+                flagged * n * 4 * (OPS_FE_SQ + OPS_FE_MUL))
+
+
+def fresh_key_batch(n: int, rng, tamper: bool = False):
+    """One zcash.sync-shaped batch: n signatures, each under a fresh key
+    (every key's [2^128]A is the card's to compute), as a Verifier; with
+    `tamper`, signature n // 2 signs another message."""
+    from ed25519_consensus_tpu_torch import SigningKey, batch
+
+    ents = []
+    for i in range(n):
+        sk = SigningKey.new(rng)
+        msg = b"joinsplit-%d" % i
+        sig = sk.sign(b"tampered" if tamper and i == n // 2 else msg)
+        ents.append((sk.verification_key_bytes(), sig, msg))
+    v = batch.Verifier()
+    v.queue_bulk(ents)
+    return v
+
+
+def phase_shift128(report: dict, state: dict) -> None:
+    """K7 (shift128_lanes) on a zcash.sync-shaped cold dispatch: one batch
+    of 10,000 signatures under fresh keys, staged by
+    `device_operands_deferred` (every split-high lane flagged) and padded
+    to B = 8 with the identity wire, as verify_many(chunk=8) sends it.
+    K7 on K1's output against its plain version (exact), timed in place
+    beside its bound, K1 beside it; then that batch and a tampered copy
+    through verify_many(hybrid=False) on the card, the launches and the
+    shift128 counters read around the calls."""
+    import numpy as np
+    import torch
+
+    from ed25519_consensus_tpu_torch import batch
+    from ed25519_consensus_tpu_torch.ops import _cuda, limbs, msm
+    from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
+
+    rng = random.Random(0x5128)
+    v = fresh_key_batch(ZCASH_SIGS, rng)
+    staged = v._stage(random.Random(7))
+    pad = msm.pad_lanes(staged.n_device_terms)
+    _, w0 = staged.device_operands_deferred(lambda n: pad)
+    w = np.stack([w0] + [limbs.identity_wire_batch(pad)] * (STACK_B - 1))
+    flagged = int(((w[:, 32] & TD.SHIFT128_FLAG) != 0).sum())
+    if flagged != staged.shift128_device or flagged != ZCASH_SIGS:
+        raise AssertionError(f"{flagged} flagged lanes for "
+                             f"{staged.shift128_device} deferred keys")
+    wire = torch.from_numpy(w).to(DEV)
+    pts = TD.expand_compressed_points(wire)
+    want = TD.shift128_lanes_plain(wire, pts.clone())
+    got = TD.shift128_lanes(wire, pts.clone())
+    sync()
+    err = int((got.int() - want.int()).abs().max())
+    if err:
+        raise AssertionError(f"shift128_lanes disagrees with its plain "
+                             f"version: max |diff| {err}")
+    scratch = pts.clone()
+    ms = cuda_ms(lambda: TD.shift128_lanes(wire, scratch))
+    pms = cuda_ms(lambda: TD.shift128_lanes_plain(wire, pts), reps=1)
+    k1_ms = cuda_ms(lambda: TD.expand_compressed_points(wire))
+    work = k7_work(w, flagged)
+    bms, by = bound_ms(work)
+    row = report["shift128_lanes"]
+    row.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+    log(f"  zcash.sync dispatch B={STACK_B} N={pad}, {flagged} flagged "
+        f"lanes: shift128_lanes kernel {ms:.4f} ms  plain {pms:.3f}  "
+        f"bound {bms:.4f} ({by}; {bound_note(work)}); K1 {k1_ms:.4f} ms; "
+        f"max |diff| 0")
+    for tamper in (False, True):
+        vv = fresh_key_batch(ZCASH_SIGS, rng, tamper=tamper) if tamper \
+            else v
+        _cuda.reset_launch_counts()
+        t = time.perf_counter()
+        out = batch.verify_many([vv], rng=random.Random(8), hybrid=False,
+                                merge="never", chunk=STACK_B,
+                                device="cuda:0")
+        dt = time.perf_counter() - t
+        counts = _cuda.launch_counts()
+        add_launches(report, counts)
+        st = dict(batch.last_run_stats)
+        log(f"  verify_many zcash.sync batch{' tampered' if tamper else ''}"
+            f": {out} in {dt:.3f} s (staging {st['stage_seconds']:.3f} s); "
+            f"shift128 lookups {st['shift128_lookups']}, hits "
+            f"{st['shift128_hits']}, device {st['shift128_device']}; "
+            f"launches { {k: n for k, n in counts.items() if n} }")
+        if out != [not tamper]:
+            raise AssertionError(f"verify_many gave {out}")
+        if not counts.get("shift128_lanes"):
+            raise AssertionError("the cold path did not launch K7")
+        if st["shift128_hits"] + st["shift128_device"] != \
+                st["shift128_lookups"]:
+            raise AssertionError("shift128 counters do not add up")
+    print(json.dumps({"shift128_lanes": {
+        "B": STACK_B, "N": pad, "flagged": flagged, "kernel_ms": ms,
+        "plain_ms": pms, "bound_ms": bms, "bound_by": by, "k1_ms": k1_ms}}),
+        flush=True)
+
+
 def phase_native(state: dict) -> None:
     """The native host runtime: built from csrc/host/ and self-checked, or
     the run fails — a broken build must never pass as a slow run."""
@@ -3293,6 +3407,9 @@ REPLACES = {
     "build_tables": "ed25519_consensus_tpu/ops/msm.py:194",
     "fold_shards": "ed25519_consensus_tpu/parallel/sharded_msm.py:139",
     "expand_affine": "ed25519_consensus_tpu/ops/msm.py:396",
+    # no TPU kernel: the host's per-key [2^128]A (batch.py's
+    # _shift128_for_key), moved onto the card
+    "shift128_lanes": "ed25519_consensus_tpu/batch.py:133",
     "probe_chain": "tools/microbench_pallas.py:64",
     "probe_fmul": "tools/microbench_pallas.py:101",
     # the self-test of K2's and K2t's field arithmetic, which replaces the
@@ -4095,6 +4212,10 @@ def main() -> int:
         reps, seconds = int(sys.argv[2]), float(sys.argv[3])
         return 1 if stress_tables_path(reps, seconds) else 0
     report = Report()
+    if sys.argv[1:2] == ["--shift128"]:
+        phase_shift128(report, state)
+        print(smi_line())
+        return 0
 
     def timed(phase, *args):
         t = time.perf_counter()
@@ -4121,6 +4242,7 @@ def main() -> int:
         log(f"{path} path launches (all passes): "
             f"{ {k: v for k, v in state[f'{path}_launches'].items() if v} }")
     timed(phase_times, report, state)
+    timed(phase_shift128, report, state)
     timed(phase_tables_times, report, state)
     timed(phase_mesh_kernels, report, state)
     timed(phase_routing, state)

@@ -59,6 +59,7 @@ KERNEL_ENTRIES = (
     ("multiples_tables", "K4"),
     ("fold_shards", "K5"),
     ("expand_affine_points", "K6"),
+    ("shift128_lanes", "K7"),
 )
 
 
@@ -234,6 +235,12 @@ def trace_variants() -> dict:
         v[f"tables-in-{arith}"] = (
             lambda a=arith: msm.window_sums_many_tables_full(
                 digits, tables_full, arith=a, device=cpu), 1)
+    # K1, then K7 on a lane with the shift flag (hint bit 2): the cold
+    # dispatch of a batch with a fresh key.
+    shifted = pts.copy()
+    shifted[:, 32, 1] |= 4
+    v["chain-compressed-shift128"] = (
+        lambda: msm.window_sums_many(digits, shifted, device=cpu), 1)
     v["chain-affine-u32"] = (
         lambda: msm.window_sums_many(digits, affine, device=cpu), 1)
     v["head-resident"] = (

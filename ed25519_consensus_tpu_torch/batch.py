@@ -305,7 +305,11 @@ class StagedBatch:
     * coeffs: [B_coeff] + per-key A_coeffs, ints mod ℓ (may exceed 2^128 —
       the device path splits them against `coeff_shifts`).
     * coeff_shifts: matching (point, enc, hint) triples for the
-      [2^128]·point split terms (basepoint constant + per-key cache).
+      [2^128]·point split terms (basepoint constant + per-key cache).  An
+      entry given as None (a key staging did not find in
+      `_shift128_cache`) is computed, and cached, when `coeff_shifts` is
+      first read; `device_operands_deferred` never reads it, and leaves
+      that key's [2^128]A to the card (K7).
     * z_blob: the n per-signature 128-bit blinders as 16-byte
       little-endian rows (bytes, n×16).
     * raw_points: ((1+m+n), 128) uint8 — canonical X‖Y‖Z‖T rows for
@@ -316,21 +320,40 @@ class StagedBatch:
     * keyset_blob: the 32-byte key encodings in group-id order, the
       content address of the device operand cache.
     * shift128_hits: how many of the keys' [2^128]A triples staging found
-      in `_shift128_cache` (one lookup per key)."""
+      in `_shift128_cache` (one lookup per key).
+    * shift128_device: how many keys' [2^128]A the last
+      `device_operands_deferred` left to the card (0 before one)."""
 
-    __slots__ = ("coeffs", "coeff_shifts", "z_blob", "raw_points",
-                 "enc32", "hints", "keyset_blob", "shift128_hits")
+    __slots__ = ("coeffs", "_coeff_shifts", "_deferred", "z_blob",
+                 "raw_points", "enc32", "hints", "keyset_blob",
+                 "shift128_hits", "shift128_device")
 
     def __init__(self, coeffs, coeff_shifts, z_blob, raw_points,
                  enc32, hints, keyset_blob=None, shift128_hits=0):
         self.coeffs = coeffs
-        self.coeff_shifts = coeff_shifts
+        self._coeff_shifts = list(coeff_shifts)
+        # The coefficients whose triple staging left out, as staged: the
+        # deferred wire flags these whether or not a read filled them in.
+        self._deferred = np.array(
+            [j for j, sp in enumerate(self._coeff_shifts) if sp is None],
+            dtype=np.int64)
         self.z_blob = z_blob
         self.raw_points = raw_points
         self.enc32 = enc32
         self.hints = hints
         self.keyset_blob = keyset_blob
         self.shift128_hits = shift128_hits
+        self.shift128_device = 0
+
+    @property
+    def coeff_shifts(self) -> list:
+        sh = self._coeff_shifts
+        for j in self._deferred.tolist():
+            if sh[j] is None:  # coefficient j is key j − 1's
+                sh[j] = _shift128_for_key(
+                    self.keyset_blob[32 * (j - 1): 32 * j],
+                    self.raw_points[j])
+        return sh
 
     @property
     def n_sigs(self) -> int:
@@ -431,6 +454,43 @@ class StagedBatch:
             list(self.coeffs) + zints,
             [_point_from_row(r) for r in self.raw_points])
 
+    def _split_digits(self, pad_fn):
+        """(digits, hi_j, N): the digit planes of `device_operands`'s lane
+        layout ([coeffs..., split-highs..., R's...], padded by `pad_fn` to
+        N lanes, in the digit wire) and the coefficient index of each
+        split-high lane."""
+        mask = (1 << 128) - 1
+        lo = [c & mask for c in self.coeffs]
+        hi_j = [j for j, c in enumerate(self.coeffs) if c >> 128]
+        n_coeff = len(lo)
+        n_head = n_coeff + len(hi_j)
+        n = n_head + self.n_sigs
+        N = pad_fn(n)
+        digits = np.zeros((limbs.NWINDOWS, N), dtype=np.int8)
+        digits[:, :n_coeff] = limbs.pack_scalar_windows(lo)
+        if hi_j:
+            digits[:, n_coeff:n_head] = limbs.pack_scalar_windows(
+                [self.coeffs[j] >> 128 for j in hi_j])
+        if self.n_sigs:
+            zb = np.frombuffer(self.z_blob, dtype=np.uint8).reshape(
+                self.n_sigs, 16)
+            digits[:, n_head:n] = limbs.pack_u128_windows(zb)
+        return _digits_for_wire(digits), hi_j, N
+
+    def _wire_head(self, N: int):
+        """The compressed wire of N lanes with the coefficient lanes
+        filled ([B, A_0..A_{m-1}] encodings and hints) and the identity
+        elsewhere."""
+        m = len(self.coeffs) - 1  # distinct keys among the coefficients
+        w = limbs.identity_wire_batch(N)
+        b_enc, b_hint = _basepoint_wire()
+        w[:32, 0] = np.frombuffer(b_enc, dtype=np.uint8)
+        w[32, 0] = b_hint
+        if m:
+            w[:32, 1:m + 1] = self.enc32[:m].T
+            w[32, 1:m + 1] = self.hints[:m]
+        return w
+
     def device_operands(self, pad_fn, wire: "str | None" = None):
         """The padded device operands: signed digit planes — (17, N) uint8
         nibble-packed, or (33, N) int8 with ED25519_TPU_DIGIT_WIRE=plain —
@@ -443,33 +503,20 @@ class StagedBatch:
           batch whose staging captured no encodings.
 
         Coefficients split into 128-bit chunks against their cached shift
-        points.  Term order: [coeffs..., split-highs..., R's...]; padding
-        terms are digit 0 on the wire's identity."""
+        points (every one computed on the host: the JAX package's
+        operands, byte for byte; `device_operands_deferred` is the cold
+        paths' form).  Term order: [coeffs..., split-highs..., R's...];
+        padding terms are digit 0 on the wire's identity."""
         if wire is None:
             wire = _device_wire_mode()
         if self.enc32 is None or self.hints is None:
             wire = "affine"  # staging captured no encodings
-        mask = (1 << 128) - 1
-        lo = [c & mask for c in self.coeffs]
-        hi_s, hi_p = [], []
-        for c, sp in zip(self.coeffs, self.coeff_shifts):
-            h = c >> 128
-            if h:
-                hi_s.append(h)
-                hi_p.append(sp)
-        n_coeff = len(lo)
-        n_head = n_coeff + len(hi_s)
+        digits, hi_j, N = self._split_digits(pad_fn)
+        shifts = self.coeff_shifts
+        hi_p = [shifts[j] for j in hi_j]
+        n_coeff = len(self.coeffs)
+        n_head = n_coeff + len(hi_j)
         n = n_head + self.n_sigs
-        N = pad_fn(n)
-        digits = np.zeros((limbs.NWINDOWS, N), dtype=np.int8)
-        digits[:, :n_coeff] = limbs.pack_scalar_windows(lo)
-        if hi_s:
-            digits[:, n_coeff:n_head] = limbs.pack_scalar_windows(hi_s)
-        if self.n_sigs:
-            zb = np.frombuffer(self.z_blob, dtype=np.uint8).reshape(
-                self.n_sigs, 16)
-            digits[:, n_head:n] = limbs.pack_u128_windows(zb)
-        digits = _digits_for_wire(digits)
         if wire == "affine":
             pts = limbs.identity_affine_batch(N)
             pts[..., :n_coeff] = limbs.pack_points_affine_from_raw(
@@ -481,18 +528,53 @@ class StagedBatch:
                 self.raw_points[n_coeff:])
             return digits, pts
         m = n_coeff - 1  # distinct keys among the coefficient terms
-        w = limbs.identity_wire_batch(N)
-        b_enc, b_hint = _basepoint_wire()
-        w[:32, 0] = np.frombuffer(b_enc, dtype=np.uint8)
-        w[32, 0] = b_hint
-        if m:
-            w[:32, 1:n_coeff] = self.enc32[:m].T
-            w[32, 1:n_coeff] = self.hints[:m]
+        w = self._wire_head(N)
         for j, sp in enumerate(hi_p):
             w[:32, n_coeff + j] = np.frombuffer(sp[1], dtype=np.uint8)
             w[32, n_coeff + j] = sp[2]
         w[:32, n_head:n] = self.enc32[m:].T
         w[32, n_head:n] = self.hints[m:]
+        return digits, w
+
+    def device_operands_deferred(self, pad_fn):
+        """`device_operands`'s digits and lane layout on the compressed
+        wire, with every [2^128]A that staging did not find cached left to
+        the card: that key's split-high lane carries the key's own
+        encoding and its hint with bit 2 set
+        (torch_decompress.SHIFT128_FLAG), which K7 turns into [2^128]A
+        right after K1 expands it.  A cached key's lane, and [2^128]B's,
+        carry the host's encoding as in `device_operands`.  Sets
+        `shift128_device` to the number of keys left to the card.  On the
+        affine wire (ED25519_TPU_WIRE, or a batch staged without
+        encodings), `device_operands` itself: that wire has no flag."""
+        from .ops.torch_decompress import SHIFT128_FLAG
+
+        if (self.enc32 is None or self.hints is None
+                or _device_wire_mode() != "compressed"):
+            self.shift128_device = 0
+            return self.device_operands(pad_fn)
+        digits, hi_j, N = self._split_digits(pad_fn)
+        n_coeff = len(self.coeffs)
+        n_head = n_coeff + len(hi_j)
+        n = n_head + self.n_sigs
+        m = n_coeff - 1
+        w = self._wire_head(N)
+        hi_j = np.asarray(hi_j, dtype=np.int64)
+        lanes = n_coeff + np.arange(len(hi_j))
+        deferred = np.isin(hi_j, self._deferred)
+        if deferred.any():
+            keys = hi_j[deferred] - 1
+            w[:32, lanes[deferred]] = self.enc32[keys].T
+            w[32, lanes[deferred]] = self.hints[keys] | SHIFT128_FLAG
+        held = [self._coeff_shifts[j] for j in hi_j[~deferred].tolist()]
+        if held:
+            w[:32, lanes[~deferred]] = np.frombuffer(
+                b"".join(sp[1] for sp in held), dtype=np.uint8).reshape(
+                    len(held), 32).T
+            w[32, lanes[~deferred]] = [sp[2] for sp in held]
+        w[:32, n_head:n] = self.enc32[m:].T
+        w[32, n_head:n] = self.hints[m:]
+        self.shift128_device = len(self._deferred)
         return digits, w
 
 
@@ -757,10 +839,10 @@ class Verifier:
                 A_accs[gid[i]] += z * k
         else:
             B_acc, A_accs = res
-        hits = sum(1 for kb in key_bytes if kb in _shift128_cache)
+        # One lookup a key: a miss stays None, computed only if something
+        # reads `coeff_shifts`; the cold dispatches leave it to the card.
         with _metrics.span("stage.shift128"):
-            A_shifts = [_shift128_for_key(kb, row)
-                        for kb, row in zip(key_bytes, raw[:m])]
+            A_shifts = [_shift128_cache.get(kb) for kb in key_bytes]
         return StagedBatch(
             coeffs=[(-B_acc) % L] + [a % L for a in A_accs],
             coeff_shifts=[_basepoint_shift_triple()] + A_shifts,
@@ -769,7 +851,7 @@ class Verifier:
             enc32=enc32,
             hints=hints,
             keyset_blob=keyset_blob,
-            shift128_hits=hits,
+            shift128_hits=m - A_shifts.count(None),
         )
 
     # -- verification ------------------------------------------------------
@@ -844,7 +926,7 @@ class Verifier:
         with _metrics.timed(stage_seconds, "stage_host"):
             staged = self._stage(rng)
             if backend == "device":
-                digits, wire = staged.device_operands(msm.pad_lanes)
+                digits, wire = staged.device_operands_deferred(msm.pad_lanes)
         if backend == "host":
             with _metrics.timed(stage_seconds, "msm_host"):
                 ok = staged.host_msm().mul_by_cofactor().is_identity()
@@ -874,7 +956,7 @@ class Verifier:
 
         dev = msm.resolve_device(device)
         staged = self._stage(rng)
-        digits, wire = staged.device_operands(msm.pad_lanes)
+        digits, wire = staged.device_operands_deferred(msm.pad_lanes)
         return PendingVerification(
             msm.PendingMSM(msm.dispatch_window_sums(digits, wire, dev)))
 
@@ -1463,12 +1545,24 @@ def _sentinel_lane_values(digits_b) -> "list[int] | None":
 
 def _sentinel_lane_rows(pts_b, lanes) -> "np.ndarray | None":
     """The raw X‖Y‖Z‖T rows of `lanes` from any point wire (compressed,
-    affine or extended); None when an encoding fails to decompress."""
+    affine or extended); None when an encoding fails to decompress.  A
+    compressed lane with the shift flag (hint bit 2) gives [2^128] of its
+    encoding's point, as K7 makes it."""
+    from .ops.torch_decompress import SHIFT128_FLAG
+
     pts_b = np.asarray(pts_b)
     if pts_b.dtype == np.uint8:  # compressed (33, N): decompress y
         blob = np.ascontiguousarray(pts_b[:32, lanes].T).tobytes()
         raw, ok, _ = _decompress(blob, len(lanes))
-        return raw if ok.all() else None
+        if not ok.all():
+            return None
+        for j in np.flatnonzero(pts_b[32, lanes] & SHIFT128_FLAG):
+            row = native.msm_shift128_row(raw[j].tobytes())
+            raw[j] = np.frombuffer(
+                row if row is not None else _point_row(
+                    edwards.shift128(_point_from_row(raw[j]))),
+                dtype=np.uint8)
+        return raw
     rows = np.zeros((len(lanes), 128), dtype=np.uint8)
     for j, lane in enumerate(lanes):
         c = [limbs.limbs_to_int(pts_b[k, :, lane]) % P
@@ -1835,10 +1929,12 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         "combine_seconds": 0.0,
         "host_seconds": 0.0,
         "seconds": 0.0,
-        # Staging's [2^128]A lookups (one per key of every staged batch)
-        # and those `_shift128_cache` served.
+        # Staging's [2^128]A lookups (one per key of every staged batch),
+        # those `_shift128_cache` served, and those the cold dispatches
+        # left to the card (K7): on the cold paths hits + device = lookups.
         "shift128_lookups": 0,
         "shift128_hits": 0,
+        "shift128_device": 0,
     }
 
     def _publish():
@@ -1977,9 +2073,10 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         pad = max(shard_pad(s.n_device_terms, mesh) if mesh
                   else msm.pad_lanes(s.n_device_terms) for s in staged)
         with _metrics.span("stage.operands"):
-            ops = [s.device_operands(lambda n: pad) for s in staged]
+            ops = [s.device_operands_deferred(lambda n: pad) for s in staged]
             digits, pts = pad_batch_axis(np.stack([d for d, _ in ops]),
                                          np.stack([p for _, p in ops]))
+        stats["shift128_device"] += sum(s.shift128_device for s in staged)
         return idxs, digits, pts, None, None
 
     # Work-stealing pipeline.  The device lane is ONE worker thread that
@@ -2562,7 +2659,7 @@ def warm_device_shapes(verifier, rng=None, chunk: int = 8, device=None,
     except InvalidSignature:
         return
     pad = msm.pad_lanes(staged.n_device_terms)
-    d, p = staged.device_operands(lambda n: pad)
+    d, p = staged.device_operands_deferred(lambda n: pad)
     with msm.DEVICE_CALL_LOCK:
         msm.dispatch_window_sums_many(
             np.stack([d] * chunk), np.stack([p] * chunk), dev).cpu()
@@ -2572,7 +2669,8 @@ def warm_device_shapes(verifier, rng=None, chunk: int = 8, device=None,
             if rung < 2:
                 break
             spad = sharded_msm.shard_pad(staged.n_device_terms, rung)
-            sd, sp = staged.device_operands(lambda n, spad=spad: spad)
+            sd, sp = staged.device_operands_deferred(
+                lambda n, spad=spad: spad)
             sharded_msm.sharded_window_sums_many(
                 np.stack([sd] * chunk), np.stack([sp] * chunk), rung,
                 devices=_rung_placement(rung, device, None)).cpu()
@@ -2628,7 +2726,7 @@ def run_probation_probe(verifier, chip: int, rng=None,
     expected = staged.host_msm()
     try:
         pad = msm.pad_lanes(staged.n_device_terms)
-        d, p = staged.device_operands(lambda n: pad)
+        d, p = staged.device_operands_deferred(lambda n: pad)
 
         def probe_call():
             if dev.type == "cuda":

@@ -1,10 +1,10 @@
 // GF(2^255 - 19) and complete Edwards25519 addition on 8 x 32-bit words
 // with PTX carry chains: the field arithmetic of K1 (expand_compressed.cu,
 // squarings by fe8_sq), K2 and K2t (window_sums_u32.cuh), K3
-// (fold_partials.cu) and K4 (build_tables.cu).  csrc/fe25519.cuh, the 20 x
-// 13-bit balanced-limb arithmetic carried over from the TPU (no 64-bit
-// multiply, no carry flag on a VPU lane), stays for K5, K6 and the lab's
-// -l20 and -r32 forms.
+// (fold_partials.cu), K4 (build_tables.cu) and K7 (shift128_lanes.cu).
+// csrc/fe25519.cuh, the 20 x 13-bit balanced-limb arithmetic carried over
+// from the TPU (no 64-bit multiply, no carry flag on a VPU lane), stays
+// for K5, K6 and the lab's -l20 and -r32 forms.
 //
 // A Hopper thread is a scalar machine with a carry flag: a full 256 x 256
 // product is 64 32 x 32 -> 64-bit multiplies whose halves add into the
@@ -650,6 +650,31 @@ __device__ __forceinline__ ge8 ge8_add(const ge8& p, const ge8& q,
     F = G;
     G = t;
   }
+  ge8 r;
+  r.X = fe8_mul(E, F);
+  r.Y = fe8_mul(G, H);
+  r.Z = fe8_mul(F, G);
+  r.T = fe8_mul(E, H);
+  return r;
+}
+
+// Dedicated doubling (dbl-2008-hwcd, a = -1): 4 fe8_sq, 4 fe8_mul, 3
+// fe8_add, 3 fe8_sub and one fe8_neg; T is not read.  The formula of the
+// host's Point.double (ops/edwards.py) and of torch_edwards.point_double,
+// so every coordinate is their residue; ops/fe_u32.py ge8_dbl models it.
+// Complete on Edwards25519 (a = -1 is a square, d is not): the identity
+// and the torsion points double exactly.
+__device__ __forceinline__ ge8 ge8_dbl(const ge8& p) {
+  const fe8 A = fe8_sq(p.X);
+  const fe8 B = fe8_sq(p.Y);
+  const fe8 zz = fe8_sq(p.Z);
+  const fe8 S = fe8_sq(fe8_add(p.X, p.Y));
+  const fe8 C = fe8_add(zz, zz);
+  const fe8 AB = fe8_add(A, B);
+  const fe8 E = fe8_sub(S, AB);
+  const fe8 G = fe8_sub(B, A);
+  const fe8 F = fe8_sub(G, C);
+  const fe8 H = fe8_neg(AB);
   ge8 r;
   r.X = fe8_mul(E, F);
   r.Y = fe8_mul(G, H);

@@ -137,6 +137,8 @@ INSTANTIATIONS = {
     "build_tables": ("build_tables.cu", _POINTS),
     "fold_shards": ("fold_partials.cu", _K5),
     "expand_affine": ("expand_affine.cu", _POINTS),
+    # K7, [2^128] of K1's flagged lanes in place: wire, points, B, N, stream
+    "shift128_lanes": ("shift128_lanes.cu", _POINTS),
     # the kernel lab's variants (window_sums.cuh templates): first the 20-limb
     # default K2 and K2t, timed beside window_sums_u32.cuh's
     "window_sums-l20": ("window_sums_lab.cu", _K2),
@@ -176,7 +178,7 @@ INSTANTIATIONS = {
 # when it is set.
 VERDICT = ("expand_compressed", "window_sums", "fold_partials",
            "window_sums_tables", "build_tables", "fold_shards",
-           "expand_affine")
+           "expand_affine", "shift128_lanes")
 VERDICT_SOURCES = tuple(sorted({INSTANTIATIONS[b][0] for b in VERDICT}))
 
 # The any-W kernels held by a source of their own (same C entry name, a

@@ -10,8 +10,8 @@ carry-out (the last instruction of a chain without `.cc`) the model asserts
 that it is 0.  The tests (tests/test_torch_fe_u32.py) hold the model against
 Python ints mod p, and the card's self-test kernel (csrc/probes.cu
 `probe_fe8`) against the model, word for word.  `expand_lane`,
-`tables_lane` and `fold_lane` are K1's and K4's bodies for one lane and
-K3's for one (batch, window).
+`shift128_lane` and `tables_lane` are K1's, K7's and K4's bodies for one
+lane, `fold_lane` K3's for one (batch, window).
 
 An element is a list of 8 words, least significant first, a value below
 2^256 (the weak form; p = 2^255 - 19 < 2^256, so a residue may have two
@@ -339,6 +339,26 @@ def ge8_add(p, q, neg: bool = False):
     return [fe8_mul(E, F), fe8_mul(G, H), fe8_mul(F, G), fe8_mul(E, H)]
 
 
+def ge8_dbl(p):
+    """Dedicated doubling (dbl-2008-hwcd, a = -1) on an (X, Y, Z, T) tuple
+    of elements, csrc/fe25519_u32.cuh ge8_dbl step for step: 4 fe8_sq, 4
+    fe8_mul, 3 fe8_add, 3 fe8_sub and one fe8_neg; T is not read.  The
+    formula of the host's `Point.double` and of torch_edwards.point_double,
+    so every coordinate is their residue."""
+    X1, Y1, Z1, _ = p
+    A = fe8_sq(X1)
+    B = fe8_sq(Y1)
+    zz = fe8_sq(Z1)
+    S = fe8_sq(fe8_add(X1, Y1))
+    C = fe8_add(zz, zz)
+    AB = fe8_add(A, B)
+    E = fe8_sub(S, AB)
+    G = fe8_sub(B, A)
+    F = fe8_sub(G, C)
+    H = fe8_neg(AB)
+    return [fe8_mul(E, F), fe8_mul(G, H), fe8_mul(F, G), fe8_mul(E, H)]
+
+
 # -- K1: the ZIP215 point expansion of one lane ----------------------------
 
 D_WORDS = to_words(D % P)
@@ -405,6 +425,26 @@ def expand_lane(wire33):
     x = fe8_neg(r) if hint & 2 else r
     t = fe8_mul(x, y)
     return [fe8_to_limbs20_canonical(c) for c in (x, y, t)]
+
+
+# -- K7: [2^128] of one flagged lane ---------------------------------------
+
+SHIFT128_DOUBLINGS = 128
+
+
+def shift128_lane(limbs80):
+    """K7's body for one flagged lane (csrc/shift128_lanes.cu): the lane's
+    80 input limbs (X, Y, Z, T, 20 each, in fe8_from_limbs20's bound; K1
+    writes canonical ones) → the canonical limbs of [2^128]P, 4 × 20, Z
+    as the doublings leave it (projective: no inversion).  X, Y and Z are
+    converted (T is not read), then 128 ge8_dbl."""
+    if len(limbs80) != 80:
+        raise ValueError("a lane is 80 limbs")
+    p = [fe8_from_limbs20(list(limbs80[20 * k:20 * k + 20]))
+         for k in range(3)] + [None]
+    for _ in range(SHIFT128_DOUBLINGS):
+        p = ge8_dbl(p)
+    return [x for c in p for x in fe8_to_limbs20_canonical(c)]
 
 
 # -- K4: the multiples table of one lane -----------------------------------

@@ -13,11 +13,13 @@ with T_i the [0..8]P_i multiples table.  The device computes only the 33
 window sums S_w; the Horner combine (`combine_window_sums`) and every
 accept/reject decision stay in exact host integers.
 
-A cold device call is three kernels (csrc/), each with its plain PyTorch
-version beside its wrapper:
+A cold device call is three kernels, or four (csrc/), each with its plain
+PyTorch version beside its wrapper:
 
   K1 `expand_compressed` (ops/torch_decompress.py) — compressed wire →
-     extended points, when the points come compressed;
+     extended points, when the points come compressed; then, when the
+     host flagged lanes (hint bit 2: a fresh key's split-high lane), K7
+     `shift128_lanes` replaces each by [2^128] of itself in place;
   K2 `window_sums` (`window_partials`) — per 64-lane chunk, per window, the
      complete-addition sum of the selected table entries, with the packed
      digits decoded in the load;
@@ -96,7 +98,8 @@ from . import torch_edwards as E
 from . import torch_field as F
 from .edwards import Point, shift128
 from .limbs import NLIMBS, NWINDOWS, PACKED_WINDOWS
-from .torch_decompress import expand_compressed_points
+from .torch_decompress import (expand_compressed_points, shift128_flagged,
+                               shift128_lanes)
 
 MASK128 = (1 << 128) - 1
 # Lanes per K2 block (csrc/window_sums.cu CHUNK), and threads per K3 block
@@ -1057,12 +1060,18 @@ def wire_of(points) -> str:
     return "extended"
 
 
-def expand_points(points, wire: "str | None" = None):
+def expand_points(points, wire: "str | None" = None,
+                  shift: "bool | None" = None):
     """Any batched point wire → (B, 4, NLIMBS, N) int16 extended points:
-    K1 for the compressed wire, K6 for the affine one."""
+    K1 for the compressed wire, then K7 on the same stream when the wire
+    carries a lane with the shift flag (`shift`, None: read from
+    `points` by `shift128_flagged`); K6 for the affine one."""
     wire = wire_of(points) if wire is None else wire
     if wire == "compressed":
-        return expand_compressed_points(points)
+        pts = expand_compressed_points(points)
+        if shift is None:
+            shift = shift128_flagged(points)
+        return shift128_lanes(points, pts) if shift else pts
     if wire == "affine":
         return expand_affine_points(points)
     return points
@@ -1132,11 +1141,14 @@ def window_sums_many(digits, points, *, window_bits: int = limbs.WINDOW_BITS,
         body = body_style()
     kernel_form("window_sums", window_bits, tbl_dtype, fold_dtype, body,
                 chunk, win_chunk, arith)
+    # Whether K7 runs is read from the operands where the host holds them.
+    shift = wire_of(points) == "compressed" and shift128_flagged(points)
     digits = as_tensor(digits, dev)
     points = as_tensor(points, dev)
     with DEVICE_CALL_LOCK:
         return fold_partials(window_partials(
-            digits, expand_points(points), window_bits=window_bits,
+            digits, expand_points(points, shift=shift),
+            window_bits=window_bits,
             tbl_dtype=tbl_dtype, fold_dtype=fold_dtype,
             win_chunk=win_chunk, body=body, chunk=chunk, arith=arith))
 
@@ -1184,7 +1196,8 @@ def dispatch_window_sums_many(digits, points, device=None):
     packed or (B, 33, N) int8 plain; points in any wire — (B, 33, N) uint8
     compressed, (B, 2, NLIMBS, N) int16 affine or (B, 4, NLIMBS, N) int16
     extended (numpy arrays or tensors) → (B, 4, NLIMBS, 33) int32 tensor on
-    `device`.  On CUDA: K1 (compressed) or K6 (affine), K2, K3.  Reads
+    `device`.  On CUDA: K1 (compressed; then K7 when a lane carries the
+    shift flag) or K6 (affine), K2, K3.  Reads
     ED25519_TPU_WIN_CHUNK and ED25519_TPU_PALLAS_BODY on every call, as
     the JAX package's dispatch does (ops/msm.py:518-541); unset, the
     default K2."""
@@ -1195,9 +1208,7 @@ def dispatch_window_sums(digits, points, device=None):
     """Single-batch form: (17|33, N) digits and (33, N) | (4, NLIMBS, N)
     points → (1, 4, NLIMBS, 33) tensor (combine_window_sums accepts the
     leading singleton)."""
-    dev = resolve_device(device)
-    return dispatch_window_sums_many(as_tensor(digits, dev)[None],
-                                     as_tensor(points, dev)[None], dev)
+    return dispatch_window_sums_many(digits[None], points[None], device)
 
 
 def dispatch_window_sums_many_cached(digits, head, rwire, device=None):

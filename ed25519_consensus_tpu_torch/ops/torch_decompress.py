@@ -11,9 +11,13 @@ host-computed hint and rebuilds x with exact field arithmetic:
 
 Wire: (B, 33, N) uint8 — rows 0..31 the little-endian encoding bytes (bit
 255 ignored; the sign is folded into `neg`), row 32 the hint byte (bit0 =
-flip, bit1 = neg).  y ≥ p non-canonical encodings (ZIP215-accepted) work
-unchanged because the arithmetic is congruent mod p; the canonical limbs
-out hold y mod p.
+flip, bit1 = neg, bit2 = shift: after expansion the lane becomes [2^128] of
+itself).  y ≥ p non-canonical encodings (ZIP215-accepted) work unchanged
+because the arithmetic is congruent mod p; the canonical limbs out hold y
+mod p.  K1 reads bits 0 and 1 only; K7 (`shift128_lanes`,
+csrc/shift128_lanes.cu) runs after it on the lanes whose bit 2 is set: 128
+doublings in place, so the host sends a fresh key's own encoding in its
+split-high lane instead of computing [2^128]A itself (batch.py).
 
 `expand_compressed_points` is the wrapper of kernel K1
 (csrc/expand_compressed.cu) on a CUDA tensor and runs
@@ -26,9 +30,11 @@ the earlier 20-limb kernel (the lab's `expand_compressed-l20`),
 whose plain version is the chain without the canonical step.
 """
 
+import numpy as np
 import torch
 
 from . import _cuda
+from . import torch_edwards as E
 from . import torch_field as F
 from .field import D, P, SQRT_M1
 from .limbs import LIMB_BITS, NLIMBS, int_to_limbs
@@ -39,6 +45,10 @@ _SQRTM1_LIMBS = [int(v) for v in int_to_limbs(SQRT_M1 % P)]
 # Lanes per step of the plain version: bounds the (20, 40, lanes) int32
 # product intermediates of torch_field.mul to ~26 MB.
 CHUNK_LANES = 8192
+# Hint bit 2: K7 replaces the lane's point by [2^128] of it, by
+# SHIFT128_DOUBLINGS doublings.
+SHIFT128_FLAG = 4
+SHIFT128_DOUBLINGS = 128
 
 
 def unpack_y_limbs(enc_bytes):
@@ -167,3 +177,72 @@ def expand_compressed_points(wire, arith: str = "u32"):
                      "expand_compressed-l20").launch(
             wire.device, wire.data_ptr(), out.data_ptr(), B, N)
     return out
+
+
+# -- K7: [2^128] of the flagged lanes --------------------------------------
+
+def shift128_flagged(wire) -> bool:
+    """Whether the compressed wire `wire` (a numpy array or a tensor, the
+    hint row at index -2 of its shape) carries a lane with the shift flag:
+    read where the bytes are on the host; a tensor on a card is taken as
+    flagged (K7 then returns at once on every lane without the flag), so
+    nothing waits on the card to decide."""
+    if isinstance(wire, torch.Tensor):
+        if wire.device.type != "cpu":
+            return True
+        return bool((wire[..., 32, :] & SHIFT128_FLAG).any())
+    return bool((np.asarray(wire)[..., 32, :] & SHIFT128_FLAG).any())
+
+
+def shift128_lanes_plain(wire, pts):
+    """Plain PyTorch version of K7: (B, 33, N) uint8 wire and K1's (B, 4,
+    NLIMBS, N) int16 points → a new points tensor whose lanes with hint
+    bit 2 hold [2^128]P: SHIFT128_DOUBLINGS torch_edwards.point_double
+    (the kernel's formula, so its residues), then canonical limbs; the
+    other lanes as they came."""
+    _check_shift_operands(wire, pts)
+    B, _, N = wire.shape
+    flags = (wire[:, 32].reshape(B * N) & SHIFT128_FLAG) != 0
+    idx = flags.nonzero().flatten()
+    flat = pts.permute(1, 2, 0, 3).reshape(4, NLIMBS, B * N).clone()
+    for lo in range(0, idx.numel(), CHUNK_LANES):
+        sel = idx[lo:lo + CHUNK_LANES]
+        p = flat[..., sel].to(torch.int32)
+        for _ in range(SHIFT128_DOUBLINGS):
+            p = E.point_double(p)
+        p = F.canonical_limbs20(p.movedim(1, 0)).movedim(0, 1)
+        flat[..., sel] = p.to(torch.int16)
+    return flat.reshape(4, NLIMBS, B, N).permute(2, 0, 1, 3).contiguous()
+
+
+def _check_shift_operands(wire, pts):
+    _check_wire(wire)
+    B, _, N = wire.shape
+    if pts.dtype != torch.int16 or tuple(pts.shape) != (B, 4, NLIMBS, N):
+        raise ValueError(
+            f"K7 points must be ({B}, 4, {NLIMBS}, {N}) int16 for a "
+            f"{tuple(wire.shape)} wire, got {tuple(pts.shape)} {pts.dtype}")
+    if pts.device != wire.device:
+        raise ValueError(f"wire on {wire.device}, points on {pts.device}")
+
+
+def shift128_lanes(wire, pts):
+    """K7 wrapper: (B, 33, N) uint8 wire and the (B, 4, NLIMBS, N) int16
+    points K1 expanded from it → the points with every lane whose hint
+    bit 2 is set replaced by [2^128]P (canonical limbs, Z ≠ 1).  Launches
+    csrc/shift128_lanes.cu on CUDA tensors, in place (the points tensor is
+    returned); runs `shift128_lanes_plain` on CPU tensors."""
+    _check_shift_operands(wire, pts)
+    if wire.device.type == "cpu":
+        return shift128_lanes_plain(wire, pts)
+    if wire.device.type != "cuda":
+        raise ValueError(f"unsupported device {wire.device}")
+    if not pts.is_contiguous():
+        raise ValueError("K7 updates the points in place: they must be "
+                         "contiguous")
+    wire = wire.contiguous()
+    B, _, N = wire.shape
+    if B * N:
+        _cuda.kernel("shift128_lanes").launch(
+            wire.device, wire.data_ptr(), pts.data_ptr(), B, N)
+    return pts

@@ -7,7 +7,8 @@ law is the same COMPLETE unified formula as the exact host implementation
 every input including identity padding, doublings, and 8-torsion points —
 no data-dependent branching anywhere.  `csrc/fe25519.cuh` `ge_add` is the
 same sequence of field ops, so kernel and plain version agree limb for
-limb.
+limb.  `point_double` is the dedicated doubling of the host's
+`Point.double` (and of K7, csrc/shift128_lanes.cu).
 """
 
 import torch
@@ -36,6 +37,30 @@ def point_add(p, q):
     H = F.add(B, A)
     return torch.stack(
         [F.mul(E, Fv), F.mul(G, H), F.mul(Fv, G), F.mul(E, H)])
+
+
+def point_double(p):
+    """Dedicated doubling (dbl-2008-hwcd, a = -1) on (4, NLIMBS, ...)
+    tensors; T1 is not read.  The formula of the host's `Point.double`
+    (ops/edwards.py), so every output coordinate is the host's residue,
+    and of csrc/fe25519_u32.cuh `ge8_dbl`.  Complete on Edwards25519
+    (a = -1 is a square and d is not), identity and torsion included.
+
+    A=X1², B=Y1², C=2·Z1², E=(X1+Y1)²-(A+B), G=B-A, F=G-C, H=-(A+B);
+    X3=EF, Y3=GH, Z3=FG, T3=EH.  The four squares are one torch_field.mul
+    over a stacked trailing axis, and so are the four products."""
+    X1, Y1, Z1 = p[0], p[1], p[2]
+    sq = torch.stack([X1, Y1, Z1, F.add(X1, Y1)], dim=-1)
+    A, B, zz, S = F.mul(sq, sq).unbind(-1)
+    C = F.add(zz, zz)
+    AB = F.add(A, B)
+    E = F.sub(S, AB)
+    G = F.sub(B, A)
+    Fv = F.sub(G, C)
+    H = F.sub(torch.zeros_like(AB), AB)
+    out = F.mul(torch.stack([E, G, Fv, E], dim=-1),
+                torch.stack([Fv, H, G, H], dim=-1))
+    return out.movedim(-1, 0)
 
 
 def identity_like(p):

@@ -15,7 +15,9 @@ the two designs agree as points.  K1 and K3 on the 8 x 32-bit
 arithmetic equal their plain versions (canonical limbs) and, as points,
 their 20-limb forms; so do K4, K5 and K6 (and each -l20 form its own
 plain version).  The self-test of the fe8 field arithmetic
-(probe_fe8) equals the exact-integer model word for word."""
+(probe_fe8) equals the exact-integer model word for word.  K7 on K1's
+output equals its plain version (canonical limbs), and a cold dispatch
+launches it only for a wire with a flagged lane."""
 
 import random
 
@@ -62,6 +64,39 @@ def test_expand_compressed_matches_plain(dev):
     torch.cuda.synchronize()
     assert _cuda.KERNELS["expand_compressed"].launches == before + 1
     assert torch.equal(got, want)
+
+
+def test_shift128_lanes_matches_plain(dev):
+    """K7 on 10,176 lanes (the ZIP215 matrix and non-canonical encodings
+    under their hints, then random points), every other lane flagged:
+    equal to its plain version after K1, max |diff| 0 (both write
+    canonical limbs), in place, one launch.  A cold dispatch launches K7
+    only when the host's wire carries a flagged lane."""
+    from ed25519_consensus_tpu_torch.utils import fixtures
+
+    N = 10_176
+    w = _wire(N, 91)
+    for j, e in enumerate(fixtures.non_canonical_point_encodings(),
+                          start=8):
+        w[:32, j] = np.frombuffer(e, dtype=np.uint8)
+        w[32, j] = edwards.decompress_with_hint(e)[1]
+    w[32, ::2] |= TD.SHIFT128_FLAG
+    wire = torch.from_numpy(w[None]).to(dev)
+    pts = TD.expand_compressed_points(wire)
+    want = TD.shift128_lanes_plain(wire, pts)
+    k7 = _cuda.KERNELS["shift128_lanes"]
+    before = k7.launches
+    got = TD.shift128_lanes(wire, pts)
+    torch.cuda.synchronize()
+    assert got is pts and k7.launches == before + 1
+    assert int((got.int() - want.int()).abs().max()) == 0
+    d = np.zeros((1, limbs.PACKED_WINDOWS, N), dtype=np.uint8)
+    plain_wire = w[None].copy()
+    plain_wire[:, 32] &= 3
+    for wire_np, n in ((plain_wire, 0), (w[None], 1)):
+        before = k7.launches
+        msm.dispatch_window_sums_many(d, wire_np, dev).cpu()
+        assert k7.launches == before + n
 
 
 @pytest.mark.parametrize("packed", [True, False])

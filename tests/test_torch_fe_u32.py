@@ -193,6 +193,51 @@ def test_complete_addition_matches_host_and_the_limb_arithmetic(neg):
                                 for c in range(4)]
 
 
+def test_doubling_matches_host_and_the_limb_arithmetic():
+    """ge8_dbl (K7's step) equals the host's Point.double coordinate for
+    coordinate mod p (the same formula: the doubling K7 takes 128 times)
+    and torch_edwards.point_double residue by residue, on the torsion
+    points, the identity, random multiples and projective points with
+    Z ≠ 1; its words and carries stay inside the model's checks."""
+    rng = random.Random(0xDB1)
+    pool = edwards.eight_torsion() + [edwards.Point(0, 1, 1, 0)] + [
+        edwards.basepoint_mul(rng.randrange(1, L)) for _ in range(6)]
+    pool += [edwards.shift128(p) for p in pool[-2:]]  # Z ≠ 1
+    pool.append(edwards.Point(0, P - 1, P - 1, 0))  # the identity, Z = −1
+    pts = torch.from_numpy(limbs.pack_point_batch(pool).astype("int32"))
+    lim = TE.point_double(pts).numpy()
+    for i, p in enumerate(pool):
+        got = M.ge8_dbl(_point_words(p))
+        for c in got:
+            _weak(c)
+        X, Y, Z, T = (M.value(c) % P for c in got)
+        want = p.double()
+        assert [X, Y, Z, T] == [c % P for c in (want.X, want.Y, want.Z,
+                                                want.T)]
+        assert edwards.Point(X, Y, Z, T) == p.add(p)
+        assert [X, Y, Z, T] == [limbs.limbs_to_int(lim[c, :, i]) % P
+                                for c in range(4)]
+
+
+def test_doubling_at_the_weak_bound():
+    """ge8_dbl on coordinates at the edges of the weak form (2^256 − 1,
+    p, p + 1, 2^255 − 1, ...): every output residue is the formula's, no
+    carry is lost."""
+    for x in EDGES[:6]:
+        for y in EDGES[-6:]:
+            for z in (EDGES[1], EDGES[-1]):
+                got = M.ge8_dbl([M.to_words(x), M.to_words(y),
+                                 M.to_words(z), None])
+                A, B = x * x % P, y * y % P
+                C = 2 * z * z % P
+                E = ((x + y) ** 2 - A - B) % P
+                G = (B - A) % P
+                F = (G - C) % P
+                H = (-A - B) % P
+                assert [_weak(c) % P for c in got] == [
+                    E * F % P, G * H % P, F * G % P, E * H % P]
+
+
 def test_selftest_plain_version_runs_the_model():
     """probe_fe8's plain version (ops/probes.py) on the self-test operands:
     every edge pair, the limbs20 edges; its blocks are the model's."""

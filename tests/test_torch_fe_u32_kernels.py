@@ -141,6 +141,40 @@ def test_tables_lane_equals_the_plain_k4(case):
         assert got == plain[..., j].reshape(msm.NTABLE, -1).tolist(), j
 
 
+def _k7_lanes():
+    """(4, 20, n) int16 K1 outputs: the identity, an 8-torsion point, a
+    non-canonical low-order encoding and two random points."""
+    encs = [edwards.Point(0, 1, 1, 0).compress(),
+            edwards.eight_torsion()[3].compress(),
+            fixtures.non_canonical_point_encodings()[2]]
+    rng = random.Random(0xE7)
+    while len(encs) < 5:
+        e = rng.getrandbits(256).to_bytes(32, "little")
+        if edwards.decompress(e) is not None:
+            encs.append(e)
+    w = np.zeros((1, 33, len(encs)), dtype=np.uint8)
+    for i, e in enumerate(encs):
+        w[0, :32, i] = np.frombuffer(e, dtype=np.uint8)
+        w[0, 32, i] = edwards.decompress_with_hint(e)[1] | TD.SHIFT128_FLAG
+    wire = torch.from_numpy(w)
+    return wire, TD.expand_compressed_points_plain(wire)
+
+
+def test_shift128_lane_equals_the_plain_k7():
+    """K7's body (the model: 128 ge8_dbl from K1's limbs) against
+    shift128_lanes_plain, limb for limb."""
+    wire, pts = _k7_lanes()
+    want = TD.shift128_lanes_plain(wire, pts)
+    for i in range(pts.shape[-1]):
+        lane = pts[0, ..., i].reshape(80).tolist()
+        assert M.shift128_lane(lane) == want[0, ..., i].reshape(80).tolist()
+
+
+def test_shift128_lane_refuses_a_short_lane():
+    with pytest.raises(ValueError):
+        M.shift128_lane([0] * 60)
+
+
 def test_tables_lane_refuses_a_short_lane():
     with pytest.raises(ValueError):
         M.tables_lane([0] * 79)

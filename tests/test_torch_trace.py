@@ -209,22 +209,35 @@ def test_device_call_runs_on_the_lane_worker(merged_call):
 
 
 def test_shift128_counters(merged_call, monkeypatch):
-    """One lookup per distinct key staged; a second call over the same
-    keys finds every one in `_shift128_cache`."""
+    """One lookup per distinct key staged.  A cold dispatch leaves every
+    key it did not find in `_shift128_cache` to the card (K7), so the
+    first call and a second over the same keys find none; the second
+    builds the union's residency, whose head holds every key's [2^128]A
+    and caches it, so a third finds every one, and its resident dispatch
+    leaves nothing to the card."""
     _, _, stats, batches = merged_call
     keys = {bytes(vk) for ents in batches for vk, _, _ in ents}
     assert stats["shift128_lookups"] == len(keys)
     assert stats["shift128_hits"] == 0  # fresh keys
+    assert stats["shift128_device"] == len(keys)
     monkeypatch.setenv("ED25519_TPU_MIN_LANES", "128")
     # The shape is warm now, so the first device call's budget would be
     # 3 × prior × 8 batches: a loaded CPU must not read as a seized device.
     monkeypatch.setenv("ED25519_TPU_EMA_PRIOR", "10.0")
-    out = batch.verify_many(verifiers(batches), rng=rng, device="cpu",
-                            hybrid=False, merge="always")
-    assert out == [i != BAD for i in range(N_BATCHES)]
-    st = batch.last_run_stats
-    assert st["shift128_lookups"] == len(keys)
-    assert st["shift128_hits"] == st["shift128_lookups"]
+    devcache.set_default_cache(devcache.DeviceOperandCache(enabled=True))
+    try:
+        seen = []
+        for _ in range(3):
+            out = batch.verify_many(verifiers(batches), rng=rng,
+                                    device="cpu", hybrid=False,
+                                    merge="always")
+            assert out == [i != BAD for i in range(N_BATCHES)]
+            st = batch.last_run_stats
+            assert st["shift128_lookups"] == len(keys)
+            seen.append((st["shift128_hits"], st["shift128_device"]))
+    finally:
+        devcache.set_default_cache(None)
+    assert seen == [(0, len(keys)), (0, len(keys)), (len(keys), 0)]
     assert metrics.drain_spans() == []  # the recorder was off
 
 
