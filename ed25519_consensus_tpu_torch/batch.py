@@ -1167,10 +1167,11 @@ class _DeviceLane:
             return self._started.get(cid)
 
     def wait(self, cid: int, timeout: float):
-        """(result array or None on device error, call seconds, error)
-        tuple, or _PENDING on timeout.  The deadline runs on the lane's
-        health clock; a VIRTUAL clock only advances explicitly, so the
-        wait polls in short real slices instead of sleeping."""
+        """(result array or None on device error, call seconds, error,
+        mesh counters) tuple, or _PENDING on timeout.  The deadline runs
+        on the lane's health clock; a VIRTUAL clock only advances
+        explicitly, so the wait polls in short real slices instead of
+        sleeping."""
         clock = self._clock
         end = clock.monotonic() + timeout
         with self._cv:
@@ -1210,19 +1211,20 @@ class _DeviceLane:
         self._q.put(None)
 
     def _dispatch(self, digits, pts, cached, tables, audit):
-        """(the chunk's fetch, its (batches, lanes, variant) shape key).
-        Variants: 0 cold, 1 resident-head, 2 resident-tables, 3 cold
-        audit."""
+        """(the chunk's fetch, its (batches, lanes, variant) shape key, the
+        dict its mesh dispatch fills with the mesh counters).  Variants: 0
+        cold, 1 resident-head, 2 resident-tables, 3 cold audit."""
         from .ops import msm as _msm
 
         dev = self._device
         n_batches, n_lanes = _chunk_shape(digits)
+        tally = {}
         if self._mesh:
             from .parallel import mesh as _mesh_lib
             from .parallel import sharded_msm as _sh
 
             kw = dict(clock=self._clock, device_ids=self._chips,
-                      devices=self._placement)
+                      devices=self._placement, tally=tally)
             if cached is not None:
                 dh, dr = digits
                 chips = _mesh_lib.shard_chips(self._placement, self._chips)
@@ -1269,7 +1271,7 @@ class _DeviceLane:
                     return call().cpu().numpy()
             return call().numpy()
 
-        return fetch, (n_batches, n_lanes, variant)
+        return fetch, (n_batches, n_lanes, variant), tally
 
     def _run(self):
         from .ops import msm as _msm
@@ -1295,14 +1297,15 @@ class _DeviceLane:
                     self._discarded.discard(cid)
                     continue
             t_call = None
+            tally = {}
             try:
                 with _msm.DEVICE_CALL_LOCK, _metrics.span(
                         "device_call", origin=origin):
                     t_call = clock.monotonic()
                     with self._cv:
                         self._started[cid] = t_call
-                    fetch, shape = self._dispatch(digits, pts, cached,
-                                                  tables, audit)
+                    fetch, shape, tally = self._dispatch(
+                        digits, pts, cached, tables, audit)
                     # Every device call passes through the fault seam (a
                     # no-op unless a faults.FaultPlan is installed).
                     out = np.asarray(_faults.run_device_call(
@@ -1333,7 +1336,7 @@ class _DeviceLane:
                 if cid in self._discarded:
                     self._discarded.discard(cid)
                 else:
-                    self._results[cid] = (out, call_dt, err)
+                    self._results[cid] = (out, call_dt, err, tally)
                     if err is not None:
                         self._held_error = cid
                 self._cv.notify_all()
@@ -1669,6 +1672,20 @@ def _rung_placement(mesh: int, device, chips, logical: bool = False
     return (_lane_device(device),)
 
 
+def _stats_chips(mesh: int, chips, placement) -> "list[int] | None":
+    """`last_run_stats["device_ids"]`: the chips the caller named or a
+    reformation chose; else, on a mesh, the chip of each shard of the
+    placement (mesh.shard_chips: a card's CUDA index, so a virtual mesh on
+    one card names it D times; a CPU shard's position); else None."""
+    if chips:
+        return list(chips)
+    if mesh and placement:
+        from .parallel import mesh as mesh_lib
+
+        return list(mesh_lib.shard_chips(placement))
+    return None
+
+
 @_metrics.spanned("verify_many", call=True)
 def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                 merge: str = "auto", mesh: "int | None" = None,
@@ -1888,7 +1905,7 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         "sigs": sum(v.batch_size for v in verifiers),
         "mesh": mesh,  # the resolved dispatch mode (0 = single device)
         "device": None if lane_dev is None else str(lane_dev),
-        "device_ids": list(chips) if chips else None,
+        "device_ids": _stats_chips(mesh, chips, placement),
         # Every reformation of this call: at entry (chips excluded before
         # dispatch) or mid-wave (a chip failed under an in-flight chunk,
         # whose undecided batches were re-issued on the reformed rung).
@@ -1935,7 +1952,21 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         "shift128_lookups": 0,
         "shift128_hits": 0,
         "shift128_device": 0,
+        # The mesh layer (parallel/sharded_msm.py), of the device calls
+        # counted in device_seconds: the host seconds of the per-shard
+        # copies and launches and of the gather to the lead device with
+        # K5, and the lanes each chip's shard dispatches carried.
+        "mesh_launch_seconds": 0.0,
+        "mesh_gather_seconds": 0.0,
+        "mesh_lanes": {},
     }
+
+    def add_mesh_tally(tally) -> None:
+        for key in ("mesh_launch_seconds", "mesh_gather_seconds"):
+            stats[key] += tally.get(key, 0.0)
+        lanes = stats["mesh_lanes"]
+        for chip, n in tally.get("mesh_lanes", {}).items():
+            lanes[chip] = lanes.get(chip, 0) + n
 
     def _publish():
         stats["seconds"] = _wall() - _t_begin
@@ -2384,7 +2415,7 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         ema_is_prior = True
         probed = False
         stats.update(mesh=new_mesh, device=str(lane_dev),
-                     device_ids=list(ids) if ids else None)
+                     device_ids=_stats_chips(new_mesh, ids, placement))
         stats["mesh_reformations"].append({
             "from": old_mesh, "to": new_mesh,
             "device_ids": list(ids) if ids else None,
@@ -2520,7 +2551,7 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                 fail(f"a device call on {stats['device']} missed its "
                      f"{budget:.1f} s deadline", None)
             outstanding.pop(0)
-            out, call_dt, err = res
+            out, call_dt, err, tally = res
             # A hedge pair resolves when its device leg lands: an errored
             # leg is always the twin's win.
             if out is None and rec.cid in hedged:
@@ -2530,6 +2561,7 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
                 on_device_error(rec.idxs, err)
             else:
                 stats["device_seconds"] += call_dt
+                add_mesh_tally(tally)
                 # Timing only: a hedged leg's duration counts too, though
                 # its result stays unread where the twin decided.
                 record_chunk_latency(call_dt)

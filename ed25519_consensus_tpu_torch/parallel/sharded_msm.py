@@ -23,6 +23,13 @@ that fed the fold (the sentinel audit recomputes one of them on the host),
 and the cached form takes a keyset head resident on every device of the
 placement, its digits on shard 0 only.
 
+Each dispatch records two spans (utils/metrics): `mesh.launch` around the
+per-shard copies and launches, `mesh.gather` around the copies to the
+first device and K5.  Into the caller's `tally` dict, when one is passed,
+it adds their host seconds as `mesh_launch_seconds` and
+`mesh_gather_seconds`, and the lanes each shard's dispatch carried as
+`mesh_lanes` ({chip id: batches × lanes}).
+
 Every dispatch passes the `faults.SITE_SHARDED` seam with the placement's
 chip ids as payload, so a fault can corrupt or kill one chip of the mesh.
 Chip ids are CUDA indices on cards (a virtual mesh on one card names that
@@ -35,6 +42,7 @@ from .. import config as _config
 from .. import faults as _faults
 from ..ops import msm as msm_lib
 from ..ops.edwards import Point
+from ..utils import metrics as _metrics
 from . import mesh as mesh_lib
 
 
@@ -64,6 +72,20 @@ def _on(dev, placement, chips):
         raise
 
 
+@contextmanager
+def _timed_span(name: str, tally, key: str):
+    """The span `name`, its host seconds added to `tally[key]`."""
+    with _metrics.span(name), _metrics.timed(
+            {} if tally is None else tally, key):
+        yield
+
+
+def _count_lanes(tally, chip: int, lanes: int) -> None:
+    if tally is not None:
+        per_chip = tally.setdefault("mesh_lanes", {})
+        per_chip[chip] = per_chip.get(chip, 0) + lanes
+
+
 def _gather_fold(parts, placement, chips, audit: bool):
     """The per-shard window sums copied to the first device and folded by
     K5 in mesh order: (B, 4, NLIMBS, 33), or with `audit` (1 + D, B, 4,
@@ -87,7 +109,7 @@ def _seam(fn, n_shards: int, clock, chips):
         _faults.SITE_SHARDED, fn, mesh=n_shards, clock=clock, payload=chips)
 
 
-def _sharded(digits, pts, placement, chips, audit: bool):
+def _sharded(digits, pts, placement, chips, audit: bool, tally):
     """The cold dispatch over `placement`: digits (B, 17 | 33, N), points
     in any wire with the lane axis last."""
     per = _per_shard(digits.shape[-1], len(placement), "digits")
@@ -96,16 +118,19 @@ def _sharded(digits, pts, placement, chips, audit: bool):
                          f"{pts.shape[-1]}")
     with msm_lib.DEVICE_CALL_LOCK:
         parts = []
-        for k, dev in enumerate(placement):
-            with _on(dev, placement, chips):
-                parts.append(msm_lib.dispatch_window_sums_many(
-                    digits[..., k * per:(k + 1) * per],
-                    pts[..., k * per:(k + 1) * per], dev))
-        return _gather_fold(parts, placement, chips, audit)
+        with _timed_span("mesh.launch", tally, "mesh_launch_seconds"):
+            for k, dev in enumerate(placement):
+                with _on(dev, placement, chips):
+                    parts.append(msm_lib.dispatch_window_sums_many(
+                        digits[..., k * per:(k + 1) * per],
+                        pts[..., k * per:(k + 1) * per], dev))
+                _count_lanes(tally, chips[k], digits.shape[0] * per)
+        with _timed_span("mesh.gather", tally, "mesh_gather_seconds"):
+            return _gather_fold(parts, placement, chips, audit)
 
 
 def sharded_window_sums_many(digits, pts, n_devices: int, clock=None,
-                             device_ids=None, devices=None):
+                             device_ids=None, devices=None, tally=None):
     """The mesh lane's cold dispatch: digits (B, 17 | 33, N), points in any
     wire (compressed (B, 33, N), affine (B, 2, NLIMBS, N), extended (B, 4,
     NLIMBS, N)), numpy arrays or tensors, N a multiple of D → (B, 4, NLIMBS,
@@ -115,28 +140,32 @@ def sharded_window_sums_many(digits, pts, n_devices: int, clock=None,
     mesh); otherwise shard k runs on `cuda:device_ids[k]` (a reformed
     mesh) or `cuda:k`.  The fault seam names each shard's chip
     (mesh.shard_chips: `device_ids` name a CPU placement's chips);
-    `clock` is the caller's health clock, for clock-aware faults."""
+    `clock` is the caller's health clock, for clock-aware faults;
+    `tally` the caller's dict of the mesh counters (module docstring)."""
     placement = mesh_lib.batch_mesh(n_devices, devices, device_ids)
     chips = mesh_lib.shard_chips(placement, device_ids)
-    return _seam(lambda: _sharded(digits, pts, placement, chips, False),
+    return _seam(lambda: _sharded(digits, pts, placement, chips, False,
+                                  tally),
                  len(placement), clock, chips)
 
 
 def sharded_window_sums_many_audit(digits, pts, n_devices: int,
                                    clock=None, device_ids=None,
-                                   devices=None):
+                                   devices=None, tally=None):
     """The sentinel-audit form of `sharded_window_sums_many`: (1 + D, B, 4,
     NLIMBS, 33) — index 0 the folded sums (equal to the plain form's), then
     shard k's window sums in mesh order, the very tensors the fold took."""
     placement = mesh_lib.batch_mesh(n_devices, devices, device_ids)
     chips = mesh_lib.shard_chips(placement, device_ids)
-    return _seam(lambda: _sharded(digits, pts, placement, chips, True),
+    return _seam(lambda: _sharded(digits, pts, placement, chips, True,
+                                  tally),
                  len(placement), clock, chips)
 
 
 def sharded_window_sums_many_cached(head_digits, r_digits, head, rwire,
                                     n_devices: int, clock=None,
-                                    device_ids=None, devices=None):
+                                    device_ids=None, devices=None,
+                                    tally=None):
     """The mesh lane's dispatch for a keyset whose head is resident:
 
     * head_digits (B, 17 | 33, D·n_head): shard k takes columns
@@ -176,18 +205,24 @@ def sharded_window_sums_many_cached(head_digits, r_digits, head, rwire,
 
         with msm_lib.DEVICE_CALL_LOCK:
             parts = []
-            for k, dev in enumerate(placement):
-                with _on(dev, placement, chips):
-                    digits = torch.cat([
-                        msm_lib.as_tensor(head_digits[
-                            ..., k * n_head:(k + 1) * n_head], dev),
-                        msm_lib.as_tensor(
-                            r_digits[..., k * per_r:(k + 1) * per_r], dev)],
-                        dim=-1)
-                    parts.append(msm_lib.dispatch_window_sums_many_cached(
-                        digits, head_on(dev),
-                        rwire[..., k * per_r:(k + 1) * per_r], dev))
-            return _gather_fold(parts, placement, chips, False)
+            with _timed_span("mesh.launch", tally, "mesh_launch_seconds"):
+                for k, dev in enumerate(placement):
+                    with _on(dev, placement, chips):
+                        digits = torch.cat([
+                            msm_lib.as_tensor(head_digits[
+                                ..., k * n_head:(k + 1) * n_head], dev),
+                            msm_lib.as_tensor(r_digits[
+                                ..., k * per_r:(k + 1) * per_r], dev)],
+                            dim=-1)
+                        parts.append(
+                            msm_lib.dispatch_window_sums_many_cached(
+                                digits, head_on(dev),
+                                rwire[..., k * per_r:(k + 1) * per_r],
+                                dev))
+                    _count_lanes(tally, chips[k],
+                                 r_digits.shape[0] * (n_head + per_r))
+            with _timed_span("mesh.gather", tally, "mesh_gather_seconds"):
+                return _gather_fold(parts, placement, chips, False)
 
     return _seam(run, D, clock, chips)
 
