@@ -218,21 +218,21 @@ _KEYSET_BLOB_CACHE_MAX = 64
 
 
 def _key_rows_for(keys) -> "bytes | None":
-    """Concatenated raw 128-byte rows for `keys`, via the cache; misses
-    are decompressed in one native call.  None if any key fails ZIP215
-    decompression (the batch rejects)."""
-    rows = [_key_row_cache.get(k.to_bytes()) for k in keys]
+    """Concatenated raw 128-byte rows for `keys` (32-byte encodings), via
+    the cache; misses are decompressed in one native call.  None if any
+    key fails ZIP215 decompression (the batch rejects)."""
+    rows = [_key_row_cache.get(k) for k in keys]
     missing = [i for i, r in enumerate(rows) if r is None]
     if missing:
         raw, ok, _ = _decompress(
-            b"".join(keys[i].to_bytes() for i in missing), len(missing))
+            b"".join(keys[i] for i in missing), len(missing))
         if not ok.all():
             return None
         for j, i in enumerate(missing):
             row = raw[j].tobytes()
             if len(_key_row_cache) >= _KEY_ROW_CACHE_MAX:
                 _evict_one(_key_row_cache)
-            _key_row_cache[keys[i].to_bytes()] = row
+            _key_row_cache[keys[i]] = row
             rows[i] = row
     return b"".join(rows)
 
@@ -257,8 +257,7 @@ def _split_operands_for(keys) -> "tuple | None":
     if len(keys) > _HOST_SPLIT_CACHE_MAX:
         return None  # more recurring keys than the cache holds: thrash
     entries = []
-    for k in keys:
-        kb = k.to_bytes()
+    for kb in keys:
         e = _host_split_cache.get(kb)
         if e is None:
             if kb not in _seen_keys:
@@ -283,8 +282,8 @@ def _split_operands_for(keys) -> "tuple | None":
 
 
 def _keyset_operands_for(keys_t: tuple):
-    """(key_rows, split) for an ordered keyset via the blob cache; None
-    when a key fails decompression."""
+    """(key_rows, split) for an ordered keyset of 32-byte encodings via
+    the blob cache; None when a key fails decompression."""
     cached = _keyset_blob_cache.get(keys_t)
     if cached is not None:
         return cached
@@ -588,19 +587,21 @@ class Verifier:
     """A batch verification context (reference src/batch.rs:110-218).
 
     `signatures` is the public coalescing map, vk_bytes -> [(k, sig), ...]
-    in first-seen key order; `k` is an int (`queue`) or a 32-byte
-    little-endian buffer (`queue_bulk`'s one-native-call hash path).  The
-    map is LAZY: queued entries park in `_pending` and materialize on
-    first access.  Queueing also appends to flat queue-order buffers (s,
-    R, challenge and an int32 group id per signature), which staging
-    consumes without regrouping.  Handing the map out (reading or
-    assigning `signatures`) makes it authoritative: an outside reference
-    could change it without changing its size, so staging then takes the
-    grouped walk over the map."""
+    in first-seen key order, `k` the challenge's 32-byte little-endian
+    encoding.  The queue is kept as columns, its only record: flat
+    queue-order buffers of R, s and the challenge, an int32 group id per
+    signature, and the key index (raw 32-byte key -> group id, in
+    first-seen order).  Staging consumes them without regrouping, and no
+    per-signature object outlives queueing.  The map is LAZY: it is
+    rebuilt from the columns' last `_unbuilt` entries when something asks
+    for it.  Handing the map out (reading or assigning `signatures`)
+    makes it authoritative: an outside reference could change it without
+    changing its size, so staging then takes the grouped walk over the
+    map."""
 
     def __init__(self):
         self._sig_map = {}
-        self._pending = []
+        self._unbuilt = 0
         self._map_exposed = False
         self.batch_size = 0
         self._s_buf = bytearray()
@@ -609,6 +610,8 @@ class Verifier:
         self._gid = _array.array("i")
         self._key_index = {}
         self._invalid = None
+        # Signatures queued by `queue_bulk`'s one-native-call path.
+        self._columnar_sigs = 0
 
     @property
     def signatures(self):
@@ -619,28 +622,34 @@ class Verifier:
     @signatures.setter
     def signatures(self, value):
         self._sig_map = value
-        self._pending = []
+        self._unbuilt = 0
         self._map_exposed = True
 
     def _materialized(self):
-        """The coalescing map with pending entries folded in, WITHOUT
+        """The coalescing map with the unbuilt entries folded in, WITHOUT
         marking it exposed (in-package readers that neither mutate nor
         leak it)."""
-        if self._pending:
+        if self._unbuilt:
             self._materialize()
         return self._sig_map
 
     def _materialize(self) -> None:
-        pending, self._pending = self._pending, []
+        """Fold the columns' last `_unbuilt` entries into the map: one
+        `VerificationKeyBytes` a distinct key, in first-seen order."""
+        start = len(self._gid) - self._unbuilt
+        self._unbuilt = 0
+        keys = list(self._key_index)
+        vkbs = {}
         sd = self._sig_map.setdefault
-        for vkbs, sigs, ks in pending:
-            if isinstance(ks, (bytes, bytearray, memoryview)):
-                kmv = memoryview(ks)
-                for i, (vkb, sig) in enumerate(zip(vkbs, sigs)):
-                    sd(vkb, []).append((kmv[32 * i: 32 * i + 32], sig))
-            else:
-                for vkb, sig, k in zip(vkbs, sigs, ks):
-                    sd(vkb, []).append((k, sig))
+        r, s, k = (bytes(b[32 * start:])
+                   for b in (self._r_buf, self._s_buf, self._k_buf))
+        for i, g in enumerate(self._gid[start:]):
+            vkb = vkbs.get(g)
+            if vkb is None:
+                vkb = vkbs[g] = VerificationKeyBytes(keys[g])
+            o = 32 * i
+            sd(vkb, []).append((k[o: o + 32],
+                                Signature(r[o: o + 32], s[o: o + 32])))
 
     def invalidate(self, reason: str = "invalidated") -> None:
         """Mark the WHOLE batch invalid out of band: every later
@@ -660,7 +669,7 @@ class Verifier:
         WITHOUT staging or exposing the map: the devcache content
         address."""
         if self._buffers_live():
-            return b"".join(k.to_bytes() for k in self._key_index)
+            return b"".join(self._key_index)
         return b"".join(k.to_bytes() for k in self._materialized())
 
     def content_payload(self) -> "bytes | None":
@@ -713,7 +722,7 @@ class Verifier:
         the fast staging path; an exposed source taints its clones)."""
         nv = Verifier()
         nv._sig_map = {k: list(v) for k, v in self._sig_map.items()}
-        nv._pending = list(self._pending)
+        nv._unbuilt = self._unbuilt
         nv._map_exposed = self._map_exposed
         nv.batch_size = self.batch_size
         nv._s_buf = bytearray(self._s_buf)
@@ -722,70 +731,63 @@ class Verifier:
         nv._gid = self._gid[:]
         nv._key_index = dict(self._key_index)
         nv._invalid = self._invalid
+        nv._columnar_sigs = self._columnar_sigs
         return nv
 
     def queue(self, item) -> None:
         """Queue an `Item` or `(vk_bytes, sig, msg)` tuple (reference
         src/batch.rs:127-137)."""
         item = _as_item(item)
-        self._pending.append(((item.vk_bytes,), (item.sig,), (item.k,)))
-        self.batch_size += 1
         ki = self._key_index
-        self._gid.append(ki.setdefault(item.vk_bytes, len(ki)))
+        self._gid.append(ki.setdefault(item.vk_bytes.to_bytes(), len(ki)))
         self._s_buf += item.sig.s_bytes
         self._r_buf += item.sig.R_bytes
         self._k_buf += item.k.to_bytes(32, "little")
+        self.batch_size += 1
+        self._unbuilt += 1
 
     @_metrics.spanned("queue_bulk")
     def queue_bulk(self, entries) -> None:
         """Queue many `(vk_bytes, sig, msg)` entries with ONE native call
-        for all the challenge hashes; the same result as `queue` in a
-        loop, which is what runs without the native runtime."""
+        for all the challenge hashes, straight into the columns: nothing
+        of an entry is kept but its bytes.  The same result as `queue` in
+        a loop, which is what runs without the native runtime."""
         entries = entries if isinstance(entries, list) else list(entries)
         if not entries:
             return
-        vkbs, sigs, msgs, ra_parts = [], [], [], []
-        for vkb, sig, msg in entries:
-            if not isinstance(vkb, VerificationKeyBytes):
-                vkb = VerificationKeyBytes(vkb)
-            vkbs.append(vkb)
-            sigs.append(sig)
-            msgs.append(msg)
-            ra_parts.append(sig.R_bytes)
-            ra_parts.append(vkb.to_bytes())
-        kblob = native.bulk_challenges(b"".join(ra_parts), msgs, raw=True)
+        vkbs, sigs, msgs = zip(*entries, strict=True)
+        keys = [k if type(k) is bytes and len(k) == 32
+                else VerificationKeyBytes(k).to_bytes() for k in vkbs]
+        rs = [sig.R_bytes for sig in sigs]
+        ra = [None] * (2 * len(rs))
+        ra[0::2] = rs
+        ra[1::2] = keys
+        kblob = native.bulk_challenges(b"".join(ra), msgs, raw=True)
         if kblob is NotImplemented:
-            for vkb, sig, msg in zip(vkbs, sigs, msgs):
-                self.queue(Item.new(vkb, sig, msg))
+            for entry in zip(keys, sigs, msgs):
+                self.queue(entry)
             return
-        self._pending.append((vkbs, sigs, kblob))
         ki = self._key_index
-        gid_append = self._gid.append
-        for vkb in vkbs:
-            gid_append(ki.setdefault(vkb, len(ki)))
-        self._r_buf += b"".join(ra_parts[0::2])
+        new = [k for k in dict.fromkeys(keys) if k not in ki]
+        ki.update(zip(new, range(len(ki), len(ki) + len(new))))
+        self._gid.fromlist(list(map(ki.__getitem__, keys)))
+        self._r_buf += b"".join(rs)
         self._s_buf += b"".join([sig.s_bytes for sig in sigs])
         self._k_buf += kblob
-        self.batch_size += len(entries)
+        self.batch_size += len(keys)
+        self._unbuilt += len(keys)
+        self._columnar_sigs += len(keys)
 
     # -- staging (host, exact) --------------------------------------------
 
     def _buffers_live(self) -> bool:
-        """True when the queue-order buffers are authoritative: the map
-        was never handed out, every buffer matches the queued count, and
-        every materialized key is one the queue path created."""
-        if self._map_exposed:
-            return False
+        """True when the queue-order columns are authoritative: the map
+        was never handed out and every column holds the queued count (the
+        map is only ever built from them otherwise)."""
         n = self.batch_size
-        if not (len(self._s_buf) == 32 * n and len(self._r_buf) == 32 * n
-                and len(self._k_buf) == 32 * n and len(self._gid) == n):
-            return False
-        if self._pending:
-            queued = sum(len(p[0]) for p in self._pending) + sum(
-                len(lst) for lst in self._sig_map.values())
-            return queued == n and all(
-                k in self._key_index for k in self._sig_map)
-        return len(self._key_index) == len(self._sig_map)
+        return (not self._map_exposed and len(self._gid) == n
+                and len(self._s_buf) == len(self._r_buf)
+                == len(self._k_buf) == 32 * n)
 
     def _stage(self, rng) -> "StagedBatch":
         """Host staging: decompress all points, enforce `s < ℓ`, sample
@@ -797,12 +799,12 @@ class Verifier:
         if self._invalid is not None:
             raise InvalidSignature()
         if self._buffers_live():
-            keys = list(self._key_index)
+            key_bytes = list(self._key_index)
             r_blob = bytes(self._r_buf)
             s_buf, k_buf, gid = self._s_buf, self._k_buf, self._gid
         else:
             groups = list(self._materialized().items())
-            keys = [vkb for vkb, _ in groups]
+            key_bytes = [vkb.to_bytes() for vkb, _ in groups]
             r_blob = b"".join(sig.R_bytes for _, sigs in groups
                               for _, sig in sigs)
             s_buf = b"".join(sig.s_bytes for _, sigs in groups
@@ -813,8 +815,7 @@ class Verifier:
             gid = _array.array("i", (g for g, (_, sigs) in enumerate(groups)
                                      for _ in sigs))
         n = len(gid)
-        m = len(keys)
-        key_bytes = [k.to_bytes() for k in keys]
+        m = len(key_bytes)
         keyset_blob = b"".join(key_bytes)
         blob = keyset_blob + r_blob
         raw, ok, hints = _decompress(blob, m + n)
@@ -1393,38 +1394,36 @@ _MERGE_MAX_BATCH = 2048
 def merge_verifiers(group) -> "Verifier":
     """One union Verifier over many (grouping by key coalesces across
     batches; challenges were computed at queue time, so merging is pure
-    dict work).  Queue-order buffers merge too (byte concat + a per-key
-    group-id remap), so unions keep the fast staging path; members with
-    inconsistent buffers leave the union on the grouped walk."""
+    dict work).  When every member's columns are live the union is
+    columnar too (byte concat + a per-key group-id remap), so it keeps the
+    fast staging path and its map stays unbuilt; otherwise the members'
+    maps merge and the union takes the grouped walk."""
     group = list(group)
     u = Verifier()
     for v in group:
         if v._invalid is not None:
             u._invalid = v._invalid  # an invalid member fails the union
             break
-    buffers_ok = all(v._buffers_live() for v in group)
-    if buffers_ok and all(not v._sig_map for v in group):
-        for v in group:
-            u._pending.extend(v._pending)
-            u.batch_size += v.batch_size
-    else:
-        um = u._materialized()
+    u.batch_size = sum(v.batch_size for v in group)
+    if not all(v._buffers_live() for v in group):
+        um = u._sig_map
         for v in group:
             for vkb, sigs in v._materialized().items():
                 um.setdefault(vkb, []).extend(sigs)
-            u.batch_size += v.batch_size
-    if buffers_ok:
-        ki = u._key_index
-        for v in group:
-            lut = np.empty(max(1, len(v._key_index)), np.int32)
-            for vkb, g in v._key_index.items():
-                lut[g] = ki.setdefault(vkb, len(ki))
-            u._s_buf += v._s_buf
-            u._r_buf += v._r_buf
-            u._k_buf += v._k_buf
-            if len(v._gid):
-                remapped = lut[np.frombuffer(v._gid, dtype=np.int32)]
-                u._gid.frombytes(remapped.astype(np.int32).tobytes())
+        return u
+    ki = u._key_index
+    for v in group:
+        lut = np.empty(max(1, len(v._key_index)), np.int32)
+        for kb, g in v._key_index.items():
+            lut[g] = ki.setdefault(kb, len(ki))
+        u._s_buf += v._s_buf
+        u._r_buf += v._r_buf
+        u._k_buf += v._k_buf
+        if len(v._gid):
+            remapped = lut[np.frombuffer(v._gid, dtype=np.int32)]
+            u._gid.frombytes(remapped.astype(np.int32).tobytes())
+        u._columnar_sigs += v._columnar_sigs
+    u._unbuilt = u.batch_size
     return u
 
 
@@ -1824,6 +1823,7 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
             stats.update(
                 batches=len(verifiers),
                 sigs=sum(v.batch_size for v in verifiers),
+                queue_columnar_sigs=sum(v._columnar_sigs for v in verifiers),
                 merged_unions=len(groups),
                 host_unions=stats.pop("host_batches", 0),
                 device_unions=stats.pop("device_batches", 0),
@@ -1903,6 +1903,8 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
     stats = {
         "batches": len(verifiers),
         "sigs": sum(v.batch_size for v in verifiers),
+        # Of those, the signatures `queue_bulk` queued in one native call.
+        "queue_columnar_sigs": sum(v._columnar_sigs for v in verifiers),
         "mesh": mesh,  # the resolved dispatch mode (0 = single device)
         "device": None if lane_dev is None else str(lane_dev),
         "device_ids": _stats_chips(mesh, chips, placement),

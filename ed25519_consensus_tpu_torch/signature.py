@@ -21,11 +21,17 @@ class Signature:
     @classmethod
     def from_bytes(cls, data) -> "Signature":
         """Parse a 64-byte encoding (reference `From<[u8;64]>` /
-        `TryFrom<&[u8]>`, src/signature.rs:22-46)."""
-        data = bytes(data)
+        `TryFrom<&[u8]>`, src/signature.rs:22-46).  One copy at most (of
+        a non-`bytes` input) and one length check: the halves of a 64-byte
+        string are 32 bytes each, so `__init__`'s checks are skipped."""
+        if type(data) is not bytes:
+            data = bytes(data)
         if len(data) != 64:
             raise InvalidSliceLength()
-        return cls(data[0:32], data[32:64])
+        sig = object.__new__(cls)
+        sig.R_bytes = data[:32]
+        sig.s_bytes = data[32:]
+        return sig
 
     def to_bytes(self) -> bytes:
         return self.R_bytes + self.s_bytes
