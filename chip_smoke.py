@@ -56,7 +56,7 @@ card, drives the port's two paths, and times the kernels.
   the default ones (fe25519_u32.cuh) on the main path's operands; the
   self-test of their field arithmetic (probe_fe8) against the exact-
   integer model, with the SASS of each operation counted; the kernel
-  lab's sweep, the two knobs, the stage profile and the probes.
+  lab's sweep, the stage profile and the probes.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --stress-tables REPS SECONDS
@@ -2343,7 +2343,7 @@ def fresh_key_batch(n: int, rng, tamper: bool = False):
 def phase_shift128(report: dict, state: dict) -> None:
     """K7 (shift128_lanes) on a zcash.sync-shaped cold dispatch: one batch
     of 10,000 signatures under fresh keys, staged by
-    `device_operands_deferred` (every split-high lane flagged) and padded
+    `device_operands(defer=True)` (every split-high lane flagged) and padded
     to B = 8 with the identity wire, as verify_many(chunk=8) sends it.
     K7 on K1's output against its plain version (exact), timed in place
     beside its bound, K1 beside it; then that batch and a tampered copy
@@ -2360,12 +2360,12 @@ def phase_shift128(report: dict, state: dict) -> None:
     v = fresh_key_batch(ZCASH_SIGS, rng)
     staged = v._stage(random.Random(7))
     pad = msm.pad_lanes(staged.n_device_terms)
-    _, w0 = staged.device_operands_deferred(lambda n: pad)
+    _, w0 = staged.device_operands(lambda n: pad, defer=True)
     w = np.stack([w0] + [limbs.identity_wire_batch(pad)] * (STACK_B - 1))
     flagged = int(((w[:, 32] & TD.SHIFT128_FLAG) != 0).sum())
-    if flagged != staged.shift128_device or flagged != ZCASH_SIGS:
-        raise AssertionError(f"{flagged} flagged lanes for "
-                             f"{staged.shift128_device} deferred keys")
+    if flagged != ZCASH_SIGS or staged.shift128_hits:
+        raise AssertionError(f"{flagged} flagged lanes for {ZCASH_SIGS} "
+                             f"fresh keys, {staged.shift128_hits} cached")
     wire = torch.from_numpy(w).to(DEV)
     pts = TD.expand_compressed_points(wire)
     want = TD.shift128_lanes_plain(wire, pts.clone())
@@ -3437,6 +3437,22 @@ class Report(dict):
         return row
 
 
+def built_symbols() -> set:
+    """Every kernel the sources emit, as ptxas names it: a window-sum
+    instantiation's every-window kernel, its any-W kernel or both
+    (`_cuda.BLOCK_FORMS`), every other instantiation's one kernel."""
+    from ed25519_consensus_tpu_torch.ops import _cuda
+
+    out = set()
+    for base in _cuda.INSTANTIATIONS:
+        form = (_cuda.BLOCK_FORMS.get(base, "both")
+                if base.startswith("window_") else "all")
+        out |= {_cuda.kernel_symbol(base, suffix)
+                for suffix, f in (("", "all"), ("-w1", "w"))
+                if form in (f, "both")}
+    return out
+
+
 def add_launches(report: dict, counts: dict) -> None:
     for name, n in counts.items():
         if n:
@@ -3586,72 +3602,6 @@ def phase_variants(report: dict, state: dict) -> None:
                    spill_bytes=u.get("spill_stores", 0)
                    + u.get("spill_loads", 0) if u else None)
     print(json.dumps(sweep), flush=True)
-
-
-def phase_knobs(report: dict, state: dict) -> None:
-    """The main path's two kernel knobs: the stacked B = 8 zcash10k call
-    (`dispatch_window_sums_many`) under ED25519_TPU_WIN_CHUNK=11 and under
-    ED25519_TPU_PALLAS_BODY=hybrid, and the zcash10k resident-tables
-    dispatch under ED25519_TPU_WIN_CHUNK=11, each with the launch counts
-    set to 0 just before it and read just after: each must run the
-    matching instantiation (the 20-limb kernels, `-l20`: the default K2 and
-    K2t hold no other form) and not the default, give window sums equal to
-    the unset knobs' as points (another order of additions), and verdicts
-    equal to the host's."""
-    import torch
-
-    from ed25519_consensus_tpu_torch.config import override
-    from ed25519_consensus_tpu_torch.ops import _cuda, limbs, msm
-    from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
-
-    digits, wire = state["stack"]
-    t_digits, t_head, t_rwire = state["tables_operands"]
-    want = msm.dispatch_window_sums_many(digits, wire, DEV)
-    want_t = msm.dispatch_window_sums_many_tables(t_digits, t_head, t_rwire,
-                                                  DEV)
-    cases = (
-        ({"ED25519_TPU_WIN_CHUNK": "11"}, "stacked", "window_sums-l20-w11",
-         "window_sums"),
-        ({"ED25519_TPU_PALLAS_BODY": "hybrid"}, "stacked",
-         "window_sums-hybrid", "window_sums"),
-        ({"ED25519_TPU_WIN_CHUNK": "11"}, "tables",
-         "window_sums_tables-l20-w11", "window_sums_tables"),
-    )
-    for env, path, kname, default in cases:
-        with override(**env):
-            _cuda.reset_launch_counts()
-            if path == "stacked":
-                ws = msm.dispatch_window_sums_many(digits, wire, DEV)
-            else:
-                ws = msm.dispatch_window_sums_many_tables(
-                    t_digits, t_head, t_rwire, DEV)
-            sync()
-            counts = _cuda.launch_counts()
-        add_launches(report, counts)
-        ref = (want if path == "stacked" else want_t).cpu().numpy()
-        host = ws.cpu().numpy()
-        same = all(limbs.unpack_point(host[b, ..., w]) ==
-                   limbs.unpack_point(ref[b, ..., w])
-                   for b in range(host.shape[0]) for w in range(33))
-        oks = [msm.combine_window_sums(host[b:b + 1]).mul_by_cofactor()
-               .is_identity() for b in range(host.shape[0])]
-        log(f"knob {env} on the {path} B={host.shape[0]} call: launches "
-            f"{ {k: v for k, v in counts.items() if v} }; window sums equal "
-            f"the default's as points: {same}; accepts {oks}")
-        if DEV != "cpu" and (counts.get(kname, 0) != 1
-                             or counts.get(default, 0)):
-            raise AssertionError(f"knob {env} did not run {kname} alone")
-        if not same or not all(oks):
-            raise AssertionError(f"knob {env}: window sums or verdicts "
-                                 f"differ from the default's and the host's")
-    # the hybrid body's kernel row: the stacked call's operands
-    d = torch.from_numpy(digits).to(DEV)
-    pts = TD.expand_compressed_points(torch.from_numpy(wire).to(DEV))
-    nchunk = -(-pts.shape[-1] // 64)
-    hold_row(report, "window_sums-hybrid",
-             lambda: msm.window_partials(d, pts, body="hybrid"),
-             lambda: msm.window_partials_plain(d, pts, body="hybrid"),
-             k2_work(d, nchunk))
 
 
 def phase_profile_ledger(report: dict, state: dict) -> None:
@@ -4250,7 +4200,6 @@ def main() -> int:
     timed(phase_old_new, report, state)
     timed(phase_fe8, report, state)
     timed(phase_variants, report, state)
-    timed(phase_knobs, report, state)
     timed(phase_profile_ledger, report, state)
     timed(phase_probes, report, state)
     from ed25519_consensus_tpu_torch import batch
@@ -4262,11 +4211,12 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]
     rows = [row for row in report.values() if row["launches"]]
-    launched = {_cuda.base_of(row["name"]) for row in rows}
-    never = sorted(set(_cuda.INSTANTIATIONS) - launched)
+    launched = {_cuda.kernel_symbol(base, row["name"][len(base):])
+                for row in rows for base in [_cuda.base_of(row["name"])]}
+    never = sorted(built_symbols() - launched)
     untimed = [row["name"] for row in rows if any(k not in row for k in keys)]
     if never or untimed:
-        raise AssertionError(f"instantiations never launched on a path: "
+        raise AssertionError(f"kernels built but never launched on a path: "
                              f"{never}; kernels launched but not held and "
                              f"timed: {untimed}")
     log(f"total {time.perf_counter() - t0:.1f} s")

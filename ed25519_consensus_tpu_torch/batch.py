@@ -307,7 +307,7 @@ class StagedBatch:
       [2^128]·point split terms (basepoint constant + per-key cache).  An
       entry given as None (a key staging did not find in
       `_shift128_cache`) is computed, and cached, when `coeff_shifts` is
-      first read; `device_operands_deferred` never reads it, and leaves
+      first read; `device_operands(defer=True)` never reads it, and leaves
       that key's [2^128]A to the card (K7).
     * z_blob: the n per-signature 128-bit blinders as 16-byte
       little-endian rows (bytes, n×16).
@@ -319,13 +319,11 @@ class StagedBatch:
     * keyset_blob: the 32-byte key encodings in group-id order, the
       content address of the device operand cache.
     * shift128_hits: how many of the keys' [2^128]A triples staging found
-      in `_shift128_cache` (one lookup per key).
-    * shift128_device: how many keys' [2^128]A the last
-      `device_operands_deferred` left to the card (0 before one)."""
+      in `_shift128_cache` (one lookup per key)."""
 
     __slots__ = ("coeffs", "_coeff_shifts", "_deferred", "z_blob",
                  "raw_points", "enc32", "hints", "keyset_blob",
-                 "shift128_hits", "shift128_device")
+                 "shift128_hits")
 
     def __init__(self, coeffs, coeff_shifts, z_blob, raw_points,
                  enc32, hints, keyset_blob=None, shift128_hits=0):
@@ -342,7 +340,6 @@ class StagedBatch:
         self.hints = hints
         self.keyset_blob = keyset_blob
         self.shift128_hits = shift128_hits
-        self.shift128_device = 0
 
     @property
     def coeff_shifts(self) -> list:
@@ -453,44 +450,8 @@ class StagedBatch:
             list(self.coeffs) + zints,
             [_point_from_row(r) for r in self.raw_points])
 
-    def _split_digits(self, pad_fn):
-        """(digits, hi_j, N): the digit planes of `device_operands`'s lane
-        layout ([coeffs..., split-highs..., R's...], padded by `pad_fn` to
-        N lanes, in the digit wire) and the coefficient index of each
-        split-high lane."""
-        mask = (1 << 128) - 1
-        lo = [c & mask for c in self.coeffs]
-        hi_j = [j for j, c in enumerate(self.coeffs) if c >> 128]
-        n_coeff = len(lo)
-        n_head = n_coeff + len(hi_j)
-        n = n_head + self.n_sigs
-        N = pad_fn(n)
-        digits = np.zeros((limbs.NWINDOWS, N), dtype=np.int8)
-        digits[:, :n_coeff] = limbs.pack_scalar_windows(lo)
-        if hi_j:
-            digits[:, n_coeff:n_head] = limbs.pack_scalar_windows(
-                [self.coeffs[j] >> 128 for j in hi_j])
-        if self.n_sigs:
-            zb = np.frombuffer(self.z_blob, dtype=np.uint8).reshape(
-                self.n_sigs, 16)
-            digits[:, n_head:n] = limbs.pack_u128_windows(zb)
-        return _digits_for_wire(digits), hi_j, N
-
-    def _wire_head(self, N: int):
-        """The compressed wire of N lanes with the coefficient lanes
-        filled ([B, A_0..A_{m-1}] encodings and hints) and the identity
-        elsewhere."""
-        m = len(self.coeffs) - 1  # distinct keys among the coefficients
-        w = limbs.identity_wire_batch(N)
-        b_enc, b_hint = _basepoint_wire()
-        w[:32, 0] = np.frombuffer(b_enc, dtype=np.uint8)
-        w[32, 0] = b_hint
-        if m:
-            w[:32, 1:m + 1] = self.enc32[:m].T
-            w[32, 1:m + 1] = self.hints[:m]
-        return w
-
-    def device_operands(self, pad_fn, wire: "str | None" = None):
+    def device_operands(self, pad_fn, wire: "str | None" = None, *,
+                        defer: bool = False):
         """The padded device operands: signed digit planes — (17, N) uint8
         nibble-packed, or (33, N) int8 with ED25519_TPU_DIGIT_WIRE=plain —
         and the point wire (`wire`, default ED25519_TPU_WIRE):
@@ -501,71 +462,70 @@ class StagedBatch:
           are rebuilt on the device (K6), 80 B/term — also the wire of a
           batch whose staging captured no encodings.
 
-        Coefficients split into 128-bit chunks against their cached shift
-        points (every one computed on the host: the JAX package's
-        operands, byte for byte; `device_operands_deferred` is the cold
-        paths' form).  Term order: [coeffs..., split-highs..., R's...];
-        padding terms are digit 0 on the wire's identity."""
+        Coefficients split into 128-bit chunks against their shift points.
+        By default every shift point is the host's (the JAX package's
+        operands, byte for byte).  With `defer` (the cold paths' form), on
+        the compressed wire, every [2^128]A that staging did not find
+        cached is left to the card: that key's split-high lane carries the
+        key's own encoding and its hint with bit 2 set
+        (torch_decompress.SHIFT128_FLAG), which K7 turns into [2^128]A
+        right after K1 expands it; on the affine wire, which has no flag,
+        `defer` changes nothing.  Term order: [coeffs..., split-highs...,
+        R's...]; padding terms are digit 0 on the wire's identity."""
         if wire is None:
             wire = _device_wire_mode()
         if self.enc32 is None or self.hints is None:
             wire = "affine"  # staging captured no encodings
-        digits, hi_j, N = self._split_digits(pad_fn)
-        shifts = self.coeff_shifts
-        hi_p = [shifts[j] for j in hi_j]
+        defer = defer and wire != "affine"  # the affine wire has no flag
+        mask = (1 << 128) - 1
+        hi_j = [j for j, c in enumerate(self.coeffs) if c >> 128]
         n_coeff = len(self.coeffs)
         n_head = n_coeff + len(hi_j)
         n = n_head + self.n_sigs
+        N = pad_fn(n)
+        digits = np.zeros((limbs.NWINDOWS, N), dtype=np.int8)
+        digits[:, :n_coeff] = limbs.pack_scalar_windows(
+            [c & mask for c in self.coeffs])
+        if hi_j:
+            digits[:, n_coeff:n_head] = limbs.pack_scalar_windows(
+                [self.coeffs[j] >> 128 for j in hi_j])
+        if self.n_sigs:
+            zb = np.frombuffer(self.z_blob, dtype=np.uint8).reshape(
+                self.n_sigs, 16)
+            digits[:, n_head:n] = limbs.pack_u128_windows(zb)
+        digits = _digits_for_wire(digits)
         if wire == "affine":
+            shifts = self.coeff_shifts
             pts = limbs.identity_affine_batch(N)
             pts[..., :n_coeff] = limbs.pack_points_affine_from_raw(
                 self.raw_points[:n_coeff])
-            if hi_p:
+            if hi_j:
                 pts[..., n_coeff:n_head] = limbs.pack_point_affine_batch(
-                    [sp[0] for sp in hi_p]).astype(np.int16)
+                    [shifts[j][0] for j in hi_j]).astype(np.int16)
             pts[..., n_head:n] = limbs.pack_points_affine_from_raw(
                 self.raw_points[n_coeff:])
             return digits, pts
         m = n_coeff - 1  # distinct keys among the coefficient terms
-        w = self._wire_head(N)
-        for j, sp in enumerate(hi_p):
-            w[:32, n_coeff + j] = np.frombuffer(sp[1], dtype=np.uint8)
-            w[32, n_coeff + j] = sp[2]
-        w[:32, n_head:n] = self.enc32[m:].T
-        w[32, n_head:n] = self.hints[m:]
-        return digits, w
-
-    def device_operands_deferred(self, pad_fn):
-        """`device_operands`'s digits and lane layout on the compressed
-        wire, with every [2^128]A that staging did not find cached left to
-        the card: that key's split-high lane carries the key's own
-        encoding and its hint with bit 2 set
-        (torch_decompress.SHIFT128_FLAG), which K7 turns into [2^128]A
-        right after K1 expands it.  A cached key's lane, and [2^128]B's,
-        carry the host's encoding as in `device_operands`.  Sets
-        `shift128_device` to the number of keys left to the card.  On the
-        affine wire (ED25519_TPU_WIRE, or a batch staged without
-        encodings), `device_operands` itself: that wire has no flag."""
-        from .ops.torch_decompress import SHIFT128_FLAG
-
-        if (self.enc32 is None or self.hints is None
-                or _device_wire_mode() != "compressed"):
-            self.shift128_device = 0
-            return self.device_operands(pad_fn)
-        digits, hi_j, N = self._split_digits(pad_fn)
-        n_coeff = len(self.coeffs)
-        n_head = n_coeff + len(hi_j)
-        n = n_head + self.n_sigs
-        m = n_coeff - 1
-        w = self._wire_head(N)
+        w = limbs.identity_wire_batch(N)
+        b_enc, b_hint = _basepoint_wire()
+        w[:32, 0] = np.frombuffer(b_enc, dtype=np.uint8)
+        w[32, 0] = b_hint
+        if m:
+            w[:32, 1:m + 1] = self.enc32[:m].T
+            w[32, 1:m + 1] = self.hints[:m]
         hi_j = np.asarray(hi_j, dtype=np.int64)
         lanes = n_coeff + np.arange(len(hi_j))
-        deferred = np.isin(hi_j, self._deferred)
+        deferred = defer & np.isin(hi_j, self._deferred)
         if deferred.any():
+            from .ops.torch_decompress import SHIFT128_FLAG
+
             keys = hi_j[deferred] - 1
             w[:32, lanes[deferred]] = self.enc32[keys].T
             w[32, lanes[deferred]] = self.hints[keys] | SHIFT128_FLAG
-        held = [self._coeff_shifts[j] for j in hi_j[~deferred].tolist()]
+        # A deferred key's triple may be None: read the others without
+        # filling it in.
+        shifts = self._coeff_shifts if defer else self.coeff_shifts
+        held = [shifts[j] for j in hi_j[~deferred].tolist()]
         if held:
             w[:32, lanes[~deferred]] = np.frombuffer(
                 b"".join(sp[1] for sp in held), dtype=np.uint8).reshape(
@@ -573,7 +533,6 @@ class StagedBatch:
             w[32, lanes[~deferred]] = [sp[2] for sp in held]
         w[:32, n_head:n] = self.enc32[m:].T
         w[32, n_head:n] = self.hints[m:]
-        self.shift128_device = len(self._deferred)
         return digits, w
 
 
@@ -927,7 +886,8 @@ class Verifier:
         with _metrics.timed(stage_seconds, "stage_host"):
             staged = self._stage(rng)
             if backend == "device":
-                digits, wire = staged.device_operands_deferred(msm.pad_lanes)
+                digits, wire = staged.device_operands(msm.pad_lanes,
+                                                      defer=True)
         if backend == "host":
             with _metrics.timed(stage_seconds, "msm_host"):
                 ok = staged.host_msm().mul_by_cofactor().is_identity()
@@ -957,7 +917,7 @@ class Verifier:
 
         dev = msm.resolve_device(device)
         staged = self._stage(rng)
-        digits, wire = staged.device_operands_deferred(msm.pad_lanes)
+        digits, wire = staged.device_operands(msm.pad_lanes, defer=True)
         return PendingVerification(
             msm.PendingMSM(msm.dispatch_window_sums(digits, wire, dev)))
 
@@ -1950,7 +1910,8 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         "seconds": 0.0,
         # Staging's [2^128]A lookups (one per key of every staged batch),
         # those `_shift128_cache` served, and those the cold dispatches
-        # left to the card (K7): on the cold paths hits + device = lookups.
+        # left to the card (the lanes flagged for K7): on the cold paths
+        # hits + device = lookups.
         "shift128_lookups": 0,
         "shift128_hits": 0,
         "shift128_device": 0,
@@ -2106,10 +2067,15 @@ def verify_many(verifiers, rng=None, chunk: int = 8, hybrid: bool = True,
         pad = max(shard_pad(s.n_device_terms, mesh) if mesh
                   else msm.pad_lanes(s.n_device_terms) for s in staged)
         with _metrics.span("stage.operands"):
-            ops = [s.device_operands_deferred(lambda n: pad) for s in staged]
+            ops = [s.device_operands(lambda n: pad, defer=True)
+                   for s in staged]
             digits, pts = pad_batch_axis(np.stack([d for d, _ in ops]),
                                          np.stack([p for _, p in ops]))
-        stats["shift128_device"] += sum(s.shift128_device for s in staged)
+        if pts.ndim == 3:  # the compressed wire, (B, 33, N): count flags
+            from .ops.torch_decompress import SHIFT128_FLAG
+
+            stats["shift128_device"] += int(np.count_nonzero(
+                pts[:, 32] & SHIFT128_FLAG))
         return idxs, digits, pts, None, None
 
     # Work-stealing pipeline.  The device lane is ONE worker thread that
@@ -2693,7 +2659,7 @@ def warm_device_shapes(verifier, rng=None, chunk: int = 8, device=None,
     except InvalidSignature:
         return
     pad = msm.pad_lanes(staged.n_device_terms)
-    d, p = staged.device_operands_deferred(lambda n: pad)
+    d, p = staged.device_operands(lambda n: pad, defer=True)
     with msm.DEVICE_CALL_LOCK:
         msm.dispatch_window_sums_many(
             np.stack([d] * chunk), np.stack([p] * chunk), dev).cpu()
@@ -2703,8 +2669,8 @@ def warm_device_shapes(verifier, rng=None, chunk: int = 8, device=None,
             if rung < 2:
                 break
             spad = sharded_msm.shard_pad(staged.n_device_terms, rung)
-            sd, sp = staged.device_operands_deferred(
-                lambda n, spad=spad: spad)
+            sd, sp = staged.device_operands(lambda n, spad=spad: spad,
+                                            defer=True)
             sharded_msm.sharded_window_sums_many(
                 np.stack([sd] * chunk), np.stack([sp] * chunk), rung,
                 devices=_rung_placement(rung, device, None)).cpu()
@@ -2760,7 +2726,7 @@ def run_probation_probe(verifier, chip: int, rng=None,
     expected = staged.host_msm()
     try:
         pad = msm.pad_lanes(staged.n_device_terms)
-        d, p = staged.device_operands_deferred(lambda n: pad)
+        d, p = staged.device_operands(lambda n: pad, defer=True)
 
         def probe_call():
             if dev.type == "cuda":

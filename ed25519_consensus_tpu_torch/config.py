@@ -19,14 +19,18 @@ Type conventions:
   empty value is returned as is (and reads as "off" where a path is
   optional).
 
-The registry holds 38 of the JAX registry's 54 knobs.  Left out on
+The registry holds 36 of the JAX registry's 54 knobs.  Left out on
 purpose: ``ED25519_TPU_MSM_KERNEL`` (it picks a TPU kernel, Pallas or the
 XLA scan; the port picks the CUDA kernel or its plain twin by a call's
-``device=``), the TPU-measured routing and hot-scale constants, the JAX
-compile-cache directory, the quota auto-sizer (the port's cache always
-publishes its suggestions) and the labs' seed knobs (each port lab's
-``--seed`` default equals the JAX knob's default).  README's knob table
-renders :func:`knob_table`.
+``device=``), ``ED25519_TPU_PALLAS_BODY`` and ``ED25519_TPU_WIN_CHUNK``
+(TPU tuning knobs of the window-sum kernel's body and windows per grid
+step: on the H100 every value but the default measured slower, so the
+verdict path launches the default K2 and K2t with no knob, and the kernel
+lab reaches the other forms by argument), the TPU-measured routing and
+hot-scale constants, the JAX compile-cache directory, the quota auto-sizer
+(the port's cache always publishes its suggestions) and the labs' seed
+knobs (each port lab's ``--seed`` default equals the JAX knob's default).
+README's knob table renders :func:`knob_table`.
 """
 
 import contextlib
@@ -108,21 +112,6 @@ KNOBS: "dict[str, Knob]" = dict([
     _k("ED25519_TPU_EMA_PRIOR", "float", 0.2,
        "Seconds-per-batch device turnaround prior before the first "
        "measurement (deadline budget is 3×EMA×batches, 2 s floor)."),
-    _k("ED25519_TPU_PALLAS_BODY", "choice", "rolled",
-       "Window-sum kernel body on the cold and head-resident dispatches: "
-       "`rolled` (loops, the default instantiation) or `hybrid` (the "
-       "lane and table-entry loops unrolled); the JAX package's removed "
-       "`unrolled` body, and anything else, falls back to `rolled`.  Kept "
-       "for parity with the JAX package's knob: on the H100 the hybrid "
-       "body measured slower than the default (PERF.md).",
-       ("rolled", "hybrid")),
-    _k("ED25519_TPU_WIN_CHUNK", "int", None,
-       "Windows per window-sum block (the JAX grid step's win_chunk); "
-       "must be a positive divisor of the window count (a non-divisor is "
-       "warned about and ignored at the dispatch).  Unset: every window "
-       "in one block.  Kept for parity with the JAX package's knob: on "
-       "the H100 every W below the window count measured slower than the "
-       "default (PERF.md)."),
     _k("ED25519_TPU_MIN_LANES", "int", None,
        "Floor on the padded device lane count, so many small batches "
        "share one padded shape; unset/0 keeps tight padding."),

@@ -3,8 +3,8 @@
 // field arithmetic with carry chains, 160 threads and 67,648 B of shared
 // memory a block, 3 blocks an SM, canonical limbs out).  A (nchunk, B)
 // grid of one 64-lane chunk a block, every window in one block: the C
-// entries refuse any other W, and the windows-per-block knob reaches the
-// 20-limb kernels instead (the -l20 forms, window_sums_w.cu).
+// entries refuse any other W; the lab's fewer-windows forms are the
+// 20-limb kernels' (the -l20 forms, window_sums_lab.cu).
 //
 // K2 replaces: ed25519_consensus_tpu/ops/pallas_msm.py:_compiled_pallas_kernel_rolled
 // (the pl.pallas_call at pallas_msm.py:320, default tables_in=False), with

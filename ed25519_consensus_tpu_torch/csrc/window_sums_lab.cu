@@ -5,9 +5,10 @@
 //   window_sums_tables_l20  Hopper kernels of window_sums_u32.cuh (20 x
 //                           13-bit limbs, 66 threads and 94,624 B a block,
 //                           two half-chunk sums): timed beside them in
-//                           one call; their any-W kernels, which the
-//                           windows-per-block knob reaches, are in
-//                           window_sums_w.cu;
+//                           one call, every window in one block or W
+//                           a block (the lab's win_chunk forms, the
+//                           Pallas kernel's win_chunk,
+//                           pallas_msm.py:164, :217-218, grid :322);
 //   window_sums_i16fold     int16 partials and exchange (fold_dtype="int16",
 //                           pallas_msm.py:189-193, :254-266);
 //   window_sums_i32tbl      the shared table as int32 (tbl_dtype="int32",
@@ -22,8 +23,8 @@
 // block (win_chunk) is a launch argument of every instantiation.
 #include "window_sums.cuh"
 
-WS_K2(window_sums_l20, ALL, 4, int16_t, int32_t, false, 64)
-WS_K2T(window_sums_tables_l20, ALL, k2t_body, int32_t, 4, int16_t, int32_t, 64)
+WS_K2(window_sums_l20, BOTH, 4, int16_t, int32_t, false, 64)
+WS_K2T(window_sums_tables_l20, BOTH, k2t_body, int32_t, 4, int16_t, int32_t, 64)
 WS_K2(window_sums_i16fold, W, 4, int16_t, int16_t, false, 64)
 WS_K2(window_sums_i32tbl, ALL, 4, int32_t, int32_t, false, 64)
 WS_K2(window_sums_i32tbl_c32, ALL, 4, int32_t, int32_t, false, 32)

@@ -18,21 +18,21 @@ into "_" plus "_launch" (`window_sums-r32` → `window_sums_r32_launch`), its
 kernel the same plus "_kernel", which is what ptxas's report names
 (`ptxas_usage`).  Several instantiations share a source (K2 and K2t live in
 window_sums.cu, K3 and K5 in fold_partials.cu); a source builds once.
-`VERDICT` names the instantiations a verdict path launches by default;
-their sources build together at a verdict path's first call (`load_all`),
-and every other source (the kernel lab's forms, the probes, the hybrid
-body) builds only when one of its kernels is first launched, or when a lab
-tool or `chip_smoke.py` calls `build_all()`.
+`VERDICT` names the instantiations a verdict path launches, the only ones
+it can launch; their sources build together at a process's first verdict
+call (`load_all`, which after that returns at once), and every other source
+(the kernel lab's forms, the probes, the hybrid body) builds only when one
+of its kernels is first launched, or when a lab tool or `chip_smoke.py`
+calls `build_all()`.
 
 `BLOCK_FORMS` says which of its two kernels a window-sum instantiation
 holds: NAME_kernel (every window in one block, "all") and NAME_w_kernel
 (any windows per block W, "w"); the rest hold both.  The sources emit
 only these (the FORMS argument of csrc/window_sums.cuh's macros), so no
 kernel is built that no path launches.  The default K2 and K2t
-(window_sums_u32.cuh) hold only "all"; a verdict path that the
-windows-per-block knob sends to fewer windows runs the 20-limb kernels, the
-lab's `window_sums-l20` and `window_sums_tables-l20`, whose any-W kernels
-are in a source of their own (`W_SOURCES`), out of the verdict sources.
+(window_sums_u32.cuh) hold only "all"; the lab reaches fewer windows a
+block through the 20-limb kernels, `window_sums-l20` and
+`window_sums_tables-l20` (window_sums_lab.cu), which hold both.
 
 Each `Kernel` counts its launches: `launches` is incremented where the
 kernel is launched and nowhere else, so a run can show that a path went
@@ -172,20 +172,11 @@ INSTANTIATIONS = {
     "probe_ge8": ("probes.cu", _POINTS),
 }
 
-# What a verdict path launches with no knob set.  The windows-per-block
-# knob reaches the NAME_w_kernel of window_sums-l20 and
-# window_sums_tables-l20 (W_SOURCES); the body knob's `hybrid` is loaded
-# when it is set.
+# What a verdict path launches: its kernels and their form are fixed.
 VERDICT = ("expand_compressed", "window_sums", "fold_partials",
            "window_sums_tables", "build_tables", "fold_shards",
            "expand_affine", "shift128_lanes")
 VERDICT_SOURCES = tuple(sorted({INSTANTIATIONS[b][0] for b in VERDICT}))
-
-# The any-W kernels held by a source of their own (same C entry name, a
-# library of their own): built when a W below the window count is first
-# launched, or by load_all when ED25519_TPU_WIN_CHUNK is set.
-W_SOURCES = {"window_sums-l20": "window_sums_w.cu",
-             "window_sums_tables-l20": "window_sums_w.cu"}
 
 # Window-sum instantiations that hold one kernel only (the others: both).
 BLOCK_FORMS = {
@@ -237,8 +228,6 @@ def kernel(base: str, suffix: str = "") -> Kernel:
     k = KERNELS.get(name)
     if k is None:
         src, argtypes = INSTANTIATIONS[base]
-        if suffix:
-            src = W_SOURCES.get(base, src)
         k = KERNELS.setdefault(name, Kernel(name, src, entry_of(base),
                                             argtypes))
     return k
@@ -248,8 +237,7 @@ _BUILD_LOCK = threading.RLock()
 
 
 def sources() -> list:
-    return sorted({src for src, _ in INSTANTIATIONS.values()}
-                  | set(W_SOURCES.values()))
+    return sorted({src for src, _ in INSTANTIATIONS.values()})
 
 
 def build_group(source: str) -> list:
@@ -340,22 +328,15 @@ def ptxas_usage(log: str) -> dict:
 
 def load_all() -> None:
     """Build what is missing and load the C entry point of every
-    instantiation a verdict path launches — `VERDICT`, and the hybrid
-    body when ED25519_TPU_PALLAS_BODY selects it now — so a build or load
+    instantiation a verdict path launches (`VERDICT`), so a build or load
     failure raises here, in the caller's thread, before any work is
-    handed to a device lane; the any-W kernels are built too when
-    ED25519_TPU_WIN_CHUNK is set now.  The lab's forms and the probes are
-    not built here."""
-    from .. import config as _config
-
-    bases = list(VERDICT)
-    if _config.get("ED25519_TPU_PALLAS_BODY") == "hybrid":
-        bases.append("window_sums-hybrid")
-    srcs = {INSTANTIATIONS[b][0] for b in bases}
-    if _config.get("ED25519_TPU_WIN_CHUNK") is not None:
-        srcs |= set(W_SOURCES.values())
-    build_all(sorted(srcs))
-    for base in bases:
+    handed to a device lane.  Once every one holds its entry point, a
+    call returns at once, reading and hashing no file.  The lab's forms
+    and the probes are not built here."""
+    if all(KERNELS[b]._fn is not None for b in VERDICT):
+        return
+    build_all(list(VERDICT_SOURCES))
+    for base in VERDICT:
         KERNELS[base].function()
 
 

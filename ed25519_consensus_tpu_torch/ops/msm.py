@@ -71,9 +71,9 @@ form, folded by K3's 27-window form), int16 partials (`fold_dtype`), an
 int32 table (`tbl_dtype`), the unrolled `hybrid` body, 32 lanes a block
 (`chunk`) and W windows a block (`win_chunk`) — and K2s
 (`window_select_only`) is the select-only profile form.  `window_sums_many`
-and `window_sums_many_tables_full` reach every form; the dispatches read
-ED25519_TPU_WIN_CHUNK and ED25519_TPU_PALLAS_BODY, and with neither set
-they run the default K2 and K2t (a knob reaches an -l20 kernel).
+and `window_sums_many_tables_full` reach every form by argument; the
+dispatches take no form argument and read no knob: they always run the
+default K2 and K2t.
 
 The plain versions take the kernels' additions in the kernels' order, so
 kernel and plain version agree limb for limb.  Against the JAX package's
@@ -1091,54 +1091,21 @@ def as_tensor(x, device):
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
-def auto_win_chunk(nwin: int) -> int:
-    """Windows per window-sum block for the dispatches, read on every
-    call: ED25519_TPU_WIN_CHUNK when it is a positive divisor of `nwin` (a
-    non-divisor is warned about and ignored; a non-integer raises
-    ConfigError at the read), else `nwin` — every window in one block, the
-    port's default and the launch every verdict path has run since K2 was
-    written.  The JAX package's counterpart (ops/pallas_msm.py:456-477)
-    defaults to 11 or 9 windows a grid step, a cost measured on a TPU,
-    which is not carried over (PERF.md)."""
-    import warnings
-
-    w = _config.get("ED25519_TPU_WIN_CHUNK")
-    if w is not None:
-        if w > 0 and nwin % w == 0:
-            return w
-        warnings.warn(f"ED25519_TPU_WIN_CHUNK={w!r} ignored: must be a "
-                      f"positive divisor of {nwin}", stacklevel=2)
-    return nwin
-
-
-def body_style() -> str:
-    """The window-sum kernel body, ED25519_TPU_PALLAS_BODY, read on every
-    call: `rolled` (default) or `hybrid` (unrolled loops); `unrolled` and
-    anything else fall back to `rolled`, as in the JAX package
-    (config.py:144-148, ops/pallas_msm.py:342-363)."""
-    return _config.get("ED25519_TPU_PALLAS_BODY")
-
-
 def window_sums_many(digits, points, *, window_bits: int = limbs.WINDOW_BITS,
                      fold_dtype: str = "int32", tbl_dtype: str = "int16",
-                     win_chunk: "int | None" = None, body: "str | None" = None,
+                     win_chunk: "int | None" = None, body: str = "rolled",
                      chunk: int = CHUNK, arith: str = "u32", device=None):
     """B stacked batches in one device call with any window-sum form — the
     counterpart of the JAX package's pallas_window_sums_many
     (ops/pallas_msm.py:480-508; its `tile` is `chunk` here): digits (B, 17,
     N) uint8 packed or (B, nwin, N) int8 plain (radix 32: plain only),
     points in any wire (numpy arrays or tensors) → (B, 4, NLIMBS, nwin)
-    int32 tensor on `device` (None means CUDA).  `win_chunk` None reads
-    ED25519_TPU_WIN_CHUNK (`auto_win_chunk`), `body` None reads
-    ED25519_TPU_PALLAS_BODY; `arith="l20"` takes the 20-limb K2.  On CUDA: K1
+    int32 tensor on `device` (None means CUDA).  The defaults are the
+    verdict path's K2: `win_chunk` None puts every window in one block,
+    `body` is rolled; `arith="l20"` takes the 20-limb K2.  On CUDA: K1
     or K6 for a point wire, the K2 form, the matching K3; a form that is
     not built or does not fit raises ValueError before any launch."""
     dev = resolve_device(device)
-    nwin = nwindows(window_bits)
-    if win_chunk is None:
-        win_chunk = auto_win_chunk(nwin)
-    if body is None:
-        body = body_style()
     kernel_form("window_sums", window_bits, tbl_dtype, fold_dtype, body,
                 chunk, win_chunk, arith)
     # Whether K7 runs is read from the operands where the host holds them.
@@ -1164,11 +1131,9 @@ def window_sums_many_tables_full(digits, tables, *,
     NTBL, 4, NLIMBS, N) int16 with TB ∈ {1, B} (TB = 1 shares one table
     across the batch) → (B, 4, NLIMBS, nwin) int32 on `device`.  K2t (no R
     lanes) and K3; the body is always rolled, as in the JAX package,
-    `win_chunk` None reads ED25519_TPU_WIN_CHUNK, `arith="l20"` takes the
-    20-limb K2t."""
+    `win_chunk` None puts every window in one block, `arith="l20"` takes
+    the 20-limb K2t."""
     dev = resolve_device(device)
-    if win_chunk is None:
-        win_chunk = auto_win_chunk(nwindows(window_bits))
     digits = as_tensor(digits, dev)
     tables = as_tensor(tables, dev)
     with DEVICE_CALL_LOCK:
@@ -1197,10 +1162,7 @@ def dispatch_window_sums_many(digits, points, device=None):
     compressed, (B, 2, NLIMBS, N) int16 affine or (B, 4, NLIMBS, N) int16
     extended (numpy arrays or tensors) → (B, 4, NLIMBS, 33) int32 tensor on
     `device`.  On CUDA: K1 (compressed; then K7 when a lane carries the
-    shift flag) or K6 (affine), K2, K3.  Reads
-    ED25519_TPU_WIN_CHUNK and ED25519_TPU_PALLAS_BODY on every call, as
-    the JAX package's dispatch does (ops/msm.py:518-541); unset, the
-    default K2."""
+    shift flag) or K6 (affine), the default K2, K3."""
     return window_sums_many(digits, points, device=device)
 
 
@@ -1227,9 +1189,7 @@ def dispatch_window_sums_many_cached(digits, head, rwire, device=None):
         r_pts = expand_compressed_points(rwire)
         pts = torch.cat([head[None].expand(rwire.shape[0], -1, -1, -1),
                          r_pts], dim=-1)
-        return fold_partials(window_partials(
-            digits, pts, win_chunk=auto_win_chunk(NWINDOWS),
-            body=body_style()))
+        return fold_partials(window_partials(digits, pts))
 
 
 def dispatch_window_sums_many_tables(digits, head_tables, rwire,
@@ -1239,9 +1199,7 @@ def dispatch_window_sums_many_tables(digits, head_tables, rwire,
     the entry's (9, 4, NLIMBS, n_head) int16 tensor, `rwire` (B, 33, n_r)
     → (B, 4, NLIMBS, 33) int32.  K1 expands the R wire, K4 builds the R
     lanes' tables, K2t sums the windows with the head tables shared across
-    the batch (TH = 1), K3 folds.  The head tables are never rebuilt.
-    Reads ED25519_TPU_WIN_CHUNK on every call; the body is always rolled,
-    as in the JAX package's tables pipeline (ops/pallas_msm.py:538-568)."""
+    the batch (TH = 1), K3 folds.  The head tables are never rebuilt."""
     dev = resolve_device(device)
     digits = as_tensor(digits, dev)
     head_tables = as_tensor(head_tables, dev)
@@ -1249,8 +1207,7 @@ def dispatch_window_sums_many_tables(digits, head_tables, rwire,
     with DEVICE_CALL_LOCK:
         r_tbl = multiples_tables(expand_compressed_points(rwire))
         return fold_partials(window_partials_tables(
-            digits, head_tables[None], r_tbl,
-            win_chunk=auto_win_chunk(NWINDOWS)))
+            digits, head_tables[None], r_tbl))
 
 
 class PendingMSM:

@@ -287,10 +287,11 @@ def sharded_device_msm(scalars, points, n_devices: "int | None" = None,
 def sharded_staged_msm(staged, n_devices: "int | None" = None,
                        devices=None) -> Point:
     """The sharded MSM of a batch.StagedBatch: its cold-path device
-    operands (`device_operands_deferred`) padded by `shard_pad`, in the
+    operands (`device_operands(defer=True)`) padded by `shard_pad`, in the
     wire ED25519_TPU_WIRE selects."""
     D = _width(n_devices, devices)
-    digits, pts = staged.device_operands_deferred(lambda n: shard_pad(n, D))
+    digits, pts = staged.device_operands(lambda n: shard_pad(n, D),
+                                         defer=True)
     return _locked_fold(digits, pts, D, devices=devices)
 
 

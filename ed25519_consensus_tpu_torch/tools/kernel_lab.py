@@ -11,7 +11,7 @@ checks batch 0's window sums, Horner-combined on the host, against the exact
 host MSM (the native runtime's, else exact Python; its time is logged),
 times each form (CUDA events, the median of the repetitions, K1 excluded:
 the operands are extended points), and prints one `kernel_sweep` JSON line
-naming the fastest form whose parity holds and the knobs that pin it.  A
+naming the fastest form whose parity holds and the arguments that pin it.  A
 form that fails to build, fit, launch or agree is marked `error` or
 `parity: fail` and never selected.  The other experiments are the JAX lab's
 `exp_variant` forms at two lane counts, with the slope per 4,096 lanes.
@@ -38,16 +38,15 @@ from ..ops import edwards, msm
 # The sweep: (name, entry, window_bits, keyword arguments, pin).  `entry`
 # "many" is msm.window_sums_many on extended points, "tables_full"
 # msm.window_sums_many_tables_full on batch 0's prebuilt tables (TB = 1).
-# Every form names its windows per block and body, so the environment's
-# knobs do not change the sweep.  `pin`: what selects the form — an
-# ED25519_TPU_* knob of the main path, or an argument of window_sums_many
-# (window_bits, tbl_dtype, fold_dtype, chunk) that no knob reaches: such a
-# pin names a lab form, not a setting a verdict path can take.
+# `pin`: what selects the form — the resident tables of the main path, or
+# an argument of window_sums_many (window_bits, tbl_dtype, fold_dtype,
+# win_chunk, body, chunk, arith).  An argument names a lab form, not a
+# setting a verdict path can take: the verdict path runs the defaults.
 SWEEP = (
     # the default K2 and K2t (csrc/window_sums_u32.cuh), then the 20-limb
     # kernels they replaced (arith="l20", csrc/window_sums.cuh)
     ("rolled-w33", "many", 4, {"win_chunk": 33},
-     {"ED25519_TPU_WIN_CHUNK": "33"}),
+     {"win_chunk": "33"}),
     ("rolled-w33-l20", "many", 4, {"win_chunk": 33, "arith": "l20"},
      {"arith": "l20"}),
     ("tables-w33", "tables_full", 4, {"win_chunk": 33},
@@ -56,28 +55,30 @@ SWEEP = (
      {"resident": "devcache tables", "arith": "l20"}),
     # the JAX sweep's candidates (tools/kernel_lab.py:160-181)
     ("rolled-w11", "many", 4, {"win_chunk": 11},
-     {"ED25519_TPU_WIN_CHUNK": "11"}),
+     {"win_chunk": "11"}),
     ("int16-fold-w11", "many", 4, {"win_chunk": 11, "fold_dtype": "int16"},
-     {"ED25519_TPU_WIN_CHUNK": "11", "fold_dtype": "int16"}),
+     {"win_chunk": "11", "fold_dtype": "int16"}),
     ("radix32-w9", "many", 5, {"win_chunk": 9},
-     {"window_bits": "5", "ED25519_TPU_WIN_CHUNK": "9"}),
+     {"window_bits": "5", "win_chunk": "9"}),
     ("radix32-w27", "many", 5, {"win_chunk": 27},
-     {"window_bits": "5", "ED25519_TPU_WIN_CHUNK": "27"}),
+     {"window_bits": "5", "win_chunk": "27"}),
     ("tables-ref-w11", "tables_full", 4, {"win_chunk": 11},
      {"resident": "devcache tables (ED25519_TPU_DEVCACHE_TABLES)",
-      "ED25519_TPU_WIN_CHUNK": "11"}),
+      "win_chunk": "11"}),
     # the JAX lab's exp_variant forms (tools/kernel_lab.py:252-276)
     ("int32-table-c64", "many", 4, {"tbl_dtype": "int32", "win_chunk": 33},
      {"tbl_dtype": "int32"}),
     ("int32-table-c32", "many", 4,
      {"tbl_dtype": "int32", "chunk": 32, "win_chunk": 33},
      {"tbl_dtype": "int32", "chunk": "32"}),
+    ("hybrid-w33", "many", 4, {"body": "hybrid", "win_chunk": 33},
+     {"body": "hybrid"}),
     ("hybrid-w3", "many", 4, {"body": "hybrid", "win_chunk": 3},
-     {"ED25519_TPU_PALLAS_BODY": "hybrid", "ED25519_TPU_WIN_CHUNK": "3"}),
+     {"body": "hybrid", "win_chunk": "3"}),
     ("rolled-w3", "many", 4, {"win_chunk": 3},
-     {"ED25519_TPU_WIN_CHUNK": "3"}),
+     {"win_chunk": "3"}),
     ("rolled-w1", "many", 4, {"win_chunk": 1},
-     {"ED25519_TPU_WIN_CHUNK": "1"}),
+     {"win_chunk": "1"}),
     # the port's other radix-32 instantiations
     ("radix32-int32-table-c32", "many", 5,
      {"tbl_dtype": "int32", "win_chunk": 27},

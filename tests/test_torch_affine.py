@@ -22,14 +22,7 @@ from ed25519_consensus_tpu_torch.config import override
 from ed25519_consensus_tpu_torch.ops import edwards, limbs, msm
 from ed25519_consensus_tpu_torch.ops.field import P
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _affine_limbs(n, seed):

@@ -26,6 +26,9 @@ from ed25519_consensus_tpu_torch.ops import edwards, msm
 from ed25519_consensus_tpu_torch.ops.scalar import L
 from ed25519_consensus_tpu_torch.utils import fixtures
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 # RFC 8032 §7.1 TEST 1-3 (tests/test_rfc8032.py): (sk, pk, sig, msg) hex.
 RFC8032 = [
     ("9d61b19deffd5a60ba844af492ec2cc44449c5697b326919703bac031cae7f60",
@@ -41,18 +44,6 @@ RFC8032 = [
      "6291d657deec24024827e69c3abe01a30ce548a284743a445e3680d7db5ac3ac18ff9b5"
      "38d16f290ae67f760984dc6594a7c15e9716ed28dc027beceea1ec40a", "af82"),
 ]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The plain versions run many small torch ops.  With several test
-    workers on one host, torch's intra-op thread pools oversubscribe the
-    cores (a 3 s case took minutes); one thread per worker is about as fast
-    alone and keeps the workers out of each other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _verdict(verifier, **kw) -> bool:

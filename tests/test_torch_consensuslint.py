@@ -33,6 +33,9 @@ from ed25519_consensus_tpu_torch import config
 from ed25519_consensus_tpu_torch.analysis import linter
 from ed25519_consensus_tpu_torch.tools import consensuslint, load_soak
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 ROOT = Path(__file__).resolve().parent.parent
 REF_TESTS = ROOT / "tests" / "test_consensuslint.py"
 JPKG, PPKG = "ed25519_consensus_tpu/", "ed25519_consensus_tpu_torch/"
@@ -324,16 +327,18 @@ def test_load_soak_gate_passes_the_real_tree():
 SHARED = sorted(set(config.KNOBS) & set(jconfig.KNOBS))
 
 
-def test_registry_holds_38_of_the_references_knobs():
-    assert len(config.KNOBS) == 38 and len(SHARED) == 38
-    assert "ED25519_TPU_MSM_KERNEL" in jconfig.KNOBS
-    assert "ED25519_TPU_MSM_KERNEL" not in config.KNOBS
-    assert "ED25519_TPU_MSM_KERNEL" in config.__doc__
+def test_registry_holds_36_of_the_references_knobs():
+    assert len(config.KNOBS) == 36 and len(SHARED) == 36
+    for name in ("ED25519_TPU_MSM_KERNEL", "ED25519_TPU_PALLAS_BODY",
+                 "ED25519_TPU_WIN_CHUNK"):
+        assert name in jconfig.KNOBS
+        assert name not in config.KNOBS
+        assert name in config.__doc__
 
 
 @pytest.mark.parametrize("env", [
     {},
-    {"ED25519_TPU_EMA_PRIOR": "x", "ED25519_TPU_WIN_CHUNK": "many"},
+    {"ED25519_TPU_EMA_PRIOR": "x", "ED25519_TPU_MIN_LANES": "many"},
     {"ED25519_TPU_DEVCACHE_BYTES": "1e6", "ED25519_TPU_HEDGE_MIN_MS": "",
      "ED25519_TPU_STRAGGLER_RATIO": "three"},
 ], ids=["clean", "two", "three"])

@@ -29,6 +29,9 @@ from ed25519_consensus_tpu_torch import InvalidSignature, SigningKey, batch
 from ed25519_consensus_tpu_torch.ops import _cuda, edwards, limbs, msm
 from ed25519_consensus_tpu_torch.ops import torch_decompress as TD
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 pytestmark = pytest.mark.cuda
 
 
@@ -483,23 +486,21 @@ def test_tables_dispatch_launches_the_fe8_k4(dev):
     assert counts["build_tables"] == 1 and counts["build_tables-l20"] == 0
 
 
-@pytest.mark.parametrize("env,name", [
-    ({"ED25519_TPU_WIN_CHUNK": "11"}, "window_sums-l20-w11"),
-    ({"ED25519_TPU_PALLAS_BODY": "hybrid"}, "window_sums-hybrid"),
-    ({"ED25519_TPU_PALLAS_BODY": "unrolled"}, "window_sums"),
+@pytest.mark.parametrize("kw,name", [
+    ({"win_chunk": 11}, "window_sums-l20-w11"),
+    ({"body": "hybrid"}, "window_sums-hybrid"),
+    ({"body": "rolled"}, "window_sums"),
 ])
-def test_knobs_drive_the_main_path(dev, monkeypatch, env, name):
-    """The stacked dispatch runs the instantiation the knobs name, with the
-    default's window sums as points (the 20-limb forms sum in another
-    order)."""
+def test_lab_forms_run_their_instantiation(dev, kw, name):
+    """window_sums_many runs the instantiation its arguments name, with the
+    default dispatch's window sums as points (the 20-limb forms sum in
+    another order)."""
     B, N = 2, 128
     d = _digits(4, B, N, 66)
     w = np.stack([_wire(N, 67), _wire(N, 68)])
     want = msm.dispatch_window_sums_many(d, w, dev)
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
     before = _cuda.launch_counts()
-    got = msm.dispatch_window_sums_many(d, w, dev)
+    got = msm.window_sums_many(d, w, device=dev, **kw)
     torch.cuda.synchronize()
     after = _cuda.launch_counts()
     assert after[name] == before.get(name, 0) + 1

@@ -41,20 +41,14 @@ from ed25519_consensus_tpu_torch.ops.scalar import L
 from ed25519_consensus_tpu_torch.utils import fixtures
 from ed25519_consensus_tpu_torch.utils import metrics
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 rng = random.Random(0x7D3C)
 
 # 14 recurring keys, as many as the small-order matrix has: both workloads
 # then share one head width, and the JAX side one executable per form.
 _KEYS = [T.SigningKey.new(rng) for _ in range(14)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

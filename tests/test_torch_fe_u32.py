@@ -27,6 +27,9 @@ from ed25519_consensus_tpu_torch.ops import torch_field as TF
 from ed25519_consensus_tpu_torch.ops.field import P
 from ed25519_consensus_tpu_torch.ops.scalar import L
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 EDGES = probes.FE8_EDGES
 words256 = st.integers(min_value=0, max_value=(1 << 256) - 1)
 limb = st.integers(min_value=-8191, max_value=8191)

@@ -24,13 +24,7 @@ from ed25519_consensus_tpu_torch.ops import torch_edwards as TE
 from ed25519_consensus_tpu_torch.ops.scalar import L
 from ed25519_consensus_tpu_torch.utils import fixtures
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _k1_lanes():

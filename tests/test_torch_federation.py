@@ -40,6 +40,8 @@ from ed25519_consensus_tpu_torch import (SigningKey, batch, carry, config,
                                          tenancy, verdictcache)
 from ed25519_consensus_tpu_torch.error import DeviceError
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
 
 class Pkg:
     """One package's modules under one name, so a scenario runs on both."""

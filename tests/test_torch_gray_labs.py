@@ -6,23 +6,16 @@ Every gate of every phase must hold, as at full size on the card
 (chip_smoke.py's phase_gray runs them at the JAX tools' defaults)."""
 
 import pytest
-import torch
 
 from ed25519_consensus_tpu import config as jconfig
 from ed25519_consensus_tpu_torch import batch, config, health, routing
 from ed25519_consensus_tpu_torch.tools import (load_soak, sentinel_soak,
                                                straggler_lab)
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 SEED = 0x6A7
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

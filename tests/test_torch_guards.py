@@ -39,6 +39,9 @@ from ed25519_consensus_tpu.analysis import race_audit as jrace
 from ed25519_consensus_tpu_torch.analysis import guards, linter, lockorder
 from ed25519_consensus_tpu_torch.analysis import race_audit
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 ROOT = Path(__file__).resolve().parent.parent
 REF_TESTS = ROOT / "tests" / "test_guards.py"
 JPKG, PPKG = "ed25519_consensus_tpu/", "ed25519_consensus_tpu_torch/"

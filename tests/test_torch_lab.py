@@ -18,15 +18,7 @@ from ed25519_consensus_tpu_torch.ops import _cuda, msm
 from ed25519_consensus_tpu_torch.tools import (kernel_lab, microbench,
                                                ptxas_report)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The plain versions run many small torch ops; one torch thread per
-    test worker keeps the workers out of each other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def test_sweep_on_the_plain_versions():
@@ -117,10 +109,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 def test_every_instantiation_has_its_entry_in_its_source():
     """The C entry `<base with - as _>_launch` of every registered
-    instantiation is defined in its source (and in its any-W source, where
-    it has one), by an instantiation macro or written out."""
-    held = [(b, src) for b, (src, _) in _cuda.INSTANTIATIONS.items()]
-    for base, src in held + list(_cuda.W_SOURCES.items()):
+    instantiation is defined in its source, by an instantiation macro or
+    written out."""
+    for base, (src, _) in _cuda.INSTANTIATIONS.items():
         text = (_cuda.CSRC / src).read_text(encoding="utf-8")
         name = base.replace("-", "_")
         assert re.search(rf"\b[A-Z_0-9]+\({name}[,)]|\b{name}_launch\(",
@@ -136,7 +127,7 @@ def test_block_forms_match_the_sources_and_the_paths():
     paths launch: every window in one block ("all"), fewer ("w"), or both.
     So no kernel is built that no path launches.  The default K2 and K2t
     (WS_K2_U32 / WS_K2T_U32, which take no FORMS) are "all" only; the
-    windows-per-block knob reaches the 20-limb kernels' any-W form."""
+    lab reaches fewer windows a block through the 20-limb kernels."""
     held = {}
     for src in _cuda.sources():
         text = (_cuda.CSRC / src).read_text(encoding="utf-8")
@@ -147,20 +138,16 @@ def test_block_forms_match_the_sources_and_the_paths():
                 m.group(3), "ALL")
             held.setdefault(name, set()).update(
                 {"ALL": {"all"}, "W": {"w"}, "BOTH": {"all", "w"}}[forms])
-            if forms == "W" and src in _cuda.W_SOURCES.values():
-                assert {b.replace("-", "_"): f for b, f in
-                        _cuda.W_SOURCES.items()}[name] == src
     seen = {n: "both" if f == {"all", "w"} else f.pop()
             for n, f in held.items()}
     window = {b for b in _cuda.INSTANTIATIONS if b.startswith("window_")}
     assert set(seen) == {b.replace("-", "_") for b in window}
     assert _cuda.kernel("window_sums-l20", "-w11").source == \
-        "window_sums_w.cu"
+        "window_sums_lab.cu"
     assert _cuda.KERNELS["window_sums"].source == "window_sums.cu"
-    # the verdict paths and their knobs, the stage profile, then the sweep
+    # the verdict paths, the stage profile, then the sweep
     used = {"window_sums": {"all"}, "window_sums_tables": {"all"},
-            "window_sums-l20": {"w"}, "window_sums_tables-l20": {"all", "w"},
-            "window_sums-hybrid": {"all"}, "window_select_only": {"all"}}
+            "window_select_only": {"all"}}
     for name, entry, wb, kw, _pin in kernel_lab.SWEEP:
         base, suffix, _, _ = kernel_lab.sweep_form(entry, wb, kw)
         used.setdefault(base, set()).add("w" if suffix else "all")
@@ -195,44 +182,55 @@ def test_block_forms_raise_where_not_built(kind, kw, want):
     assert _cuda.kernel_symbol(base, suffix) == want[4]
 
 
-@pytest.mark.parametrize("body", ["rolled", "hybrid"])
-def test_load_all_builds_only_the_verdict_set(monkeypatch, body):
-    """A verdict path's first call builds and loads the instantiations it
-    launches (and the hybrid body or the any-W kernels when a knob selects
-    them), not the lab's forms or the probes; a lab source builds alone at
-    its first launch."""
-    built, loaded = [], []
+@pytest.mark.parametrize("call", ["first", "repeat"])
+def test_load_all_builds_only_the_verdict_set(monkeypatch, call):
+    """A process's first verdict call builds and loads exactly the
+    instantiations a verdict path launches, not the lab's forms, the
+    hybrid body or the probes, whatever the JAX
+    package's kernel knobs hold; a lab source builds alone at its first
+    launch.  Once every verdict kernel is loaded, a call builds nothing
+    and reads and hashes no source."""
+    built, loaded, read = [], [], []
     monkeypatch.setattr(_cuda, "build_all",
                         lambda srcs=None: built.append(srcs) or {})
-    monkeypatch.setattr(_cuda.Kernel, "function",
-                        lambda self: loaded.append(self.name))
-    monkeypatch.setenv("ED25519_TPU_PALLAS_BODY", body)
-    monkeypatch.delenv("ED25519_TPU_WIN_CHUNK", raising=False)
-    _cuda.load_all()
-    extra = ["window_sums-hybrid"] if body == "hybrid" else []
-    assert loaded == list(_cuda.VERDICT) + extra
-    assert built == [sorted(set(_cuda.VERDICT_SOURCES) | {
-        _cuda.INSTANTIATIONS[b][0] for b in extra})]
-    assert not {"window_sums_lab.cu", "window_sums_r32.cu", "probes.cu",
-                "window_sums_w.cu"} & set(built[0])
+    real_path = _cuda.library_path
+    monkeypatch.setattr(_cuda, "library_path",
+                        lambda src: read.append(src) or real_path(src))
+
+    def load(self):
+        loaded.append(self.name)
+        self._fn = self.entry
+
+    monkeypatch.setattr(_cuda.Kernel, "function", load)
+    for base in _cuda.VERDICT:
+        monkeypatch.setattr(_cuda.KERNELS[base], "_fn", None)
+    monkeypatch.setenv("ED25519_TPU_PALLAS_BODY", "hybrid")
     monkeypatch.setenv("ED25519_TPU_WIN_CHUNK", "11")
     _cuda.load_all()
-    assert set(built[1]) == set(built[0]) | {"window_sums_w.cu"}
-    assert _cuda.build_group("probes.cu") == ["probes.cu"]
-    assert _cuda.build_group("window_sums.cu") == \
-        list(_cuda.VERDICT_SOURCES)
+    if call == "first":
+        assert loaded == list(_cuda.VERDICT)
+        assert built == [list(_cuda.VERDICT_SOURCES)]
+        assert not {"window_sums_lab.cu", "window_sums_r32.cu", "probes.cu",
+                    "window_sums_hybrid.cu"} & \
+            set(built[0])
+        assert _cuda.build_group("probes.cu") == ["probes.cu"]
+        assert _cuda.build_group("window_sums.cu") == \
+            list(_cuda.VERDICT_SOURCES)
+        return
+    del built[:], loaded[:], read[:]
+    _cuda.load_all()
+    assert built == [] and loaded == [] and read == []
 
 
 def test_forms_count_their_launches_apart():
-    """A windows-per-block form has its instantiation's C entry name (the
-    20-limb default's any-W kernel in a source of its own) and keeps a launch
-    count of its own."""
+    """A windows-per-block form has its instantiation's C entry name and
+    source and keeps a launch count of its own."""
     k = _cuda.kernel("window_sums-l20", "-w11")
     assert k is _cuda.kernel("window_sums-l20", "-w11")
     assert k is not _cuda.KERNELS["window_sums-l20"]
     assert k.entry == _cuda.KERNELS["window_sums-l20"].entry == \
         "window_sums_l20_launch"
-    assert k.source == "window_sums_w.cu"
+    assert k.source == "window_sums_lab.cu"
     assert _cuda.kernel("window_sums-r32", "-w9").source == \
         "window_sums_r32.cu"
     assert _cuda.launch_counts()["window_sums-l20-w11"] == k.launches

@@ -22,7 +22,6 @@ import random
 from pathlib import Path
 
 import pytest
-import torch
 
 import ed25519_consensus_tpu as J
 from ed25519_consensus_tpu.utils import legacy as jlegacy
@@ -33,18 +32,12 @@ from ed25519_consensus_tpu_torch.utils import fixtures
 from ed25519_consensus_tpu_torch.utils import legacy as tlegacy
 from ed25519_consensus_tpu_torch.verification_key import VerificationKeyBytes
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 CORPUS = json.loads((Path(__file__).parent / "data" /
                      "legacy_oracle_corpus.json").read_text())["cases"]
 KINDS = sorted(collections.Counter(c["kind"] for c in CORPUS))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bytes(c):

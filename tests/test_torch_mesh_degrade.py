@@ -22,17 +22,11 @@ from ed25519_consensus_tpu_torch import (batch, devcache, faults, health,
 from ed25519_consensus_tpu_torch.ops import msm
 from ed25519_consensus_tpu_torch.parallel import sharded_msm
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 rng = random.Random(0xDE64)
 _KEYS = [T.SigningKey.new(rng) for _ in range(4)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -33,19 +33,10 @@ from ed25519_consensus_tpu_torch.ops import torch_field as TF
 from ed25519_consensus_tpu_torch.ops.scalar import L
 from ed25519_consensus_tpu_torch.utils import fixtures
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 B, N = 2, 128
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The plain versions run many small torch ops.  With several test
-    workers on one host, torch's intra-op thread pools oversubscribe the
-    cores (a 3 s case took minutes); one thread per worker is about as fast
-    alone and keeps the workers out of each other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _adversarial_digits(b, n, seed):

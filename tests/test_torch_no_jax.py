@@ -34,21 +34,12 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "ed25519_consensus_tpu_torch"
 BLOCKED = ("jax", "ed25519_consensus_tpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The plain versions run many small torch ops.  With several test
-    workers on one host, torch's intra-op thread pools oversubscribe the
-    cores (a 3 s case took minutes); one thread per worker is about as fast
-    alone and keeps the workers out of each other's way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _blocked(name: str) -> bool:
@@ -381,7 +372,7 @@ def _csrc_sources():
     files = sorted(p for p in (PORT / "csrc").rglob("*")
                    if p.suffix in (".cu", ".cuh", ".cpp", ".h"))
     assert {"expand_affine.cu", "fold_partials.cu", "probes.cu",
-            "window_sums.cuh", "window_sums_r32.cu", "window_sums_w.cu"} <= {
+            "window_sums.cuh", "window_sums_r32.cu", "window_sums_lab.cu"} <= {
         f.name for f in files}
     return files
 

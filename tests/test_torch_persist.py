@@ -41,6 +41,9 @@ from ed25519_consensus_tpu_torch import (
 
 import test_torch_verdictcache as tvc  # noqa: E402  (matrix, helpers)
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 PKGS = {"port": (persist, faults), "jax": (jpersist, jfaults)}
 
 

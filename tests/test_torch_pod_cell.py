@@ -29,6 +29,9 @@ from ed25519_consensus_tpu_torch.utils import metrics
 from portbench import harness
 from portbench.reference import ed25519_ref as ref
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 ROOT = Path(__file__).resolve().parents[1]
 CELL = "pod.sync4"
 TINY = {"batch_size": 64, "signers": 16, "pool_batches": 2,
@@ -45,14 +48,6 @@ rng = random.Random(0x90D)
 # machine): the turnaround prior the tiny run's scheduler starts from, well
 # clear of its deadline floor.
 EMA_PRIOR = "30"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mesh_call(vs, **kw):
@@ -98,7 +93,7 @@ def _child() -> None:
 def tiny_run():
     """(the result line, each window call's stats, the outcomes, the
     cell's traffic at the tiny size) of one traced tiny run."""
-    code = ("import runpy, sys; sys.path.insert(0, '.'); "
+    code = ("import runpy, sys; sys.path[:0] = ['.', 'tests']; "
             "runpy.run_path('tests/test_torch_pod_cell.py', "
             "run_name='__main__')")
     with pytest.MonkeyPatch.context() as mp:

@@ -23,6 +23,8 @@ from ed25519_consensus_tpu_torch.ops.scalar import L
 from ed25519_consensus_tpu_torch.signature import Signature
 from ed25519_consensus_tpu_torch.utils import fixtures
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
 
 def _signed(n, n_keys, seed):
     rng = random.Random(seed)

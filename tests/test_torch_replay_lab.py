@@ -31,6 +31,9 @@ from ed25519_consensus_tpu_torch import devcache, verdictcache
 from ed25519_consensus_tpu_torch.tools import load_soak
 from ed25519_consensus_tpu_torch.tools import replay_lab, restart_lab
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 ROOT = Path(__file__).resolve().parent.parent
 
 

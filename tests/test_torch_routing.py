@@ -8,7 +8,6 @@ that are the card's own, not the TPU's."""
 import random
 
 import pytest
-import torch
 
 from ed25519_consensus_tpu import health as jhealth
 from ed25519_consensus_tpu import routing as jrouting
@@ -16,14 +15,7 @@ import ed25519_consensus_tpu_torch as T
 from ed25519_consensus_tpu_torch import batch, config, health, routing
 from ed25519_consensus_tpu_torch.ops import msm
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -34,16 +34,10 @@ from ed25519_consensus_tpu_torch import (
 from ed25519_consensus_tpu_torch.ops import _cuda, msm
 from ed25519_consensus_tpu_torch.ops.scalar import L
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 rng = random.Random(0x5C4ED)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

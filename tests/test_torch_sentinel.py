@@ -9,7 +9,6 @@ Timing runs on health.FakeClock."""
 import random
 
 import pytest
-import torch
 
 import ed25519_consensus_tpu as J
 import ed25519_consensus_tpu_torch as T
@@ -18,17 +17,11 @@ from ed25519_consensus_tpu import health as jhealth
 from ed25519_consensus_tpu_torch import (batch, carry, devcache, faults,
                                          health, routing)
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 rng = random.Random(0x5E471E1)
 _KEYS = [T.SigningKey.new(rng) for _ in range(3)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

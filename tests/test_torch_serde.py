@@ -16,6 +16,9 @@ from ed25519_consensus_tpu import serde as jserde
 import ed25519_consensus_tpu_torch as T
 from ed25519_consensus_tpu_torch import serde as tserde
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 FIXTURE = json.loads((Path(__file__).parent / "data" /
                       "ref_serde_fixtures.json").read_text())["cases"]
 TYPES = ("Signature", "VerificationKey", "VerificationKeyBytes",

@@ -46,6 +46,9 @@ from ed25519_consensus_tpu_torch import (
 )
 from ed25519_consensus_tpu_torch.ops import _cuda
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 PKGS = {
     "port": (T, batch, devcache, health, service, verdictcache),
     "jax": (J, jbatch, jdevcache, jhealth, jservice, jverdictcache),
@@ -57,15 +60,6 @@ TOTALS = ("submitted", "resolved", "rejected_overloaded", "shed_deadline",
           "waves", "host_waves", "device_waves", "probe_waves",
           "dedup_fanout", "verdict_cache_hits", "verdict_cache_stores",
           "degraded_waves")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

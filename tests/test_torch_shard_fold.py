@@ -28,19 +28,13 @@ from ed25519_consensus_tpu_torch.ops import torch_edwards as TE
 from ed25519_consensus_tpu_torch.ops import torch_field as TF
 from ed25519_consensus_tpu_torch.parallel import sharded_msm
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 jax = pytest.importorskip("jax")
 
 B, N = 2, 64
 MAX_D = 5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _wire(n, seed):

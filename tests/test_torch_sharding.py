@@ -24,7 +24,6 @@ import random
 
 import numpy as np
 import pytest
-import torch
 
 import ed25519_consensus_tpu as J
 import ed25519_consensus_tpu_torch as T
@@ -36,18 +35,12 @@ from ed25519_consensus_tpu_torch.ops.scalar import L
 from ed25519_consensus_tpu_torch.parallel import sharded_msm
 from ed25519_consensus_tpu_torch.utils import fixtures
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 jax = pytest.importorskip("jax")
 
 rng = random.Random(0x5A4D)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -14,7 +14,6 @@ import random
 
 import numpy as np
 import pytest
-import torch
 
 import ed25519_consensus_tpu as J
 from ed25519_consensus_tpu import batch as jbatch
@@ -23,16 +22,10 @@ from ed25519_consensus_tpu_torch import batch, carry, devcache, health
 from ed25519_consensus_tpu_torch.ops import limbs
 from ed25519_consensus_tpu_torch.parallel import sharded_msm
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 jax = pytest.importorskip("jax")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

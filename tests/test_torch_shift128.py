@@ -1,5 +1,6 @@
 """[2^128]A on the card: K7 (`shift128_lanes`, csrc/shift128_lanes.cu) and the
-deferred cold-path wire that feeds it (`StagedBatch.device_operands_deferred`).
+deferred cold-path wire that feeds it
+(`StagedBatch.device_operands(defer=True)`).
 
 On the CPU, through the kernels' plain versions:
 
@@ -36,13 +37,7 @@ from ed25519_consensus_tpu_torch.ops.field import P
 from ed25519_consensus_tpu_torch.utils import fixtures
 from portbench.reference import ed25519_ref as ref
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -170,7 +165,7 @@ def _same_lanes(got, want):
 
 @pytest.mark.parametrize("case", ["fresh", "half-cached", "padded-stack"])
 def test_deferred_operands_expand_to_device_operands(case):
-    """device_operands_deferred, expanded by plain K1 + K7, against
+    """device_operands(defer=True), expanded by plain K1 + K7, against
     device_operands expanded by plain K1: equal digits, and every lane the
     same projective point.  `half-cached` stages with half the keys'
     [2^128]A cached (their lanes carry the host encoding, unflagged);
@@ -188,11 +183,10 @@ def test_deferred_operands_expand_to_device_operands(case):
         staged.append(v._stage(random.Random(seed)))
     pad = max(msm.pad_lanes(s.n_device_terms) for s in staged) + (
         64 if case == "padded-stack" else 0)
-    deferred = [s.device_operands_deferred(lambda n: pad) for s in staged]
+    deferred = [s.device_operands(lambda n: pad, defer=True) for s in staged]
     hits = 3 if case == "half-cached" else 0
     for s in staged:
         assert s.shift128_hits == hits
-        assert s.shift128_device == 6 - hits
     flags = [int(((w[32] & TD.SHIFT128_FLAG) != 0).sum()) for _, w in
              deferred]
     assert flags == [6 - hits] * len(staged)
@@ -216,8 +210,23 @@ def test_reading_coeff_shifts_fills_and_caches_the_deferred_keys():
         A = batch._point_from_row(s.raw_points[j])
         assert sp[0] == edwards.shift128(A) and sp[0].Z == 1
     # the deferred wire still flags what staging left out
-    _, w = s.device_operands_deferred(msm.pad_lanes)
+    _, w = s.device_operands(msm.pad_lanes, defer=True)
     assert int(((w[32] & TD.SHIFT128_FLAG) != 0).sum()) == 4
+
+
+def test_operands_do_not_depend_on_the_builds_before():
+    """device_operands leaves nothing on the staged batch: a plain build
+    between two deferred ones (which reads, and so caches, every key's
+    [2^128]A) changes neither the digits nor the flags, and the count of
+    keys left to the card is read off the wire, not kept."""
+    v, _ = _verifier(4, 2, 60)
+    s = v._stage(random.Random(9))
+    d1, w1 = s.device_operands(msm.pad_lanes, defer=True)
+    s.device_operands(msm.pad_lanes)
+    d2, w2 = s.device_operands(msm.pad_lanes, defer=True)
+    assert np.array_equal(d1, d2) and np.array_equal(w1, w2)
+    assert int(((w2[32] & TD.SHIFT128_FLAG) != 0).sum()) == 4
+    assert not hasattr(s, "shift128_device")
 
 
 def _matrix_batches(tampered: bool):
@@ -281,7 +290,7 @@ def test_counters_add_up_with_some_keys_cached():
 def test_sentinel_rows_read_a_flagged_lane_shifted():
     v, _ = _verifier(3, 1, 50)
     s = v._stage(random.Random(7))
-    _, w = s.device_operands_deferred(msm.pad_lanes)
+    _, w = s.device_operands(msm.pad_lanes, defer=True)
     lanes = list(range(len(s.coeffs) + 3))
     rows = batch._sentinel_lane_rows(w, lanes)
     flagged = set(np.flatnonzero(w[32] & TD.SHIFT128_FLAG).tolist())

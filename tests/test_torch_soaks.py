@@ -22,22 +22,16 @@ import random
 from pathlib import Path
 
 import pytest
-import torch
 
 from ed25519_consensus_tpu_torch import (
     SigningKey, batch, devcache, faults, health,
 )
 from ed25519_consensus_tpu_torch.tools import chaos_soak, device_soak, soak
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 ROOT = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -23,7 +23,6 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
 import ed25519_consensus_tpu as J
 from ed25519_consensus_tpu import batch as jbatch
@@ -36,20 +35,14 @@ from ed25519_consensus_tpu_torch import (SigningKey, batch, config, devcache,
 from ed25519_consensus_tpu_torch.ops import msm
 from ed25519_consensus_tpu_torch.utils import metrics
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 rng = random.Random(0x57A6)
 _KEYS = [SigningKey.new(rng) for _ in range(3)]
 
 BASE = 0.010   # a modelled healthy dispatch (bucket rep 10000 µs)
 SLOW = 0.100   # a modelled gray dispatch (10x: bucket rep 100000 µs)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per test worker (the port tests' idiom)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -834,12 +827,14 @@ RACE_AUDIT_KNOBS = ("ED25519_TPU_RACE_AUDIT", "ED25519_TPU_RACE_AUDIT_OUT")
 
 
 def test_registry_holds_31_knobs_and_no_lab_seeds():
-    """The 31 knobs of the scheduler slices, the federation's five replica
-    knobs and the analysis harness's two race-audit knobs beside them."""
+    """The scheduler slices' 31 knobs less the two window-sum form knobs
+    the port leaves out (ED25519_TPU_PALLAS_BODY, ED25519_TPU_WIN_CHUNK),
+    the federation's five replica knobs and the analysis harness's two
+    race-audit knobs beside them."""
     assert set(REPLICA_KNOBS) <= set(config.KNOBS)
     assert set(RACE_AUDIT_KNOBS) <= set(config.KNOBS)
-    assert len(config.KNOBS) == 31 + len(REPLICA_KNOBS) + \
-        len(RACE_AUDIT_KNOBS) == 38
+    assert len(config.KNOBS) == 29 + len(REPLICA_KNOBS) + \
+        len(RACE_AUDIT_KNOBS) == 36
     for name in ("ED25519_TPU_STRAGGLER_LAB_SEED",
                  "ED25519_TPU_SENTINEL_SOAK_SEED",
                  "ED25519_TPU_TRAFFIC_LAB_SEED",

@@ -23,6 +23,8 @@ from ed25519_consensus_tpu import devcache as jdevcache
 from ed25519_consensus_tpu import tenancy as jtenancy
 from ed25519_consensus_tpu_torch import carry, config, devcache, tenancy
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
 
 def test_classes_and_ranks_equal():
     assert tenancy.CLASSES == jtenancy.CLASSES

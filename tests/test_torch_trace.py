@@ -11,23 +11,17 @@ import threading
 import time
 
 import pytest
-import torch
 
 import ed25519_consensus_tpu_torch as T
 from ed25519_consensus_tpu_torch import batch, devcache
 from ed25519_consensus_tpu_torch.utils import metrics
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 rng = random.Random(0x7A ^ 0x5EED)
 
 NAME, START, END, SPAN_ID, PARENT_ID, CALL_ID, THREAD = range(7)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

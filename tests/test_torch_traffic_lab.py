@@ -17,7 +17,6 @@ import sys
 from pathlib import Path
 
 import pytest
-import torch
 
 from ed25519_consensus_tpu import batch as jbatch
 from ed25519_consensus_tpu import devcache as jdevcache
@@ -26,6 +25,9 @@ from ed25519_consensus_tpu_torch import (batch, devcache, faults, health,
                                          routing, tenancy)
 from ed25519_consensus_tpu_torch.tools import mesh_chaos, traffic_lab as lab
 from ed25519_consensus_tpu_torch.utils import metrics
+
+from torch_threads import _one_torch_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -42,14 +44,6 @@ def _load_reference_lab():
 
 
 ref = _load_reference_lab()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

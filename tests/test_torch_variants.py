@@ -1,9 +1,9 @@
 """The window-sum kernel's variant forms in the port (radix 32, int16
 partials, int32 tables, windows per block, the unrolled body, 32 lanes a
-block), the select-only form K2s, the micro-probes' chains and the two
-kernel knobs, on the CPU, where every wrapper runs its plain PyTorch
-version.  Inputs are made with numpy and Python's `random` from fixed seeds
-and given to the JAX package and the port alike.
+block), the select-only form K2s, the micro-probes' chains and the one
+form the dispatches launch, on the CPU, where every wrapper runs its plain
+PyTorch version.  Inputs are made with numpy and Python's `random` from
+fixed seeds and given to the JAX package and the port alike.
 
 Tolerances: exact.  Digit planes and 17-entry tables equal the JAX
 package's byte for byte; radix-32 window sums equal the JAX package's XLA
@@ -26,24 +26,14 @@ import torch
 
 from ed25519_consensus_tpu.ops import limbs as jlimbs
 from ed25519_consensus_tpu.ops import msm as jmsm
-from ed25519_consensus_tpu_torch.error import ConfigError
 from ed25519_consensus_tpu_torch.ops import _cuda, edwards, limbs, msm, probes
 from ed25519_consensus_tpu_torch.ops import torch_edwards as TE
 from ed25519_consensus_tpu_torch.ops.field import P
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 B, N = 2, 200  # ragged: 200 lanes end inside the fourth 64-lane chunk
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The plain versions run many small torch ops.  With several test
-    workers on one host, torch's intra-op thread pools oversubscribe the
-    cores; one thread per worker keeps the workers out of each other's
-    way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _terms(n, seed):
@@ -320,82 +310,86 @@ def test_fmul_chain_matches_reference_limb_for_limb():
             limbs.limbs_to_int(want[:, i // 128, i % 128]) % P
 
 
-# -- the knobs and the forms that are not built ----------------------------
+# -- the verdict path's one form, the lab's forms and those not built -------
 
-def test_body_knob_falls_back_to_rolled(monkeypatch):
-    for raw, want in (("hybrid", "hybrid"), ("HYBRID", "hybrid"),
-                      ("rolled", "rolled"), ("unrolled", "rolled"),
-                      ("junk", "rolled"), ("", "rolled")):
-        monkeypatch.setenv("ED25519_TPU_PALLAS_BODY", raw)
-        assert msm.body_style() == want
-    monkeypatch.delenv("ED25519_TPU_PALLAS_BODY")
-    assert msm.body_style() == "rolled"
-
-
-def test_win_chunk_knob(monkeypatch):
-    """Unset: every window in one block (the port's default, not the
-    TPU's 11 / 9).  A divisor is taken; a non-divisor is warned about and
-    ignored; a non-integer raises ConfigError at the read."""
-    assert msm.auto_win_chunk(33) == 33 and msm.auto_win_chunk(27) == 27
-    monkeypatch.setenv("ED25519_TPU_WIN_CHUNK", "11")
-    assert msm.auto_win_chunk(33) == 11
-    with pytest.warns(UserWarning, match="ED25519_TPU_WIN_CHUNK"):
-        assert msm.auto_win_chunk(27) == 27
-    for raw in ("5", "0", "-3"):
-        monkeypatch.setenv("ED25519_TPU_WIN_CHUNK", raw)
-        with pytest.warns(UserWarning, match="divisor"):
-            assert msm.auto_win_chunk(33) == 33
-    monkeypatch.setenv("ED25519_TPU_WIN_CHUNK", "eleven")
-    with pytest.raises(ConfigError, match="ED25519_TPU_WIN_CHUNK"):
-        msm.auto_win_chunk(33)
-    with pytest.raises(ConfigError):
-        msm.dispatch_window_sums_many(
-            np.zeros((1, 33, 64), np.int8),
-            limbs.identity_point_batch(64)[None], device="cpu")
-
-
-def test_dispatches_read_both_knobs_on_every_call(monkeypatch):
-    """The cold and head-resident dispatches pass ED25519_TPU_WIN_CHUNK
-    and ED25519_TPU_PALLAS_BODY to K2 on every call, the tables dispatch
-    only the window chunk (its body is always rolled); unset, the
-    default form runs.  The window sums do not change as group elements
-    (a knob reaches the 20-limb kernels, which sum in another order)."""
+def test_dispatches_launch_the_default_form_whatever_the_environment_holds(
+        monkeypatch):
+    """The cold, head-resident and tables dispatches take no form argument
+    and read no knob: with the JAX package's ED25519_TPU_WIN_CHUNK and
+    ED25519_TPU_PALLAS_BODY set, K2 still runs every window in one block
+    with the rolled body and K2t every window in one block, and the window
+    sums equal those of a run with both unset."""
     seen = []
-    real = msm.window_partials
-    real_t = msm.window_partials_tables
+    real = msm.window_partials_plain
+    real_t = msm.window_partials_tables_plain
 
     def spy(*a, **kw):
         seen.append(("K2", kw.get("win_chunk"), kw.get("body")))
         return real(*a, **kw)
 
     def spy_t(*a, **kw):
-        seen.append(("K2t", kw.get("win_chunk"), kw.get("body")))
+        seen.append(("K2t", kw.get("win_chunk")))
         return real_t(*a, **kw)
 
-    monkeypatch.setattr(msm, "window_partials", spy)
-    monkeypatch.setattr(msm, "window_partials_tables", spy_t)
+    monkeypatch.setattr(msm, "window_partials_plain", spy)
+    monkeypatch.setattr(msm, "window_partials_tables_plain", spy_t)
     d = _adversarial_digits(4, 1, 64, 11)
     _, pts = _terms(64, 12)
     ext = limbs.pack_point_batch(pts).astype(np.int16)[None]
-    base = msm.dispatch_window_sums_many(d, ext, device="cpu")
     head = ext[0, ..., :40]
     tables = msm.build_tables_plain(torch.from_numpy(head[None]))[0]
     rwire = np.stack([limbs.identity_wire_batch(24)])
-    base_t = msm.dispatch_window_sums_many_tables(d, tables, rwire,
-                                                  device="cpu")
+
+    def run():
+        return (msm.dispatch_window_sums_many(d, ext, device="cpu"),
+                msm.dispatch_window_sums_many_cached(d, head, rwire,
+                                                     device="cpu"),
+                msm.dispatch_window_sums_many_tables(d, tables, rwire,
+                                                     device="cpu"))
+
+    monkeypatch.delenv("ED25519_TPU_WIN_CHUNK", raising=False)
+    monkeypatch.delenv("ED25519_TPU_PALLAS_BODY", raising=False)
+    base = run()
     monkeypatch.setenv("ED25519_TPU_WIN_CHUNK", "11")
     monkeypatch.setenv("ED25519_TPU_PALLAS_BODY", "hybrid")
-    got = msm.dispatch_window_sums_many(d, ext, device="cpu")
-    got_c = msm.dispatch_window_sums_many_cached(d, head, rwire,
-                                                 device="cpu")
-    got_t = msm.dispatch_window_sums_many_tables(d, tables, rwire,
-                                                 device="cpu")
-    assert seen == [("K2", 33, "rolled"), ("K2t", 33, None),
-                    ("K2", 11, "hybrid"), ("K2", 11, "hybrid"),
-                    ("K2t", 11, None)]
-    _assert_points_equal(got.numpy(), base.numpy())
-    _assert_points_equal(got_t.numpy(), base_t.numpy())
-    _assert_points_equal(got_c.numpy(), got_t.numpy())
+    got = run()
+    assert seen == [("K2", 33, "rolled"), ("K2", 33, "rolled"),
+                    ("K2t", 33)] * 2
+    for g, b in zip(got, base):
+        _assert_points_equal(g.numpy(), b.numpy())
+    _assert_points_equal(got[1].numpy(), got[2].numpy())
+
+
+@pytest.mark.parametrize("kw", [{"win_chunk": 11}, {"body": "hybrid"},
+                                {"win_chunk": 5}],
+                         ids=["win_chunk=11", "body=hybrid",
+                              "win_chunk=5-not-a-divisor"])
+def test_lab_forms_are_reached_by_argument(kw, monkeypatch):
+    """window_sums_many reaches a lab form by argument, with the default's
+    window sums as points (the 20-limb forms sum in another order); a
+    `win_chunk` that does not divide the 33 windows raises ValueError
+    before any launch."""
+    d = _adversarial_digits(4, 1, 64, 21)
+    _, pts = _terms(64, 22)
+    ext = limbs.pack_point_batch(pts).astype(np.int16)[None]
+    want = msm.window_sums_many(d, ext, device="cpu")
+    launched = []
+    real = msm.window_partials
+
+    def spy(*a, **k):
+        launched.append(k)
+        return real(*a, **k)
+
+    monkeypatch.setattr(msm, "window_partials", spy)
+    if 33 % kw.get("win_chunk", 33):
+        with pytest.raises(ValueError, match="divisor"):
+            msm.window_sums_many(d, ext, device="cpu", **kw)
+        assert launched == []
+        return
+    got = msm.window_sums_many(d, ext, device="cpu", **kw)
+    assert len(launched) == 1
+    assert {k: launched[0][k] for k in kw} == kw
+    _assert_points_equal(got.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("kw", [

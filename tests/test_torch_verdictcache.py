@@ -44,6 +44,9 @@ from ed25519_consensus_tpu_torch import (
 from ed25519_consensus_tpu_torch.ops import edwards
 from ed25519_consensus_tpu_torch.utils import fixtures
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
+
 PKGS = {
     "port": (T, batch, devcache, faults, health, service, verdictcache),
     "jax": (J, jbatch, jdevcache, jfaults, jhealth, jservice,
